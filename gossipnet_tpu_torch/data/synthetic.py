@@ -1,0 +1,194 @@
+"""Synthetic detection layouts (numpy copy of ``gossipnet_tpu.data.synthetic``).
+
+The generators below are the reference's code unchanged, so the port and
+the JAX package draw the same detections from the same seed: the clustered
+B=8 N=1024 batch that ``bench.py`` rescores is ``layout_batch("clustered",
+8, 1024)`` here too. ``synthetic_roidb`` and ``crowd_record`` come with the
+training slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from gossipnet_tpu_torch.data.roidb import ImageRecord
+
+
+def _iou_one_many(box: np.ndarray, boxes: np.ndarray) -> float:
+    """Max IoU of one xyxy box vs a set (0.0 for an empty set)."""
+    if len(boxes) == 0:
+        return 0.0
+    ix = np.maximum(
+        0.0, np.minimum(box[2], boxes[:, 2]) -
+        np.maximum(box[0], boxes[:, 0]))
+    iy = np.maximum(
+        0.0, np.minimum(box[3], boxes[:, 3]) -
+        np.maximum(box[1], boxes[:, 1]))
+    inter = ix * iy
+    area = max((box[2] - box[0]) * (box[3] - box[1]), 0.0)
+    areas = ((boxes[:, 2] - boxes[:, 0]).clip(0)
+             * (boxes[:, 3] - boxes[:, 1]).clip(0))
+    return float((inter / np.maximum(area + areas - inter, 1e-12)).max())
+
+
+def _blend_score(noise: float, iou: float, score_corr: float) -> float:
+    """alpha-blend a raw noise score with localization quality.
+
+    ``score_corr`` (alpha) is the score<->quality correlation knob
+    (VERDICT r4 #3): 0.0 keeps the historical generator BIT-FOR-BIT
+    (``0.0*iou + 1.0*noise == noise`` exactly, and no extra rng draws),
+    1.0 makes raw scores rank perfectly by IoU — the regime where
+    GreedyNMS is already near-optimal and learned rescoring has the
+    least headroom. Real FRCN detections sit in between (scores ARE
+    informative), so quality margins must be reported across alphas,
+    not only at the maximally favorable alpha=0.
+    """
+    return score_corr * iou + (1.0 - score_corr) * noise
+
+
+def synthetic_record(
+    rng: np.random.Generator,
+    image_id: int,
+    num_gt: int = 8,
+    dets_per_gt: int = 6,
+    num_clutter: int = 8,
+    canvas: float = 640.0,
+    num_classes: int = 1,
+    crowd_prob: float = 0.0,
+    score_corr: float = 0.0,
+) -> ImageRecord:
+    """One synthetic image.
+
+    GT boxes are random; each spawns ``dets_per_gt`` jittered detections
+    whose *scores are noisy and (by default) uncorrelated with IoU*,
+    plus clutter detections in empty space with random scores. At the
+    default ``score_corr=0`` learned rescoring can therefore beat
+    raw-score ranking by a wide margin; raise ``score_corr`` toward 1
+    to make raw scores informative like a real detector's
+    (see :func:`_blend_score`).
+    """
+    gt_xy = rng.uniform(0.1 * canvas, 0.7 * canvas, size=(num_gt, 2))
+    gt_wh = rng.uniform(0.05 * canvas, 0.25 * canvas, size=(num_gt, 2))
+    gt_boxes = np.concatenate([gt_xy, gt_xy + gt_wh], axis=1).astype(np.float32)
+    gt_classes = rng.integers(0, num_classes, size=num_gt).astype(np.int32)
+    gt_crowd = (rng.uniform(size=num_gt) < crowd_prob)
+
+    det_boxes, det_scores, det_classes = [], [], []
+    for g in range(num_gt):
+        for _ in range(dets_per_gt):
+            scale = rng.uniform(0.02, 0.25)  # jitter magnitude
+            jit = rng.normal(0, scale * gt_wh[g].mean(), size=4)
+            box = gt_boxes[g] + jit
+            box[2] = max(box[2], box[0] + 2.0)
+            box[3] = max(box[3], box[1] + 2.0)
+            det_boxes.append(box)
+            # Score: noise by default (deliberately NOT ranking by
+            # IoU); score_corr>0 blends in IoU vs the spawning GT
+            # (skipped at the alpha=0 default, where the blend
+            # multiplies it by 0.0 anyway).
+            det_scores.append(_blend_score(
+                rng.uniform(0.3, 1.0),
+                _iou_one_many(box, gt_boxes[g:g + 1]) if score_corr
+                else 0.0, score_corr))
+            det_classes.append(gt_classes[g])
+    for _ in range(num_clutter):
+        xy = rng.uniform(0, 0.9 * canvas, size=2)
+        wh = rng.uniform(0.03 * canvas, 0.2 * canvas, size=2)
+        box = np.concatenate([xy, xy + wh])
+        det_boxes.append(box)
+        # Clutter quality = max IoU vs ANY GT (usually ~0, so at high
+        # score_corr clutter scores low — like a real detector).
+        det_scores.append(_blend_score(
+            rng.uniform(0.3, 1.0),
+            _iou_one_many(box, gt_boxes) if score_corr else 0.0,
+            score_corr))
+        det_classes.append(int(rng.integers(0, num_classes)))
+
+    return ImageRecord(
+        image_id=image_id,
+        det_boxes=np.asarray(det_boxes, np.float32),
+        det_scores=np.asarray(det_scores, np.float32),
+        det_classes=np.asarray(det_classes, np.int32),
+        gt_boxes=gt_boxes,
+        gt_classes=gt_classes,
+        gt_crowd=np.asarray(gt_crowd, bool),
+    )
+
+
+BENCH_LAYOUTS = ("clustered", "uniform", "mixed", "blob")
+
+
+def layout_record(
+    rng: np.random.Generator,
+    image_id: int,
+    layout: str,
+    n_dets: int,
+    canvas: float = 640.0,
+) -> ImageRecord:
+    """Spatial detection layouts for benchmarking (VERDICT r1 item 5).
+
+    The block-sparse pair kernel's win depends on how detections spread
+    over the image, so throughput must be reported per layout:
+
+    - 'clustered': jittered boxes around GT clusters — the round-1 bench
+      regime and the best case for tile skipping after the x-sort.
+    - 'uniform': boxes spread uniformly with COCO-typical sizes — the
+      realistic 80-class regime (objects rarely pile up).
+    - 'mixed': half clustered, half uniform — crowded foreground over
+      scattered background detections.
+    - 'blob': every box inside one small region, all pairs overlap —
+      the adversarial worst case; tile skipping cannot help.
+    """
+    if layout == "clustered":
+        return synthetic_record(
+            rng, image_id, num_gt=max(n_dets // 8, 1), dets_per_gt=6,
+            num_clutter=max(n_dets // 8, 1), canvas=canvas,
+        )
+
+    def uniform_boxes(k, lo=0.03, hi=0.15, x0=0.0, span=1.0):
+        xy = (x0 + rng.uniform(0, span, size=(k, 2)) * 0.9) * canvas
+        wh = rng.uniform(lo, hi, size=(k, 2)) * canvas
+        return np.concatenate([xy, xy + wh], axis=1)
+
+    if layout == "uniform":
+        boxes = uniform_boxes(n_dets)
+    elif layout == "blob":
+        # All boxes inside the central 15% of the canvas, sized 10-20%:
+        # every pair overlaps.
+        xy = (0.42 + rng.uniform(0, 0.15, size=(n_dets, 2))) * canvas
+        wh = rng.uniform(0.10, 0.20, size=(n_dets, 2)) * canvas
+        boxes = np.concatenate([xy, xy + wh], axis=1)
+    elif layout == "mixed":
+        half = n_dets // 2
+        clustered = synthetic_record(
+            rng, image_id, num_gt=max(half // 8, 1), dets_per_gt=8,
+            num_clutter=0, canvas=canvas,
+        ).det_boxes[:half]
+        boxes = np.concatenate(
+            [clustered, uniform_boxes(n_dets - len(clustered))], axis=0)
+    else:
+        raise ValueError(f"unknown layout {layout!r}; "
+                         f"options: {BENCH_LAYOUTS}")
+
+    n = len(boxes)
+    # A few GT boxes so training benches work on any layout.
+    gt = uniform_boxes(max(n // 16, 1))
+    return ImageRecord(
+        image_id=image_id,
+        det_boxes=np.asarray(boxes, np.float32),
+        det_scores=rng.uniform(0.3, 1.0, size=n).astype(np.float32),
+        det_classes=np.zeros(n, np.int32),
+        gt_boxes=np.asarray(gt, np.float32),
+        gt_classes=np.zeros(len(gt), np.int32),
+        gt_crowd=np.zeros(len(gt), bool),
+    )
+
+
+def layout_batch(layout: str, batch: int, n: int, seed: int = 0):
+    """Padded Batch of ``batch`` images in the given bench layout."""
+    from gossipnet_tpu_torch.data.bucketing import make_batch
+
+    rng = np.random.default_rng(seed)
+    records = [layout_record(rng, i, layout, n_dets=n)
+               for i in range(batch)]
+    return make_batch(records, padded_n=n)

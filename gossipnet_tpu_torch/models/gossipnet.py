@@ -1,0 +1,236 @@
+"""GossipNet in PyTorch (port of ``gossipnet_tpu/models/gossipnet.py``).
+
+Per image with N detections and neighbour set E = {(i,j): IoU >= 0.2}
+(self-pairs included), K stacked residual blocks:
+
+    r_i    = relu(FC_reduce(c_i))                   128 -> 32
+    a_i    = r_i @ Wa + b1,  b_j = r_j @ Wb
+    m_i    = max_{j in E(i)} relu(W2^T relu(a_i + b_j + g_ij @ Wg) + b2)
+    c_i   += FC_out(relu(FC_expand(m_i)))            32 -> 128
+    logit_i = FC_head(c_K,i); padding gets PAD_LOGIT
+
+``pool_impl``: "dense" materializes the pair tensor (row-chunked);
+"kernel" streams it through K1 (``ops/cuda/pairwise2.py``), which on CPU
+tensors is K1's plain version. The kernel path sorts detections by Morton
+key first and unsorts the logits (a pure speed transform: the network is
+permutation-equivariant per detection).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import Tensor, nn
+from torch.nn.utils import skip_init
+
+from gossipnet_tpu_torch.config import ModelConfig
+from gossipnet_tpu_torch.ops import order as ordering
+from gossipnet_tpu_torch.ops import pair_features as pf
+from gossipnet_tpu_torch.ops import ranking
+from gossipnet_tpu_torch.ops.cuda import pairwise2
+
+NEG_INF = -1e30
+PAD_LOGIT = -1e4  # logit assigned to padded detections at the head
+POOL_IMPLS = ("dense", "kernel")
+_CHUNK_ELEMENTS = 1 << 25   # pair activations per row chunk of the dense path
+
+
+class PairParams(NamedTuple):
+    """Pair-stage parameters of one block, shared by both pool paths."""
+
+    wa: Tensor   # [R, P]  r_i path of pair FC1
+    wb: Tensor   # [R, P]  r_j path of pair FC1
+    wg: Tensor   # [G, P]  pair-feature path of FC1
+    b1: Tensor   # [P]
+    w2: Tensor   # [P, P]  pair FC2 (in, out)
+    b2: Tensor   # [P]
+
+
+def check_supported(cfg: ModelConfig, pool_impl: str) -> None:
+    """Raise on the config values this port cannot honour yet."""
+    if pool_impl not in POOL_IMPLS:
+        raise ValueError(f"unknown pool_impl {pool_impl!r}; "
+                         f"options: {POOL_IMPLS}")
+    if cfg.num_classes > 1:
+        raise NotImplementedError(
+            "multi-class GossipNet (num_classes > 1) is not ported yet: "
+            "ROADMAP.md item 11")
+    if cfg.dtype != "float32":
+        raise NotImplementedError(
+            f"model.dtype={cfg.dtype!r} is not ported yet (float32 only): "
+            "ROADMAP.md item 16")
+    if pool_impl == "kernel" and cfg.pair_kernel != 2:
+        raise NotImplementedError(
+            f"pair_kernel={cfg.pair_kernel} (the unfolded TPU kernel) is not "
+            "ported yet: ROADMAP.md kernel K5")
+    if pool_impl == "kernel" and cfg.pair_elementwise_dtype != "float32":
+        raise NotImplementedError(
+            "pair_elementwise_dtype=bfloat16 is not ported yet: "
+            "ROADMAP.md item 16")
+
+
+def resolve_device(device) -> torch.device:
+    """The device a model runs on; a CUDA device must exist (no fallback)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' but no CUDA device is visible; pass device='cpu' "
+            "to run the plain PyTorch path instead")
+    return device
+
+
+def pair_pool_dense(a: Tensor, b: Tensor, wg: Tensor, w2: Tensor, b2: Tensor,
+                    g: Tensor, mask: Tensor) -> Tensor:
+    """Dense pair stage + neighbour max -> m [..., N, P] (0 for a row
+    without neighbours). Materializes [..., rows, N, P] in row chunks of
+    at most ``_CHUNK_ELEMENTS`` activations.
+
+    a [..., N, P]; b [..., N, P]; g [..., N, N, G]; mask [..., N, N].
+    """
+    n, p = a.shape[-2], a.shape[-1]
+    lead = 1
+    for d in a.shape[:-2]:
+        lead *= d
+    chunk = max(1, _CHUNK_ELEMENTS // max(lead * n * p, 1))
+    out = torch.empty_like(a)
+    for r0 in range(0, n, chunk):
+        rows = slice(r0, r0 + chunk)
+        u1 = a[..., rows, None, :] + b[..., None, :, :] + g[..., rows, :, :] @ wg
+        h2 = torch.relu(torch.relu(u1) @ w2 + b2)
+        h2 = torch.where(mask[..., rows, :, None], h2,
+                         torch.full_like(h2, NEG_INF))
+        m = h2.amax(dim=-2)
+        out[..., rows, :] = torch.where(m <= NEG_INF / 2,
+                                        torch.zeros_like(m), m)
+    return out
+
+
+def _linear(fan_in: int, fan_out: int, device) -> nn.Linear:
+    # skip_init: parameters are always loaded (params.py), never drawn
+    # from torch's global generator.
+    return skip_init(nn.Linear, fan_in, fan_out, device=device)
+
+
+class GossipBlock(nn.Module):
+    """One gossip block: reduce -> pair MLP -> neighbour max -> expand."""
+
+    def __init__(self, cfg: ModelConfig, num_pair_features: int, device):
+        super().__init__()
+        fd, rd, p = cfg.feature_dim, cfg.reduced_dim, cfg.pairwise_dim
+        self.reduce = _linear(fd, rd, device)
+
+        def param(*shape):
+            return nn.Parameter(torch.empty(shape, device=device))
+
+        self.pair_wa = param(rd, p)
+        self.pair_wb = param(rd, p)
+        self.pair_wg = param(num_pair_features, p)
+        self.pair_b1 = param(p)
+        self.pair_w2 = param(p, p)
+        self.pair_b2 = param(p)
+        # expand_hidden_layers-1 relu FCs of width P (named as in the
+        # flax model: expand, expand_h1, ...), then the map to feature_dim.
+        self.expand_names = []
+        for i in range(cfg.expand_hidden_layers - 1):
+            name = "expand" if i == 0 else f"expand_h{i}"
+            setattr(self, name, _linear(p, p, device))
+            self.expand_names.append(name)
+        self.expand_out = _linear(p, fd, device)
+
+    def pair_params(self) -> PairParams:
+        return PairParams(self.pair_wa, self.pair_wb, self.pair_wg,
+                          self.pair_b1, self.pair_w2, self.pair_b2)
+
+    def forward(self, c: Tensor, pool_fn) -> Tensor:
+        r = torch.relu(self.reduce(c))
+        prm = self.pair_params()
+        a = r @ prm.wa + prm.b1
+        b = r @ prm.wb
+        e = pool_fn(prm, a, b)
+        for name in self.expand_names:
+            e = torch.relu(getattr(self, name)(e))
+        return c + self.expand_out(e)
+
+
+class GossipNet(nn.Module):
+    """Rescoring network over a batch of padded detection sets.
+
+    Inputs: boxes [B, N, 4] xyxy, scores [B, N], valid [B, N] bool.
+    Output: logits [B, N]; padded entries get PAD_LOGIT. Parameters are
+    created uninitialised; load them with ``load_state_dict`` (see
+    ``params.py``).
+    """
+
+    def __init__(self, cfg: ModelConfig, pool_impl: str = "dense",
+                 device="cuda"):
+        super().__init__()
+        check_supported(cfg, pool_impl)
+        device = resolve_device(device)
+        # "float32" means IEEE f32, as the JAX side forces with
+        # Precision.HIGHEST: no TF32 in matmuls or convolutions.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.cfg = cfg
+        self.pool_impl = pool_impl
+        num_g = pf.NUM_PAIR_FEATURES
+        self.init_fc = _linear(1 + int(cfg.score_rank_feature),
+                               cfg.feature_dim, device)
+        self.blocks = nn.ModuleList(
+            GossipBlock(cfg, num_g, device) for _ in range(cfg.num_blocks))
+        self.head = _linear(cfg.feature_dim, 1, device)
+
+    def forward(self, boxes: Tensor, scores: Tensor, valid: Tensor,
+                classes: Tensor | None = None) -> Tensor:
+        cfg = self.cfg
+        boxes = boxes.float()
+        scores = scores.float()
+        valid = valid.bool()
+
+        inv_perm = None
+        if self.pool_impl == "kernel" and cfg.sort_detections:
+            key = ordering.morton_sort_key(boxes, valid)
+            perm = torch.argsort(key, dim=-1, stable=True)
+            inv_perm = torch.argsort(perm, dim=-1)
+            boxes = torch.gather(boxes, -2, perm[..., None].expand_as(boxes))
+            scores = torch.gather(scores, -1, perm)
+            valid = torch.gather(valid, -1, perm)
+
+        cols = pf.det_columns(boxes, scores, valid)
+        phi = [scores[..., None]]
+        if cfg.score_rank_feature:
+            phi.append(ranking.score_rank(scores, valid)[..., None])
+        c = self.init_fc(torch.cat(phi, dim=-1))
+
+        if self.pool_impl == "dense":
+            g, mask = pf.dense_pair_tensor(cols, cfg.neighbor_iou)
+
+            def pool_fn(prm: PairParams, a, b):
+                return pair_pool_dense(a, b, prm.wg, prm.w2, prm.b2, g, mask)
+        else:
+            stacked = pf.stack_columns(cols)
+            geom = pairwise2.pair_geometry(
+                stacked, stacked, cfg.neighbor_iou,
+                block_sparse=cfg.block_sparse)
+
+            def pool_fn(prm: PairParams, a, b):
+                return pairwise2.pair_pool(
+                    stacked, stacked, a, b, prm, cfg.neighbor_iou,
+                    compute_dtype=cfg.pair_matmul_dtype,
+                    block_sparse=cfg.block_sparse, geometry=geom)
+
+        for block in self.blocks:
+            c = block(c, pool_fn)
+
+        logits = self.head(c)[..., 0]
+        logits = torch.where(valid, logits, torch.full_like(logits, PAD_LOGIT))
+        if inv_perm is not None:
+            logits = torch.gather(logits, -1, inv_perm)
+        return logits
+
+
+def rescore(model: GossipNet, boxes: Tensor, scores: Tensor, valid: Tensor,
+            classes: Tensor | None = None) -> Tensor:
+    """Functional forward: new logits for ranking/thresholding (no grad)."""
+    with torch.inference_mode():
+        return model(boxes, scores, valid, classes)
