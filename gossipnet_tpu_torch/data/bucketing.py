@@ -1,20 +1,22 @@
-"""Static-shape batch assembly (numpy copy of
-``gossipnet_tpu.data.bucketing``'s ``Batch``, ``bucket_for`` and
-``make_batch``).
+"""Static-shape batch assembly and the resumable training iterator (numpy
+copy of ``gossipnet_tpu.data.bucketing``: ``Batch``, ``bucket_for``,
+``make_batch``, ``IteratorState``, ``BatchIterator``).
 
 Every image is padded to the smallest bucket of
 ``DataConfig.bucket_sizes`` that fits it; images sharing a bucket stack
-into [B, N, ...] batches. The training iterators come with the training
-slice.
+into [B, N, ...] batches. The iterator's code is the reference's, so both
+packages draw the same batches from the same seed, and its state is
+(epoch, cursor) plus the seed, so a resumed run replays the exact stream.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from dataclasses import dataclass
+from typing import Iterator, NamedTuple, Sequence
 
 import numpy as np
 
-from gossipnet_tpu_torch.data.roidb import ImageRecord
+from gossipnet_tpu_torch.data.roidb import ImageRecord, Roidb
 
 
 class Batch(NamedTuple):
@@ -29,6 +31,18 @@ class Batch(NamedTuple):
     gt_classes: np.ndarray   # [B, G] int32
     gt_valid: np.ndarray     # [B, G] bool
     gt_crowd: np.ndarray     # [B, G] bool
+
+    @property
+    def batch_size(self) -> int:
+        return self.boxes.shape[0]
+
+    @property
+    def padded_n(self) -> int:
+        return self.boxes.shape[1]
+
+    @property
+    def padded_g(self) -> int:
+        return self.gt_boxes.shape[1]
 
 
 def bucket_for(n: int, bucket_sizes: Sequence[int]) -> int:
@@ -84,3 +98,88 @@ def make_batch(
         out.gt_valid[i, :g] = True
         out.gt_crowd[i, :g] = r.gt_crowd[:g]
     return out
+
+
+@dataclass
+class IteratorState:
+    """Resumable position in the shuffled stream."""
+
+    epoch: int = 0
+    cursor: int = 0
+
+
+class BatchIterator:
+    """Infinite shuffled iterator over bucketed, padded batches.
+
+    Images are grouped by bucket each epoch; whole batches are drawn from
+    one bucket so every batch has a single static shape. Partial tail
+    groups are padded by repeating images (marked via duplicate image_ids).
+    """
+
+    def __init__(
+        self,
+        roidb: Roidb,
+        batch_size: int,
+        bucket_sizes: Sequence[int],
+        seed: int = 0,
+        shuffle: bool = True,
+        state: IteratorState | None = None,
+    ):
+        if len(roidb) == 0:
+            raise ValueError("empty roidb")
+        self.roidb = roidb
+        self.batch_size = batch_size
+        self.bucket_sizes = tuple(sorted(bucket_sizes))
+        self.seed = seed
+        self.shuffle = shuffle
+        self.state = state or IteratorState()
+        self._plan: list[tuple[int, tuple[int, ...]]] | None = None
+        self._plan_epoch = -1
+
+    def _epoch_plan(self, epoch: int) -> list[tuple[int, tuple[int, ...]]]:
+        """Deterministic list of (bucket_n, record_indices) batches."""
+        if self._plan is not None and self._plan_epoch == epoch:
+            return self._plan
+        rng = np.random.default_rng((self.seed, epoch))
+        order = np.arange(len(self.roidb))
+        if self.shuffle:
+            rng.shuffle(order)
+        buckets: dict[int, list[int]] = {}
+        for idx in order:
+            n = self.roidb.records[idx].num_dets
+            buckets.setdefault(bucket_for(n, self.bucket_sizes), []).append(idx)
+        plan: list[tuple[int, tuple[int, ...]]] = []
+        for bn in sorted(buckets):
+            idxs = buckets[bn]
+            for s in range(0, len(idxs), self.batch_size):
+                group = idxs[s : s + self.batch_size]
+                while len(group) < self.batch_size:  # repeat-pad tail
+                    group = group + group[: self.batch_size - len(group)]
+                plan.append((bn, tuple(group)))
+        if self.shuffle:
+            rng.shuffle(plan)  # interleave buckets
+        self._plan, self._plan_epoch = plan, epoch
+        return plan
+
+    def __iter__(self) -> Iterator[Batch]:
+        return self
+
+    def __next__(self) -> Batch:
+        plan = self._epoch_plan(self.state.epoch)
+        if self.state.cursor >= len(plan):
+            self.state = IteratorState(epoch=self.state.epoch + 1, cursor=0)
+            plan = self._epoch_plan(self.state.epoch)
+        bn, group = plan[self.state.cursor]
+        self.state = IteratorState(self.state.epoch, self.state.cursor + 1)
+        return make_batch([self.roidb.records[i] for i in group], padded_n=bn)
+
+    # --- checkpointable state ---
+    def get_state(self) -> dict:
+        return {"epoch": self.state.epoch, "cursor": self.state.cursor,
+                "seed": self.seed}
+
+    def set_state(self, s: dict) -> None:
+        if s.get("seed", self.seed) != self.seed:
+            raise ValueError("iterator seed mismatch on restore")
+        self.state = IteratorState(int(s["epoch"]), int(s["cursor"]))
+        self._plan = None

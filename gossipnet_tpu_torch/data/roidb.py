@@ -1,12 +1,12 @@
 """Host-side detection records (numpy copy of ``gossipnet_tpu.data.roidb``).
 
-Only :class:`ImageRecord` is ported so far; the COCO loaders come with the
-evaluation slice (ROADMAP.md item 10).
+:class:`ImageRecord` and :class:`Roidb` are ported; the COCO loaders come
+with the evaluation slice (ROADMAP.md item 10).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -30,3 +30,23 @@ class ImageRecord:
     @property
     def num_dets(self) -> int:
         return len(self.det_scores)
+
+
+@dataclass
+class Roidb:
+    """A dataset: per-image records + class metadata."""
+
+    records: list[ImageRecord]
+    class_names: list[str] = field(default_factory=lambda: ["object"])
+    # contiguous label -> original COCO category id (for result export)
+    cat_ids: list[int] = field(default_factory=lambda: [1])
+
+    @property
+    def num_classes(self) -> int:
+        return len(self.class_names)
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    def __iter__(self):
+        return iter(self.records)

@@ -3,15 +3,15 @@
 The generators below are the reference's code unchanged, so the port and
 the JAX package draw the same detections from the same seed: the clustered
 B=8 N=1024 batch that ``bench.py`` rescores is ``layout_batch("clustered",
-8, 1024)`` here too. ``synthetic_roidb`` and ``crowd_record`` come with the
-training slice.
+8, 1024)`` here too, and ``synthetic_roidb`` gives the training stream the
+JAX package trains on. ``crowd_record`` is not ported yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from gossipnet_tpu_torch.data.roidb import ImageRecord
+from gossipnet_tpu_torch.data.roidb import ImageRecord, Roidb
 
 
 def _iou_one_many(box: np.ndarray, boxes: np.ndarray) -> float:
@@ -113,6 +113,22 @@ def synthetic_record(
         gt_classes=gt_classes,
         gt_crowd=np.asarray(gt_crowd, bool),
     )
+
+
+def synthetic_roidb(
+    num_images: int = 64,
+    seed: int = 0,
+    num_classes: int = 1,
+    **kwargs,
+) -> Roidb:
+    rng = np.random.default_rng(seed)
+    records = [
+        synthetic_record(rng, image_id=i, num_classes=num_classes, **kwargs)
+        for i in range(num_images)
+    ]
+    names = [f"class_{i}" for i in range(num_classes)]
+    return Roidb(records=records, class_names=names,
+                 cat_ids=list(range(1, num_classes + 1)))
 
 
 BENCH_LAYOUTS = ("clustered", "uniform", "mixed", "blob")

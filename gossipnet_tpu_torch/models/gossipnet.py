@@ -10,10 +10,12 @@ Per image with N detections and neighbour set E = {(i,j): IoU >= 0.2}
     logit_i = FC_head(c_K,i); padding gets PAD_LOGIT
 
 ``pool_impl``: "dense" materializes the pair tensor (row-chunked);
-"kernel" streams it through K1 (``ops/cuda/pairwise2.py``), which on CPU
-tensors is K1's plain version. The kernel path sorts detections by Morton
-key first and unsorts the logits (a pure speed transform: the network is
-permutation-equivariant per detection).
+"kernel" streams it through K1, with K2 as its backward
+(``ops/cuda/pairwise2.py``); on CPU tensors both are their plain versions.
+``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``), the JAX model's ``nn.remat``. The kernel
+path sorts detections by Morton key first and unsorts the logits (a pure
+speed transform: the network is permutation-equivariant per detection).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor, nn
 from torch.nn.utils import skip_init
+from torch.utils.checkpoint import checkpoint
 
 from gossipnet_tpu_torch.config import ModelConfig
 from gossipnet_tpu_torch.ops import order as ordering
@@ -159,11 +162,13 @@ class GossipNet(nn.Module):
     Inputs: boxes [B, N, 4] xyxy, scores [B, N], valid [B, N] bool.
     Output: logits [B, N]; padded entries get PAD_LOGIT. Parameters are
     created uninitialised; load them with ``load_state_dict`` (see
-    ``params.py``).
+    ``params.py``). ``remat`` rematerialises each block in the backward
+    (trades recompute for activation memory; with the kernel path the
+    recompute launches K1 again).
     """
 
     def __init__(self, cfg: ModelConfig, pool_impl: str = "dense",
-                 device="cuda"):
+                 device="cuda", remat: bool = False):
         super().__init__()
         check_supported(cfg, pool_impl)
         device = resolve_device(device)
@@ -173,6 +178,7 @@ class GossipNet(nn.Module):
         torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
         self.pool_impl = pool_impl
+        self.remat = remat
         num_g = pf.NUM_PAIR_FEATURES
         self.init_fc = _linear(1 + int(cfg.score_rank_feature),
                                cfg.feature_dim, device)
@@ -220,7 +226,10 @@ class GossipNet(nn.Module):
                     block_sparse=cfg.block_sparse, geometry=geom)
 
         for block in self.blocks:
-            c = block(c, pool_fn)
+            if self.remat and torch.is_grad_enabled():
+                c = checkpoint(block, c, pool_fn, use_reentrant=False)
+            else:
+                c = block(c, pool_fn)
 
         logits = self.head(c)[..., 0]
         logits = torch.where(valid, logits, torch.full_like(logits, PAD_LOGIT))

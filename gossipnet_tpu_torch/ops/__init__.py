@@ -1,2 +1,2 @@
-"""Detection ops of the PyTorch port: pair features, score rank, Morton
-order and the pair-pool kernel (``ops/cuda``)."""
+"""Detection ops of the PyTorch port: box geometry, pair features, score
+rank, Morton order, greedy matching, and the kernels (``ops/cuda``)."""

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/torch_kernels/lib<name>-<hash>.so`` at the repository root.
-The hash covers the source and the flags, so an edited source never reuses
-a stale library. Nothing builds at import: the first call that needs a
+The hash covers the source, every shared header ``csrc/*.cuh`` and the
+flags, so an edited source or header never reuses a stale library. Nothing builds at import: the first call that needs a
 kernel builds it (a few seconds per source), and :func:`build` starts one
 ``nvcc`` per source, all at once.
 """
@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -27,6 +28,7 @@ NVCC_FLAGS = (
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}   # name -> nvcc/ptxas output of the last build
+build_seconds: dict[str, float] = {}   # name -> wall time of its last build
 
 
 def _nvcc() -> str:
@@ -43,11 +45,12 @@ def _nvcc() -> str:
         "built from source at first use and need the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict[str, Path]:
@@ -60,17 +63,27 @@ def build(names) -> dict[str, Path]:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
+    t0 = time.perf_counter()
     for n, p in todo.items():
         tmp = p.with_name(f"{p.name}.{os.getpid()}.tmp")
-        procs[n] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        log = tmp.with_suffix(".log")
+        with open(log, "w") as out:
+            procs[n] = (tmp, log, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")],
+                stdout=out, stderr=subprocess.STDOUT))
+    running = dict(procs)
+    while running:   # poll, so each source's wall time is its own
+        for n, (_, _, proc) in list(running.items()):
+            if proc.poll() is not None:
+                build_seconds[n] = time.perf_counter() - t0
+                del running[n]
+        time.sleep(0.1)
     failed = []
-    for n, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        build_logs[n] = log
+    for n, (tmp, log, proc) in procs.items():
+        build_logs[n] = log.read_text()
+        log.unlink(missing_ok=True)
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {n}.cu:\n{log}")
+            failed.append(f"nvcc failed for {n}.cu:\n{build_logs[n]}")
             continue
         os.replace(tmp, todo[n])
     if failed:

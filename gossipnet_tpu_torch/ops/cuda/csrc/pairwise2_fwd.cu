@@ -30,34 +30,18 @@
 // the weights and the column tile in shared memory. At the end the
 // per-warp maxima meet through shared memory.
 //
-// Numerics: the IoU and the neighbour predicate use explicitly rounded
-// operations (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn), so no FMA
-// contraction can move a pair across the threshold: the plain PyTorch
-// version makes the same neighbour decisions bit for bit. BF16 mode rounds
-// what the TPU kernel feeds its bf16 dots (features g, b', Wg_k, h1, W2) and
-// accumulates in f32; a' and b2 stay f32. Non-BF16 mode is IEEE f32.
+// Numerics: the per-pair arithmetic (IoU, features, FC1, FC2) lives in
+// pairwise2_pair.cuh, shared with K2, which must recompute pre2 bit for bit.
+// The IoU and the neighbour predicate are explicitly rounded, so the plain
+// PyTorch version makes the same neighbour decisions bit for bit. BF16 mode
+// rounds what the TPU kernel feeds its bf16 dots (features g, b', Wg_k, h1,
+// W2) and accumulates in f32; a' and b2 stay f32. Non-BF16 mode is IEEE f32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "pairwise2_pair.cuh"
 
 namespace {
 
-constexpr int TILE_I = 32;  // rows per block: one per lane
-constexpr int TILE_J = 64;  // columns staged per step
-constexpr int NWARPS = 4;   // warps sharing one column tile
-constexpr int NTHREADS = 32 * NWARPS;
-constexpr int KMAX = 4;     // pair features kept in the kernel
-constexpr int CMAX = 9;     // fields per detection column (8, +1 class)
-constexpr float EPS = 1e-6f;
-
-// Row fields: x1 y1 x2 y2 area inv_w inv_h valid [cls]
-// Col fields: x1 y1 x2 y2 area cx   cy    valid [cls]
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+using namespace gnet;
 
 template <int P>
 constexpr size_t smem_floats() {
@@ -150,47 +134,14 @@ pair_pool2_fwd_kernel(const float* __restrict__ row_cols,  // [B, C, NR]
 
     for (int j = warp; j < ncol; j += NWARPS) {
       const float jvalid = cs[7 * TILE_J + j];
-      const float iw = fmaxf(__fsub_rn(fminf(ri[2], cs[2 * TILE_J + j]),
-                                       fmaxf(ri[0], cs[0 * TILE_J + j])), 0.f);
-      const float ih = fmaxf(__fsub_rn(fminf(ri[3], cs[3 * TILE_J + j]),
-                                       fmaxf(ri[1], cs[1 * TILE_J + j])), 0.f);
-      const float inter = __fmul_rn(iw, ih);
-      const float uni = __fsub_rn(__fadd_rn(ri[4], cs[4 * TILE_J + j]), inter);
-      const float iou = __fdiv_rn(inter, fmaxf(uni, EPS));
+      const float iou = pair_iou(ri, cs, j);
       if (!(jvalid > 0.f && iou >= thr)) continue;
 
-      float g0 = iou;
-      float g1 = __fmul_rn(cs[5 * TILE_J + j], ri[5]);
-      float g2 = __fmul_rn(cs[6 * TILE_J + j], ri[6]);
-      float g3 = (K == 4 && ri[8] == cs[8 * TILE_J + j]) ? 1.f : 0.f;
-      if (BF16) {
-        g0 = round_bf16(g0);
-        g1 = round_bf16(g1);
-        g2 = round_bf16(g2);
-      }
-      const float* bj = bs + j * P;
+      float g[KMAX];
+      pair_features<BF16>(ri, cs, j, K, iou, g);
       float pre[P];
-#pragma unroll
-      for (int q = 0; q < P; ++q) pre[q] = b2s[q];
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        float h = bj[p];
-        h = fmaf(wgs[0 * P + p], g0, h);
-        h = fmaf(wgs[1 * P + p], g1, h);
-        h = fmaf(wgs[2 * P + p], g2, h);
-        h = fmaf(wgs[3 * P + p], g3, h);  // row 3 is zero when K == 3
-        h = fmaxf(as[p * (TILE_I + 1) + lane] + h, 0.f);
-        if (BF16) h = round_bf16(h);
-        const float4* w2row = reinterpret_cast<const float4*>(w2s + p * P);
-#pragma unroll
-        for (int q4 = 0; q4 < P / 4; ++q4) {
-          const float4 w = w2row[q4];
-          pre[4 * q4 + 0] = fmaf(h, w.x, pre[4 * q4 + 0]);
-          pre[4 * q4 + 1] = fmaf(h, w.y, pre[4 * q4 + 1]);
-          pre[4 * q4 + 2] = fmaf(h, w.z, pre[4 * q4 + 2]);
-          pre[4 * q4 + 3] = fmaf(h, w.w, pre[4 * q4 + 3]);
-        }
-      }
+      pair_pre2<P, BF16, false>(as + lane, bs + j * P, wgs, w2s, b2s, g, pre,
+                                pre);
 #pragma unroll
       for (int q = 0; q < P; ++q) mx[q] = fmaxf(mx[q], pre[q]);
     }

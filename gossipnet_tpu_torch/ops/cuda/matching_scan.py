@@ -1,0 +1,146 @@
+"""K3 and K4, the greedy matching scan: CUDA kernel wrappers and their plain
+version (port of ``gossipnet_tpu/ops/pallas/matching_kernel.py``).
+
+The scan walks score-sorted detections in order; each takes, among the GTs
+not yet taken at its threshold, the one of largest IoU with IoU >= t, the
+lowest index winning ties. The IoU arrives pre-masked (invalid detections
+and non-real GTs zeroed), so thresholds must be > 0.
+
+:func:`greedy_scan_batched` (K3, [B, N, G]) and :func:`greedy_scan` (K4,
+[N, G]) launch ``csrc/matching_scan.cu`` on CUDA tensors, or raise; on CPU
+tensors they run :func:`greedy_scan_reference`. Thresholds are a 1-D
+float tensor, on the host or on the IoU's device. The kernel does
+comparisons only, so it equals the plain version exactly.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+from torch import Tensor
+
+NEG_INF = -1e30
+
+
+def _check_thresholds(thresholds: Tensor) -> None:
+    """Refuse t <= 0; checked on the host (a CPU tensor costs no device
+    sync, which is why the matching code passes its thresholds there)."""
+    if thresholds.ndim != 1 or not bool((thresholds.cpu() > 0.0).all()):
+        raise ValueError(
+            "the matching scan kernel needs 1-D thresholds, all > 0 "
+            "(exclusions are folded into zeroed IoU rows), got "
+            f"{thresholds.tolist()}")
+
+
+def scan_loop(iou: Tensor, thresholds: Tensor,
+              eligible: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """The reference scan body (``matching.py:182-202``) as a loop over the
+    N rows of ``iou`` [B, N, G] -> (matched [B, N, T] bool, best [B, N, T]
+    int32, -1 where unmatched).
+
+    ``eligible`` [B, N, G] bool adds the explicit exclusions of the scan
+    path (real GT, same class, valid detection); without it the IoU is
+    taken as pre-masked, as the kernel takes it.
+    """
+    bsz, n, g = iou.shape
+    t = thresholds.shape[0]
+    thr = thresholds.to(iou.dtype)[None, :, None]              # [1, T, 1]
+    gidx = torch.arange(g, device=iou.device)
+    taken = torch.zeros((bsz, t, g), dtype=torch.bool, device=iou.device)
+    matched = torch.zeros((bsz, n, t), dtype=torch.bool, device=iou.device)
+    best = torch.full((bsz, n, t), -1, dtype=torch.int32, device=iou.device)
+    for i in range(n):
+        row = iou[:, i, None, :]                                # [B, 1, G]
+        elig = (row >= thr) & ~taken
+        if eligible is not None:
+            elig = elig & eligible[:, i, None, :]
+        cand = torch.where(elig, row, torch.full_like(row, NEG_INF))
+        mx = cand.amax(dim=2, keepdim=True)                     # [B, T, 1]
+        hit = mx[..., 0] > NEG_INF                              # [B, T]
+        first = torch.where(elig & (cand == mx), gidx, g).amin(dim=2)
+        taken = taken | ((gidx == first[..., None]) & hit[..., None])
+        matched[:, i] = hit
+        best[:, i] = torch.where(hit, first, -1).to(torch.int32)
+    return matched, best
+
+
+def greedy_scan_reference(iou: Tensor, thresholds: Tensor):
+    """Plain K3 on pre-masked IoU [B, N, G] -> (matched, best) [B, N, T]."""
+    _check_thresholds(thresholds)
+    return scan_loop(iou.float(), thresholds.to(iou.device, torch.float32))
+
+
+def _library() -> ctypes.CDLL:
+    from gossipnet_tpu_torch.ops.cuda import build
+
+    lib = build.load("matching_scan")
+    if not getattr(lib, "_gnet_bound", False):
+        lib.gnet_greedy_scan_max_g.argtypes = []
+        lib.gnet_greedy_scan_max_g.restype = ctypes.c_int
+        lib.gnet_greedy_scan.argtypes = ([ctypes.c_void_p] * 4
+                                         + [ctypes.c_int] * 4
+                                         + [ctypes.c_void_p])
+        lib.gnet_greedy_scan.restype = ctypes.c_int
+        lib._gnet_bound = True
+    return lib
+
+
+def launch_kernel(iou: Tensor, thresholds: Tensor,
+                  counter=None) -> tuple[Tensor, Tensor]:
+    """One scan launch over B images on the current stream ->
+    (matched [B, N, T] bool, best [B, N, T] int32); adds one to
+    ``counter.launches`` (the calling wrapper) when it launches."""
+    if iou.device.type != "cuda":
+        raise RuntimeError(f"the matching scan kernel needs CUDA tensors, "
+                           f"got {iou.device}")
+    if iou.ndim != 3 or iou.dtype != torch.float32 or not iou.is_contiguous():
+        raise ValueError(f"iou must be a contiguous float32 [B, N, G], got "
+                         f"{tuple(iou.shape)} {iou.dtype}")
+    _check_thresholds(thresholds)
+    bsz, n, g = iou.shape
+    t = thresholds.shape[0]
+    lib = _library()
+    if g > lib.gnet_greedy_scan_max_g() or t > 32:
+        raise ValueError(f"the scan kernel takes G <= "
+                         f"{lib.gnet_greedy_scan_max_g()} and T <= 32, got "
+                         f"G={g}, T={t}")
+    matched = torch.zeros((bsz, n, t), dtype=torch.bool, device=iou.device)
+    best = torch.full((bsz, n, t), -1, dtype=torch.int32, device=iou.device)
+    if g == 0:
+        return matched, best
+    thr = thresholds.to(iou.device, torch.float32,
+                        non_blocking=True).contiguous()
+    with torch.cuda.device(iou.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gnet_greedy_scan(iou.data_ptr(), thr.data_ptr(),
+                                   matched.data_ptr(), best.data_ptr(),
+                                   bsz, n, g, t, stream)
+    if err != 0:
+        raise RuntimeError(f"matching_scan.cu launch failed: CUDA error {err}")
+    if counter is not None:
+        counter.launches += 1
+    return matched, best
+
+
+def greedy_scan_batched(iou: Tensor, thresholds: Tensor):
+    """K3: batched greedy pass over pre-masked IoU [B, N, G] ->
+    (matched [B, N, T] bool, best [B, N, T] int32). Thresholds > 0."""
+    if iou.device.type == "cpu":
+        return greedy_scan_reference(iou, thresholds)
+    return launch_kernel(iou, thresholds, greedy_scan_batched)
+
+
+def greedy_scan(iou: Tensor, thresholds: Tensor):
+    """K4: the greedy pass for one image, pre-masked IoU [N, G] ->
+    (matched [N, T] bool, best [N, T] int32). Thresholds > 0."""
+    if iou.device.type == "cpu":
+        matched, best = greedy_scan_reference(iou[None], thresholds)
+    else:
+        matched, best = launch_kernel(iou[None].contiguous(), thresholds,
+                                      greedy_scan)
+    return matched[0], best[0]
+
+
+greedy_scan_batched.launches = 0   # K3 launches
+greedy_scan.launches = 0           # K4 launches

@@ -1,5 +1,5 @@
-"""K1, the pair-pool forward: CUDA kernel wrapper, its plain version, and
-the preparation both share (port of ``gossipnet_tpu/ops/pallas/pairwise2.py``).
+"""K1 and K2, the pair-pool forward and backward: CUDA kernel wrappers,
+their plain versions, and the preparation they share (port of ``gossipnet_tpu/ops/pallas/pairwise2.py``).
 
 The pair stage of a gossip block is
 
@@ -15,9 +15,17 @@ bounding boxes do not meet (:func:`tile_activity`; exact for
 neighbor_iou > 0). Nothing of the TPU's layout (sublane packing, kron
 weights, quadrant splits) carries over.
 
-:func:`pair_pool` routes by device: CPU tensors go to
-:func:`pair_pool_reference`, CUDA tensors launch the kernel
-(``csrc/pairwise2_fwd.cu``) or raise.
+K2 is its backward (``csrc/pairwise2_bwd.cu``): it recomputes every
+neighbour pair from the saved output m and routes dm to the max winners,
+each exact tie getting the full gradient as the TPU kernel's VJP does.
+:class:`PairPool2` joins the two as one ``torch.autograd.Function``.
+
+:func:`pair_pool` routes by device: CPU tensors run the plain forward and
+the plain backward (:func:`_reference_core`,
+:func:`pair_pool_backward_reference`) through the same Function, CUDA
+tensors launch K1 and K2 or raise. The plain versions repeat the kernels'
+arithmetic, their fused multiply-adds included (:func:`_fma`), so they
+find the same winners.
 """
 
 from __future__ import annotations
@@ -166,41 +174,106 @@ def fields_iou(row: Tensor, col: Tensor) -> Tensor:
     return pf.pair_iou(box(row), box(col))
 
 
-def _reference_core(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
-                    w2: Tensor, b2bias: Tensor,
-                    compute_dtype: str) -> Tensor:
-    """The kernel's arithmetic in torch, in row chunks of at most
-    ``_CHUNK_ELEMENTS`` pair activations, rounding in bf16 mode where the
-    kernel rounds (so the two differ only by summation order)."""
-    bf16 = compute_dtype == "bfloat16"
+def _rounder(compute_dtype: str):
+    if compute_dtype == "bfloat16":
+        return lambda x: x.to(torch.bfloat16).float()
+    return lambda x: x
 
-    def rnd(x: Tensor) -> Tensor:
-        return x.to(torch.bfloat16).float() if bf16 else x
 
+def _fma(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
+    """The kernels' fmaf(a, b, c) on float32 tensors: a * b is exact in
+    float64, so one float64 add and the cast round it (the two roundings
+    disagree with one only at exact float32 midpoints, which random data
+    almost never meets)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _pair_chunks(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
+                 w2: Tensor, b2bias: Tensor, compute_dtype: str):
+    """Every (row, column) pair in row chunks of at most
+    ``_CHUNK_ELEMENTS`` activations, with the kernels' arithmetic: yields
+    (rows, nb [B, rc, NC], g [B, rc, NC, K], h1 [B, rc, NC, P],
+    pre2 [B, rc, NC, P]). FC1 and FC2 run as the kernels' fmaf chains in
+    their order (csrc/pairwise2_pair.cuh), rounding in bf16 mode where they
+    round, so pre2 equals the kernels' bit for bit and the backward finds
+    K1's winners."""
+    rnd = _rounder(compute_dtype)
     row, col = geom.row, geom.col
     bsz, _, nr = row.shape
     nc = col.shape[2]
     p = a2.shape[-1]
+    k = wg_k.shape[0]
     wk, w2r = rnd(wg_k.float()), rnd(w2.float())
     bj = rnd(b2)[:, None, :, :]                          # [B, 1, NC, P]
     thr = torch.tensor(geom.neighbor_iou, dtype=torch.float32,
                        device=row.device)
     cj = col[:, :, None, :]                              # [B, CJ, 1, NC]
-    out = torch.empty((bsz, nr, p), dtype=torch.float32, device=row.device)
     chunk = max(1, _CHUNK_ELEMENTS // max(bsz * nc * p, 1))
     for r0 in range(0, nr, chunk):
-        ri = row[:, :, r0:r0 + chunk, None]              # [B, CI, rc, 1]
+        rows = slice(r0, min(r0 + chunk, nr))
+        ri = row[:, :, rows, None]                       # [B, CI, rc, 1]
         iou = fields_iou(ri, cj)
         nb = (iou >= thr) & (ri[:, _VALID] > 0.0) & (cj[:, _VALID] > 0.0)
         feats = [iou, cj[:, 5] * ri[:, 5], cj[:, 6] * ri[:, 6]]
         if geom.multiclass:
             feats.append((ri[:, 8] == cj[:, 8]).float())
         g = rnd(torch.stack(feats, dim=-1))              # [B, rc, NC, K]
-        h1 = torch.relu(a2[:, r0:r0 + chunk, None, :] + (g @ wk + bj))
-        pre2 = rnd(h1) @ w2r + b2bias.float()            # [B, rc, NC, P]
+        h = bj.expand(bsz, rows.stop - r0, nc, p)
+        for f in range(k):
+            h = _fma(g[..., f:f + 1], wk[f], h)
+        h1 = rnd(torch.clamp(a2[:, rows, None, :] + h, min=0.0))
+        pre2 = b2bias.float().expand_as(h1)
+        for i in range(p):                               # FC2 input index
+            pre2 = _fma(h1[..., i:i + 1], w2r[i], pre2)
+        yield rows, nb, g, h1, pre2
+
+
+def _reference_core(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
+                    w2: Tensor, b2bias: Tensor,
+                    compute_dtype: str) -> Tensor:
+    """K1's arithmetic in torch -> m [B, NR, P] float32."""
+    bsz, nr, p = a2.shape
+    out = torch.empty((bsz, nr, p), dtype=torch.float32, device=a2.device)
+    for rows, nb, _, _, pre2 in _pair_chunks(geom, a2, b2, wg_k, w2, b2bias,
+                                             compute_dtype):
         pre2 = torch.where(nb[..., None], pre2, torch.zeros_like(pre2))
-        out[:, r0:r0 + chunk] = torch.clamp(pre2.amax(dim=2), min=0.0)
+        out[:, rows] = torch.clamp(pre2.amax(dim=2), min=0.0)
     return out
+
+
+def pair_pool_backward_reference(geom: PairGeometry, a2: Tensor, b2: Tensor,
+                                 wg_k: Tensor, w2: Tensor, b2bias: Tensor,
+                                 m: Tensor, dm: Tensor, compute_dtype: str):
+    """K2's arithmetic in torch: the VJP of K1 from its output m ->
+    (d_a' [B, NR, P], d_b' [B, NC, P], dWg_k [K, P], dW2 [P, P], db2 [P]).
+
+    Recomputes pre2 with :func:`_pair_chunks` and routes dm[i, q] to every
+    neighbour j with pre2_ij[q] == m_i[q] > 0: each exact tie gets the
+    full gradient (``pairwise2.py::_win_grad``). bf16 mode rounds the dots'
+    operands (dpre2, dpre1, g, h1, W2) as K2 does; d_a' and db2 sum
+    unrounded. The CPU backward of :class:`PairPool2` and K2's oracle.
+    """
+    rnd = _rounder(compute_dtype)
+    f32 = dict(dtype=torch.float32, device=a2.device)
+    da = torch.zeros(a2.shape, **f32)
+    db = torch.zeros(b2.shape, **f32)
+    dwg = torch.zeros(wg_k.shape, **f32)
+    dw2 = torch.zeros(w2.shape, **f32)
+    db2 = torch.zeros(b2bias.shape, **f32)
+    dmg = torch.where(m > 0.0, dm.float(), torch.zeros_like(m))
+    w2r = rnd(w2.float())
+    for rows, nb, g, h1, pre2 in _pair_chunks(geom, a2, b2, wg_k, w2, b2bias,
+                                              compute_dtype):
+        win = nb[..., None] & (pre2 == m[:, rows, None, :])
+        dp2 = torch.where(win, dmg[:, rows, None, :], torch.zeros_like(pre2))
+        dp1 = torch.where(h1 > 0.0, rnd(dp2) @ w2r.T, torch.zeros_like(h1))
+        da[:, rows] = dp1.sum(dim=2)
+        dp1 = rnd(dp1)
+        db += dp1.sum(dim=1)
+        dwg += torch.einsum("bijp,bijk->kp", dp1, g)
+        dw2 += torch.einsum("bijp,bijq->pq", h1, rnd(dp2))
+        db2 += dp2.sum(dim=(0, 1, 2))
+    return da, db, dwg, dw2, db2
 
 
 def pair_pool_reference(row_cols: Tensor, col_cols: Tensor, a: Tensor,
@@ -229,32 +302,37 @@ def pair_pool_reference(row_cols: Tensor, col_cols: Tensor, a: Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _library() -> ctypes.CDLL:
+def _library(name: str = "pairwise2_fwd") -> ctypes.CDLL:
+    """K1's ("pairwise2_fwd") or K2's ("pairwise2_bwd") library, bound."""
     from gossipnet_tpu_torch.ops.cuda import build
 
-    lib = build.load("pairwise2_fwd")
+    lib = build.load(name)
     if not getattr(lib, "_gnet_bound", False):
-        lib.gnet_pair_pool2_tiles.argtypes = []
-        lib.gnet_pair_pool2_tiles.restype = ctypes.c_int
-        lib.gnet_pair_pool2_fwd.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        lib.gnet_pair_pool2_fwd.restype = ctypes.c_int
-        tiles = lib.gnet_pair_pool2_tiles()
+        if name == "pairwise2_fwd":
+            fn, tiles_fn, n_ptr = (lib.gnet_pair_pool2_fwd,
+                                   lib.gnet_pair_pool2_tiles, 9)
+        else:
+            fn, tiles_fn, n_ptr = (lib.gnet_pair_pool2_bwd,
+                                   lib.gnet_pair_pool2_bwd_tiles, 15)
+        tiles_fn.argtypes = []
+        tiles_fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        tiles = tiles_fn()
         if tiles != TILE_I * 1000 + TILE_J:
-            raise RuntimeError(f"pairwise2_fwd.cu tiles {tiles} do not match "
+            raise RuntimeError(f"{name}.cu tiles {tiles} do not match "
                                f"TILE_I={TILE_I}, TILE_J={TILE_J}")
         lib._gnet_bound = True
     return lib
 
 
-def launch_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
-                  w2: Tensor, b2bias: Tensor, compute_dtype: str) -> Tensor:
-    """One K1 launch on the current stream -> m [B, NR, P] float32.
-
-    Checks device, dtype, shape and contiguity and raises on anything the
-    kernel does not take; raises if the launch is refused.
-    """
+def _check_inputs(name: str, geom: PairGeometry, a2: Tensor, b2: Tensor,
+                  wg_k: Tensor, w2: Tensor, b2bias: Tensor,
+                  compute_dtype: str, **rows_p: Tensor) -> None:
+    """Device, dtype, shape and contiguity of a K1/K2 launch; raises on
+    anything the kernels do not take. ``rows_p``: further [B, NR, P]
+    float32 inputs (K2's m and dm)."""
     _check_dtype(compute_dtype)
     bsz, ci, nr = geom.row.shape
     nc = geom.col.shape[2]
@@ -271,25 +349,40 @@ def launch_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
         "flags": (geom.flags, (bsz, -(-nr // TILE_I), -(-nc // TILE_J)),
                   torch.int32),
     }
+    expect.update({n: (t, (bsz, nr, p), torch.float32)
+                   for n, t in rows_p.items()})
     device = a2.device
     if device.type != "cuda":
-        raise RuntimeError(f"K1 kernel needs CUDA tensors, got {device}")
-    for name, (t, shape, dtype) in expect.items():
+        raise RuntimeError(f"{name} kernel needs CUDA tensors, got {device}")
+    for n, (t, shape, dtype) in expect.items():
         if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, expected {device}")
+            raise ValueError(f"{n} is on {t.device}, expected {device}")
         if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name}: got {tuple(t.shape)} {t.dtype}, "
+            raise ValueError(f"{n}: got {tuple(t.shape)} {t.dtype}, "
                              f"expected {shape} {dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            raise ValueError(f"{n} must be contiguous")
     if p not in (8, 16, 32, 64):
-        raise ValueError(f"K1 is built for pairwise_dim 8/16/32/64, got {p}")
+        raise ValueError(f"{name} is built for pairwise_dim 8/16/32/64, "
+                         f"got {p}")
     if (k, ci) not in ((3, 8), (4, 9)):
-        raise ValueError(f"K1 takes 3 features with 8 fields or 4 with 9, "
-                         f"got {k} and {ci}")
-    lib = _library()
-    out = torch.empty((bsz, nr, p), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
+        raise ValueError(f"{name} takes 3 features with 8 fields or 4 with "
+                         f"9, got {k} and {ci}")
+
+
+def launch_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
+                  w2: Tensor, b2bias: Tensor, compute_dtype: str) -> Tensor:
+    """One K1 launch on the current stream -> m [B, NR, P] float32.
+
+    Checks device, dtype, shape and contiguity and raises on anything the
+    kernel does not take; raises if the launch is refused.
+    """
+    _check_inputs("K1", geom, a2, b2, wg_k, w2, b2bias, compute_dtype)
+    bsz, _, nr = geom.row.shape
+    nc, p, k = geom.col.shape[2], a2.shape[-1], wg_k.shape[0]
+    lib = _library("pairwise2_fwd")
+    out = torch.empty((bsz, nr, p), dtype=torch.float32, device=a2.device)
+    with torch.cuda.device(a2.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gnet_pair_pool2_fwd(
             geom.row.data_ptr(), geom.col.data_ptr(), a2.data_ptr(),
@@ -304,44 +397,118 @@ def launch_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
     return out
 
 
+def launch_backward_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor,
+                           wg_k: Tensor, w2: Tensor, b2bias: Tensor,
+                           m: Tensor, dm: Tensor, compute_dtype: str):
+    """One K2 launch on the current stream -> (d_a', d_b', dWg_k, dW2, db2)
+    float32, as :func:`pair_pool_backward_reference` returns them.
+
+    d_b' and the weight gradients leave the kernel as per-row-tile and
+    per-block partials (no float atomics) and are summed here, so two
+    launches on the same inputs give identical bits.
+    """
+    _check_inputs("K2", geom, a2, b2, wg_k, w2, b2bias, compute_dtype,
+                  m=m, dm=dm)
+    bsz, _, nr = geom.row.shape
+    nc, p, k = geom.col.shape[2], a2.shape[-1], wg_k.shape[0]
+    ni = geom.flags.shape[1]
+    lib = _library("pairwise2_bwd")
+    f32 = dict(dtype=torch.float32, device=a2.device)
+    da = torch.empty((bsz, nr, p), **f32)
+    db_part = torch.zeros((bsz, ni, nc, p), **f32)
+    dwg_part = torch.empty((bsz * ni, k, p), **f32)
+    dw2_part = torch.empty((bsz * ni, p, p), **f32)
+    db2_part = torch.empty((bsz * ni, p), **f32)
+    with torch.cuda.device(a2.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gnet_pair_pool2_bwd(
+            geom.row.data_ptr(), geom.col.data_ptr(), a2.data_ptr(),
+            b2.data_ptr(), wg_k.data_ptr(), w2.data_ptr(),
+            b2bias.data_ptr(), geom.flags.data_ptr(), m.data_ptr(),
+            dm.data_ptr(), da.data_ptr(), db_part.data_ptr(),
+            dwg_part.data_ptr(), dw2_part.data_ptr(), db2_part.data_ptr(),
+            bsz, nr, nc, p, k, geom.neighbor_iou,
+            int(compute_dtype == "bfloat16"), stream)
+    if err != 0:
+        raise RuntimeError(f"K2 (pairwise2_bwd.cu) launch failed: CUDA "
+                           f"error {err}")
+    pair_pool_backward.launches += 1
+    return (da, db_part.sum(dim=1), dwg_part.sum(dim=0),
+            dw2_part.sum(dim=0), db2_part.sum(dim=0))
+
+
+def pair_pool_backward(geom: PairGeometry, a2: Tensor, b2: Tensor,
+                       wg_k: Tensor, w2: Tensor, b2bias: Tensor, m: Tensor,
+                       dm: Tensor, compute_dtype: str):
+    """The pair stage's VJP -> (d_a', d_b', dWg_k, dW2, db2): the plain
+    version on CPU tensors, K2 on CUDA tensors (or raise)."""
+    if a2.device.type == "cpu":
+        return pair_pool_backward_reference(geom, a2, b2, wg_k, w2, b2bias,
+                                            m, dm, compute_dtype)
+    return launch_backward_kernel(geom, a2, b2, wg_k, w2, b2bias, m, dm,
+                                  compute_dtype)
+
+
+pair_pool_backward.launches = 0   # K2 launches; only launch_backward_kernel adds
+
+
+class PairPool2(torch.autograd.Function):
+    """m = pair stage of (a', b') with K1 as forward and K2 as backward
+    (port of ``_pair_pool2_p.defvjp``, ``pairwise2.py:875-896``).
+
+    Saves its inputs and m and recomputes the pairs in the backward, as
+    the TPU kernel does. The gradient reaches wg through autograd: the
+    fold (:func:`fold_separable`) and the row select (:func:`_kernel_wg`)
+    stay outside, as in JAX.
+    """
+
+    @staticmethod
+    def forward(ctx, geom: PairGeometry, a2: Tensor, b2: Tensor,
+                wg_k: Tensor, w2: Tensor, b2bias: Tensor,
+                compute_dtype: str) -> Tensor:
+        if a2.device.type == "cpu":
+            m = _reference_core(geom, a2, b2, wg_k, w2, b2bias, compute_dtype)
+        else:
+            m = launch_kernel(geom, a2, b2, wg_k, w2, b2bias, compute_dtype)
+        ctx.geom, ctx.compute_dtype = geom, compute_dtype
+        ctx.save_for_backward(a2, b2, wg_k, w2, b2bias, m)
+        return m
+
+    @staticmethod
+    def backward(ctx, dm: Tensor):
+        a2, b2, wg_k, w2, b2bias, m = ctx.saved_tensors
+        grads = pair_pool_backward(ctx.geom, a2, b2, wg_k, w2, b2bias, m,
+                                   dm.contiguous(), ctx.compute_dtype)
+        return (None, *grads, None)
+
+
 def pair_pool(row_cols: Tensor, col_cols: Tensor, a: Tensor, b: Tensor,
               pair_params, neighbor_iou: float,
               classes: Tensor | None = None,
               col_classes: Tensor | None = None,
               compute_dtype: str = "bfloat16", block_sparse: bool = True,
               geometry: PairGeometry | None = None) -> Tensor:
-    """Pair stage m [B, NR, P] float32 of one block.
+    """Pair stage m [B, NR, P] float32 of one block, differentiable.
 
     row_cols [B, 14, NR] / col_cols [B, 14, NC]: stacked DetColumns.
     a [B, NR, P] = r @ Wa + b1 (rows); b [B, NC, P] = r @ Wb (columns).
     ``geometry`` (from :func:`pair_geometry`) skips rebuilding the
     detection-only inputs; a model builds it once per forward.
 
-    CPU tensors take the plain version (``block_sparse`` is exact, so it
-    changes nothing there). CUDA tensors launch K1 or raise. K1 has no
-    backward yet (K2): on CUDA with autograd recording, this raises.
+    CPU tensors take the plain forward and backward (``block_sparse`` is
+    exact, so it changes nothing there). CUDA tensors launch K1, and K2
+    in the backward, or raise.
     """
-    if a.device.type == "cpu":
-        return pair_pool_reference(row_cols, col_cols, a, b, pair_params,
-                                   neighbor_iou, classes, col_classes,
-                                   compute_dtype, geometry)
-    if a.device.type != "cuda":
+    if a.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"pair_pool runs on cpu or cuda, got {a.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (a, b, pair_params.wg, pair_params.w2,
-                                      pair_params.b2)):
-        raise RuntimeError(
-            "pair_pool on CUDA has no backward yet: the pair-pool backward "
-            "kernel (K2, ROADMAP.md) is not ported; run under "
-            "torch.inference_mode() or torch.no_grad()")
     _check_dtype(compute_dtype)
     geom = geometry or pair_geometry(row_cols, col_cols, neighbor_iou,
                                      classes, col_classes, block_sparse)
     a2, b2 = fold_separable(pair_params.wg, a, b, geom)
-    return launch_kernel(geom, a2.contiguous(), b2.contiguous(),
-                         _kernel_wg(pair_params.wg, geom.multiclass),
-                         pair_params.w2.float().contiguous(),
-                         pair_params.b2.float().contiguous(), compute_dtype)
+    return PairPool2.apply(geom, a2.contiguous(), b2.contiguous(),
+                           _kernel_wg(pair_params.wg, geom.multiclass),
+                           pair_params.w2.float().contiguous(),
+                           pair_params.b2.float().contiguous(), compute_dtype)
 
 
 pair_pool.launches = 0   # K1 launches; only launch_kernel adds to it

@@ -1,4 +1,7 @@
-"""K1's CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: K1
+(pair-pool forward), K2 (its backward: f32, bf16, the tie rule, two
+launches bit-identical), K3/K4 (the matching scan, exactly), and one
+training step of config 2 with its launch counts.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
 without one. The file imports no JAX, so it runs where JAX is not
@@ -10,7 +13,9 @@ Tolerances: f32 rtol = atol = 1e-5 (the kernel and the plain version do
 the same f32 arithmetic in another summation order); bf16 as in
 tests/test_torch_pair_pool.py (one bf16 ulp of an h1 value may flip):
 rtol = atol = 2e-2 everywhere and 1e-4 on 99% of the outputs. Neighbour
-masks are exact by construction (explicitly rounded IoU).
+masks are exact by construction (explicitly rounded IoU). K2's weight
+gradients sum over every pair in another order: 1e-4 of their largest
+entry. The scan does comparisons only: exact.
 """
 
 import numpy as np
@@ -99,3 +104,143 @@ def test_kernel_matches_plain_on_card(name, dtype):
     else:
         np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
         assert np.mean(np.abs(got - want) > 1e-4) < 0.01
+
+
+# ---------------------------------------------------------------------------
+# K2, K3/K4 and one training step
+# ---------------------------------------------------------------------------
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _pair_args(rng, b, n, dev, p=32, dup_cols=False):
+    boxes, scores, valid, _ = _clustered(rng, b, n)
+    cs = pf.stack_columns(pf.det_columns(
+        torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev),
+        torch.from_numpy(valid).to(dev)))
+    col = torch.repeat_interleave(cs, 2, dim=2) if dup_cols else cs
+    geom = k1.pair_geometry(cs, col, THR)
+
+    def t(*shape, scale=0.5):
+        return torch.from_numpy(
+            rng.normal(0, scale, shape).astype(np.float32)).to(dev)
+
+    b2 = t(b, n, p, scale=1.0)
+    if dup_cols:
+        b2 = torch.repeat_interleave(b2, 2, dim=1).contiguous()
+    return (geom, t(b, n, p, scale=1.0), b2, t(3, p), t(p, p), t(p)), \
+        t(b, n, p, scale=1.0), cs
+
+
+def _assert_grads(got, want, dtype):
+    for name, x, y in zip(("d_a'", "d_b'", "dWg", "dW2", "db2"), got, want):
+        x, y = x.cpu().numpy(), y.cpu().numpy()
+        if name in ("d_a'", "d_b'"):
+            if dtype == "float32":
+                np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-5,
+                                           err_msg=name)
+            else:
+                np.testing.assert_allclose(x, y, rtol=2e-2, atol=2e-2,
+                                           err_msg=name)
+                assert np.mean(np.abs(x - y) > 1e-4) < 0.01, name
+        else:
+            np.testing.assert_allclose(x, y, rtol=0,
+                                       atol=1e-4 * np.abs(y).max(),
+                                       err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p", [16, 32, 64])
+def test_k2_matches_plain_backward_on_card(dtype, p):
+    dev = _card()
+    rng = np.random.default_rng(p)
+    args, dm, _ = _pair_args(rng, 2, 301, dev, p=p)
+    m = k1.launch_kernel(*args, dtype)
+    m_plain = k1._reference_core(*args, dtype)
+    before = k1.pair_pool_backward.launches
+    got = k1.pair_pool_backward(*args, m, dm, dtype)
+    want = k1.pair_pool_backward_reference(*args, m_plain, dm, dtype)
+    torch.cuda.synchronize()
+    assert k1.pair_pool_backward.launches == before + 1
+    _assert_grads(got, want, dtype)
+    # determinism: a second launch gives the same bits
+    again = k1.launch_backward_kernel(*args, m, dm, dtype)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2_gives_each_tie_the_full_gradient_on_card(dtype):
+    dev = _card()
+    rng = np.random.default_rng(3)
+    args_d, dm, cs = _pair_args(rng, 2, 200, dev, dup_cols=True)
+    _, a2, b2_d, wg, w2, b2b = args_d
+    args_s = (k1.pair_geometry(cs, cs, THR), a2,
+              b2_d[:, 0::2].contiguous(), wg, w2, b2b)
+    m_s = k1.launch_kernel(*args_s, dtype)
+    m_d = k1.launch_kernel(*args_d, dtype)
+    single = k1.launch_backward_kernel(*args_s, m_s, dm, dtype)
+    dup = k1.launch_backward_kernel(*args_d, m_d, dm, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(m_s, m_d)
+    assert torch.equal(dup[1][:, 0::2], dup[1][:, 1::2])
+    _assert_grads(dup, (2 * single[0], single[1].repeat_interleave(2, dim=1),
+                        2 * single[2], 2 * single[3], 2 * single[4]), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 10])
+def test_k3_k4_match_plain_scan_exactly_on_card(t):
+    from gossipnet_tpu_torch.ops.cuda import matching_scan as k3
+
+    dev = _card()
+    rng = np.random.default_rng(t)
+    iou = rng.uniform(0, 1, (4, 600, 112)).astype(np.float32)
+    iou[rng.uniform(size=iou.shape) < 0.6] = 0.0
+    iou = np.round(iou * 16) / 16                  # many exact ties
+    iou_t = torch.from_numpy(iou).to(dev)
+    thr = torch.tensor(np.linspace(0.5, 0.95, t), dtype=torch.float32)
+    before = k3.greedy_scan_batched.launches, k3.greedy_scan.launches
+    got = k3.greedy_scan_batched(iou_t, thr)
+    one = k3.greedy_scan(iou_t[1], thr)
+    want = k3.greedy_scan_reference(iou_t, thr)
+    torch.cuda.synchronize()
+    assert (k3.greedy_scan_batched.launches, k3.greedy_scan.launches) == \
+        (before[0] + 1, before[1] + 1)
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y.cpu())
+    for x, y in zip(one, want):
+        assert torch.equal(x.cpu(), y[1].cpu())
+
+
+@pytest.mark.cuda
+def test_one_train_step_on_card_launches_k1_k2_k3():
+    from gossipnet_tpu_torch import train as training
+    from gossipnet_tpu_torch.config import experiment_path, load_config
+    from gossipnet_tpu_torch.data.bucketing import BatchIterator
+    from gossipnet_tpu_torch.data.synthetic import synthetic_roidb
+    from gossipnet_tpu_torch.ops.cuda import matching_scan as k3
+
+    dev = _card()
+    cfg = load_config(experiment_path("coco_persons_full"),
+                      {"data": {"dataset": "synthetic"}})
+    roidb = synthetic_roidb(num_images=8, seed=0, num_gt=40, dets_per_gt=8,
+                            num_clutter=40)
+    batch = next(BatchIterator(roidb, 8, cfg.data.bucket_sizes))
+    model = training.build_model(cfg, "kernel", dev)
+    state = training.create_train_state(cfg, model)
+    before = (k1.pair_pool.launches, k1.pair_pool_backward.launches,
+              k3.greedy_scan_batched.launches)
+    state, metrics = training.train_step(
+        state, training.batch_to_device(batch, dev), cfg)
+    torch.cuda.synchronize()
+    after = (k1.pair_pool.launches, k1.pair_pool_backward.launches,
+             k3.greedy_scan_batched.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (16, 16, 1)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert float(metrics["grad_norm"]) > 0

@@ -37,8 +37,10 @@ def test_port_and_chip_smoke_import_no_jax():
                          check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
-    assert "gossipnet_tpu_torch.ops.cuda.pairwise2" in result["modules"]
-    assert "gossipnet_tpu_torch.serve" in result["modules"]
+    for name in ("ops.cuda.pairwise2", "serve", "ops.geometry", "ops.matching",
+                 "ops.cuda.matching_scan", "losses", "train",
+                 "utils.checkpoint", "utils.metrics", "data.bucketing"):
+        assert f"gossipnet_tpu_torch.{name}" in result["modules"], name
 
 
 def test_sources_name_no_jax_module():
@@ -83,6 +85,21 @@ def test_serve_cli_raises_without_a_card():
     assert out.stdout == ""          # nothing was answered from the CPU
 
 
+def test_train_cli_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    metrics = tmp_path / "m.jsonl"
+    out = subprocess.run(
+        [sys.executable, "-m", "gossipnet_tpu_torch.train", "-c",
+         str(ROOT / "experiments" / "coco_persons_full.yaml"),
+         "--metrics", str(metrics)], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert not metrics.exists()          # no step ran on the CPU
+
+
 def test_serve_cli_without_random_init_names_the_roadmap_item():
     from gossipnet_tpu_torch.serving import main
 
@@ -119,3 +136,27 @@ def test_kernel_build_paths_stay_in_the_checkout():
     assert "--use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     np.testing.assert_equal(len(path.stem.split("-")[-1]), 16)
+    for name in ("pairwise2_bwd", "matching_scan"):
+        assert (build.CSRC / f"{name}.cu").exists()
+
+
+def test_kernel_library_hash_covers_shared_headers(tmp_path):
+    """K1 and K2 share csrc/pairwise2_pair.cuh: an edit to the header must
+    give both a new library path, or a stale build would be reused."""
+    import shutil
+
+    from gossipnet_tpu_torch.ops.cuda import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    before = {n: build.library_path(n, csrc)
+              for n in ("pairwise2_fwd", "pairwise2_bwd", "matching_scan")}
+    assert before["pairwise2_fwd"] == build.library_path("pairwise2_fwd")
+    header = csrc / "pairwise2_pair.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: build.library_path(n, csrc) for n in before}
+    assert after["pairwise2_fwd"] != before["pairwise2_fwd"]
+    assert after["pairwise2_bwd"] != before["pairwise2_bwd"]
+    (csrc / "new_helper.cuh").write_text("#pragma once\n")
+    assert build.library_path("pairwise2_fwd", csrc) != \
+        after["pairwise2_fwd"]

@@ -1,6 +1,7 @@
-"""K1 (pair-pool forward): the port's plain version against the JAX TPU
-kernel run in interpret mode and against the JAX dense pair stage; the
-tile flags; and the CUDA wrapper's refusal to fall back.
+"""K1 and K2 (pair-pool forward and backward): the port's plain versions
+against the JAX TPU kernel and its custom VJP run in interpret mode and
+against the JAX dense pair stage; the tie rule of the backward; the tile
+flags; and the CUDA wrappers' refusal to fall back.
 
 Tolerances, f32:
 - against the JAX kernel (interpret mode): rtol = atol = 1e-5. Both fold
@@ -18,6 +19,7 @@ rtol = atol = 2e-2 (measured: 1 of 4096 outputs off, by 2.3e-3).
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -227,3 +229,159 @@ def test_bad_compute_dtype_raises(rng):
     boxes, scores, valid, cls, a, bb, w = _case(rng, b=1, n=16)
     with pytest.raises(ValueError, match="compute_dtype"):
         _port(boxes, scores, valid, cls, a, bb, w, dtype="float16")
+
+
+# ---------------------------------------------------------------------------
+# K2: the backward (the plain version, through the autograd Function)
+# ---------------------------------------------------------------------------
+
+GRAD_FIELDS = ("a", "b", "wg", "w2", "b2")
+
+
+def _port_grads(boxes, scores, valid, cls, a, bb, w, cot, dtype="float32",
+                rows=None, dup_cols=False):
+    """Gradients of sum(m * cot) through pair_pool on CPU tensors: the
+    plain forward and the plain backward of PairPool2."""
+    cs = _torch_cols(boxes, scores, valid)
+    row_cs, a_rows, col_cs, b_cols = cs, a, cs, bb
+    if rows is not None:
+        row_cs, a_rows = cs[:, :, rows].contiguous(), a[:, rows]
+    if dup_cols:
+        col_cs = torch.repeat_interleave(cs, 2, dim=2)
+        b_cols = np.repeat(bb, 2, axis=1)
+    t = {"a": torch.from_numpy(np.ascontiguousarray(a_rows)),
+         "b": torch.from_numpy(np.ascontiguousarray(b_cols)),
+         **{k: torch.from_numpy(v) for k, v in w.items()}}
+    for k in GRAD_FIELDS:
+        t[k].requires_grad_(True)
+    prm = PairParams(t["wa"], t["wb"], t["wg"], t["b1"], t["w2"], t["b2"])
+    tcls = None if cls is None else torch.from_numpy(cls)
+    row_cls = tcls if tcls is None or rows is None else tcls[:, rows]
+    m = k1.pair_pool(row_cs, col_cs, t["a"], t["b"], prm, THR,
+                     classes=row_cls, col_classes=tcls, compute_dtype=dtype)
+    (m * torch.from_numpy(cot)).sum().backward()
+    return {k: t[k].grad.numpy() for k in GRAD_FIELDS}
+
+
+def _pallas_grads(boxes, scores, valid, cls, a, bb, w, cot, dtype="float32",
+                  rows=None, dup_cols=False):
+    """The same through the JAX TPU kernel's custom VJP, interpret mode."""
+    cs = j_pf.stack_columns(_jax_cols(boxes, scores, valid))
+    jcls = None if cls is None else jnp.asarray(cls)
+    row_cs, a_rows, col_cs, b_cols = cs, a, cs, bb
+    row_cls = jcls
+    if rows is not None:
+        row_cs, a_rows = cs[:, :, rows], a[:, rows]
+        row_cls = None if jcls is None else jcls[:, rows]
+    if dup_cols:
+        col_cs = jnp.repeat(cs, 2, axis=2)
+        b_cols = np.repeat(bb, 2, axis=1)
+
+    def f(a_, b_, wg, w2, b2):
+        prm = JParams(jnp.asarray(w["wa"]), jnp.asarray(w["wb"]), wg,
+                      jnp.asarray(w["b1"]), w2, b2)
+        m = pallas_pair_pool_rect_v2(
+            row_cs, col_cs, a_, b_, prm, THR, row_classes=row_cls,
+            col_classes=jcls, interpret=True, compute_dtype=dtype)
+        return jnp.sum(m * jnp.asarray(cot))
+
+    grads = jax.grad(f, argnums=tuple(range(5)))(
+        jnp.asarray(a_rows), jnp.asarray(b_cols), jnp.asarray(w["wg"]),
+        jnp.asarray(w["w2"]), jnp.asarray(w["b2"]))
+    return {k: np.asarray(g) for k, g in zip(GRAD_FIELDS, grads)}
+
+
+def _assert_grads_close(got, want, bf16=False):
+    for k in GRAD_FIELDS:
+        if bf16 and k in ("b", "wg"):
+            # The TPU kernel sums d_b's rows through two bf16 selector
+            # matmuls, rounding each partial sum to bf16 once more; the
+            # port sums the bf16-rounded dpre1 in f32 (as K2 does). d_b,
+            # and wg's gradient through the fold of d_b, then hold to the
+            # bf16 bound (2e-2, of the largest entry for wg) only.
+            np.testing.assert_allclose(
+                got[k], want[k], rtol=2e-2,
+                atol=2e-2 * (np.abs(want[k]).max() if k == "wg" else 1.0),
+                err_msg=k)
+        elif k in ("a", "b"):
+            if bf16:
+                _assert_bf16_close(got[k], want[k])
+            else:
+                np.testing.assert_allclose(got[k], want[k], **F32_TOL,
+                                           err_msg=k)
+        else:   # weight gradients: sums over every pair, 1e-4 of the max
+            np.testing.assert_allclose(
+                got[k], want[k], rtol=0,
+                atol=1e-4 * np.abs(want[k]).max(), err_msg=k)
+
+
+BWD_CASES = {
+    "odd_padded": dict(b=1, n=101, n_valid=67),
+    "multiclass": dict(b=2, n=48, num_classes=4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BWD_CASES))
+def test_backward_matches_pallas_vjp_f32(rng, name):
+    case = _case(rng, **BWD_CASES[name])
+    cot = rng.normal(0, 1, case[4].shape).astype(np.float32)
+    got = _port_grads(*case, cot)
+    _assert_grads_close(got, _pallas_grads(*case, cot))
+    assert np.abs(got["b"]).max() > 0
+
+
+def test_backward_matches_pallas_vjp_rectangular(rng):
+    case = _case(rng, b=2, n=72, n_valid=60)
+    rows = np.arange(9, 46)
+    cot = rng.normal(0, 1, (2, len(rows), 32)).astype(np.float32)
+    _assert_grads_close(_port_grads(*case, cot, rows=rows),
+                        _pallas_grads(*case, cot, rows=rows))
+
+
+def test_backward_matches_pallas_vjp_bf16(rng):
+    case = _case(rng, b=2, n=64, n_valid=50)
+    cot = rng.normal(0, 1, case[4].shape).astype(np.float32)
+    got = _port_grads(*case, cot, dtype="bfloat16")
+    _assert_grads_close(got, _pallas_grads(*case, cot, dtype="bfloat16"),
+                        bf16=True)
+
+
+def test_backward_gives_each_tie_the_full_gradient(rng):
+    """Every column duplicated, so each max ties exactly between a column
+    and its copy. The TPU kernel's VJP routes the full dm to each tie; so
+    does the port's CPU path (the plain backward of PairPool2), and the
+    gradients match the JAX Pallas VJP in interpret mode. Autograd through
+    the plain forward's amax would split each tie in half instead."""
+    case = _case(rng, b=2, n=40)
+    cot = rng.normal(0, 1, case[4].shape).astype(np.float32)
+    got = _port_grads(*case, cot, dup_cols=True)
+    _assert_grads_close(got, _pallas_grads(*case, cot, dup_cols=True))
+    single = _port_grads(*case, cot)
+    np.testing.assert_array_equal(got["b"][:, 0::2], got["b"][:, 1::2])
+    np.testing.assert_allclose(got["b"][:, 0::2], single["b"], **F32_TOL)
+    np.testing.assert_allclose(got["a"], 2 * single["a"], **F32_TOL)
+    np.testing.assert_allclose(got["b2"], 2 * single["b2"], rtol=1e-5,
+                               atol=1e-5)
+    # the split rule, for contrast: autograd through the plain forward
+    boxes, scores, valid, cls, a, bb, w = case
+    cs = _torch_cols(boxes, scores, valid)
+    dup = torch.repeat_interleave(cs, 2, dim=2)
+    bt = torch.from_numpy(np.repeat(bb, 2, axis=1)).requires_grad_(True)
+    prm = PairParams(**{k: torch.from_numpy(v) for k, v in w.items()})
+    m = k1.pair_pool_reference(cs, dup, torch.from_numpy(a), bt, prm, THR,
+                               compute_dtype="float32")
+    (m * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(bt.grad.numpy()[:, 0::2], single["b"] / 2,
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_backward_wrapper_never_falls_back_off_cpu(rng):
+    boxes, scores, valid, cls, a, bb, w = _case(rng, b=1, n=16)
+    cs = _torch_cols(boxes, scores, valid)
+    geom = k1.pair_geometry(cs, cs, THR)
+    t = [torch.from_numpy(x) for x in (a, bb, w["wg"][:3], w["w2"], w["b2"])]
+    m = torch.zeros_like(t[0])
+    before = k1.pair_pool_backward.launches
+    with pytest.raises(RuntimeError, match="K2 kernel needs CUDA"):
+        k1.launch_backward_kernel(geom, *t, m, m, "float32")
+    assert k1.pair_pool_backward.launches == before
