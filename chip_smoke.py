@@ -33,11 +33,33 @@ Phases (each raises on failure; the script then exits non-zero):
    through K4 equal the batched K3 labels; 10 steps, a resume and 10 more
    must give the parameters of 20 straight, bit for bit;
 7. f32 gradients of the 16-block model, kernel path against the dense
-   plain path, at B=2 N=512;
+   plain path, at B=2 N=512, each leaf also against its own scale;
 8. the train CLI runs 5 steps from a temporary YAML and writes metrics;
 9. times of the training path with CUDA events: the step host to host and
    on the device, the device busy share and each kernel's share, K2, K3
-   and K4 ms/launch beside their plain versions and bounds.
+   and K4 ms/launch beside their plain versions and bounds;
+3d. (run after phase 3c) K5, the unfolded pair kernel of
+   ``pair_kernel: 1`` (ops/cuda/csrc/pairwise_fwd.cu), against its plain
+   version: f32 and bf16, 8 and 9 features, square and rectangular, a
+   padded tail and an all-padding image, block-sparse on and off,
+   pairwise_dim 16, 32 and 64, and the mask probe;
+3e. K6, its backward (pairwise_bwd.cu), against the plain backward on the
+   same cases, with the winner count, the tie probe and two launches
+   bit-identical;
+10. config 4 (crowded_4096.yaml, N=4096, batch 2) with pair_kernel 1: the
+   Rescorer serves a B=2 N=4096 batch with 16 K5 launches, padding inert;
+   K5 against K1 on the same f32 parameters at the reference's 2-block
+   N=4096 oracle shape and at 16 blocks; 5 training steps with 16 K5 +
+   16 K6 + 1 K3 launches each and a falling loss; f32 gradients of the
+   K5/K6 path against the K1/K2 path, leaf by leaf; K5 and K6 on the
+   launch arguments of the model (config 4's B=2 N=4096 and the serving
+   bench batch) against their plain versions, in bf16 and f32; K5/K6
+   ms/launch beside K1/K2's on the same batch, the forward and the step,
+   with CUDA events and the host clock;
+11. config 3 (coco_multiclass.yaml, 80 classes) on 80-class synthetic
+   data: 5 training steps through K1/K2 with the class-match feature and 5
+   through K5/K6 with nine features, launches counted; one served batch
+   with class ids, whose f32 logits agree between the two kernels.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result
@@ -67,12 +89,13 @@ from gossipnet_tpu_torch.data.synthetic import (
     layout_record,
     synthetic_roidb,
 )
-from gossipnet_tpu_torch.models.gossipnet import PairParams
+from gossipnet_tpu_torch.models.gossipnet import PAD_LOGIT, PairParams
 from gossipnet_tpu_torch.ops import matching
 from gossipnet_tpu_torch.ops import order
 from gossipnet_tpu_torch.ops import pair_features as pf
 from gossipnet_tpu_torch.ops.cuda import build
 from gossipnet_tpu_torch.ops.cuda import matching_scan as k3
+from gossipnet_tpu_torch.ops.cuda import pairwise as k5
 from gossipnet_tpu_torch.ops.cuda import pairwise2 as k1
 from gossipnet_tpu_torch.params import as_state_dict, init_params
 from gossipnet_tpu_torch.serving import serve_stream
@@ -84,12 +107,17 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 IOU_OPS = 13            # min/max/sub/max x2, mul, add, sub, max, div, cmp
+FEATURE_OPS = 10        # K5's per-pair features: 5 sub, 2 div, class cmp...
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)   # one bf16 ulp of h1 may flip
 LOGIT_TOL = dict(rtol=1e-3, atol=1e-3)  # 16 blocks compound f32 order
 GRAD_TOL = dict(rtol=1e-3, atol=1e-3)   # the same, through the backward
+# and per leaf, of its own max |g|: a dropped row or a halved tie moves a
+# leaf by O(1) of its scale, f32 order over 16 blocks by far less
+LEAF_GRAD_REL = 1e-3
 WEIGHT_GRAD_REL = 1e-4   # sums over ~1e5 pairs in another order, of max|x|
-KERNELS = ("pairwise2_fwd", "pairwise2_bwd", "matching_scan")
+KERNELS = ("pairwise2_fwd", "pairwise2_bwd", "matching_scan",
+           "pairwise_fwd", "pairwise_bwd")
 COCO_THRESHOLDS = tuple(np.round(np.arange(0.5, 0.951, 0.05), 2).tolist())
 # The reference's step probe (scripts/probe.py:70): buckets to B=8 N=1024
 # G=112 at config 2's batch size.
@@ -106,7 +134,18 @@ KERNEL_ROWS = {
                             "gossipnet_tpu/ops/pallas/matching_kernel.py:112"),
     "greedy_scan": ("matching_scan.cu",
                     "gossipnet_tpu/ops/pallas/matching_kernel.py:29"),
+    "pair_pool_fwd": ("pairwise_fwd.cu",
+                      "gossipnet_tpu/ops/pallas/pairwise.py:314"),
+    "pair_pool_bwd": ("pairwise_bwd.cu",
+                      "gossipnet_tpu/ops/pallas/pairwise.py:492"),
 }
+# the pair kernels' labels in the log: (forward, backward)
+LABELS = {k1: ("K1", "K2"), k5: ("K5", "K6")}
+# config 4's training data: ~3,800 detections and 400 GTs per image,
+# bucketed to N=4096; two images, so every step sees the same batch
+CROWD_DATA = dict(num_images=2, seed=0, num_gt=400, dets_per_gt=8,
+                  num_clutter=600, num_classes=1)
+CROWD_STEPS = 5
 DEV = "cuda"
 
 
@@ -146,55 +185,66 @@ def random_pair_inputs(rng, b, nr, nc, p, g):
     return t(b, nr, p), t(b, nc, p), prm
 
 
+TOL_TEXT = {"float32": f"rtol=atol={F32_TOL['atol']}",
+            "bfloat16": "rtol=atol=2e-2, 99% within 1e-4"}
+
+
+def within(got, want, dtype) -> bool:
+    """A pair kernel's m, d_a or d_b against its plain version's: f32
+    elementwise at F32_TOL; bf16 at BF16_TOL with 99% within 1e-4."""
+    if dtype == "float32":
+        return torch.allclose(got, want, **F32_TOL)
+    return (torch.allclose(got, want, **BF16_TOL)
+            and ((got - want).abs() > 1e-4).float().mean().item() < 0.01)
+
+
 def compare(name, dtype, cols, rows=None, classes=None, block_sparse=True,
-            probe=False, seed=0):
-    """K1 vs its plain version on one input; returns the max abs error."""
+            probe=False, seed=0, kern=k1, p=32):
+    """A pair kernel (K1, or K5 with ``kern=k5``) vs its plain version on
+    one input; returns the max abs error."""
     rng = np.random.default_rng(seed)
     b, _, nc = cols.shape
     row_cols = cols if rows is None else cols[:, :, rows].contiguous()
     nr = row_cols.shape[2]
     g = pf.NUM_PAIR_FEATURES_MC if classes is not None else \
         pf.NUM_PAIR_FEATURES
-    a, bb, prm = random_pair_inputs(rng, b, nr, nc, 32, g)
+    a, bb, prm = random_pair_inputs(rng, b, nr, nc, p, g)
     if probe:
         # wg = 0, W2 = I, b2 = 0, a = 0, b > 0: m_i = max of b_j over the
         # neighbour set, exact in any order: equal only if the masks are.
         a = torch.zeros_like(a)
         bb = bb.abs() + 1.0
         prm = PairParams(prm.wa, prm.wb, torch.zeros_like(prm.wg), prm.b1,
-                         torch.eye(32, device=a.device),
+                         torch.eye(p, device=a.device),
                          torch.zeros_like(prm.b2))
     kw = dict(classes=None if classes is None else
               (classes if rows is None else classes[:, rows].contiguous()),
               col_classes=classes, compute_dtype=dtype)
-    got = k1.pair_pool(row_cols, cols, a, bb, prm, 0.2,
-                       block_sparse=block_sparse, **kw)
-    want = k1.pair_pool_reference(row_cols, cols, a, bb, prm, 0.2, **kw)
+    got = kern.pair_pool(row_cols, cols, a, bb, prm, 0.2,
+                         block_sparse=block_sparse, **kw)
+    want = kern.pair_pool_reference(row_cols, cols, a, bb, prm, 0.2, **kw)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item() if got.numel() else 0.0
     if probe:
         ok = torch.equal(got, want)
         tol = "bit-exact (neighbour masks equal)"
-    elif dtype == "float32":
-        ok = torch.allclose(got, want, **F32_TOL)
-        tol = f"rtol=atol={F32_TOL['atol']}"
     else:
-        ok = (torch.allclose(got, want, **BF16_TOL)
-              and ((got - want).abs() > 1e-4).float().mean().item() < 0.01)
-        tol = "rtol=atol=2e-2, 99% within 1e-4"
-    log(f"  K1 {name:<24} {dtype:<8} B={b} NR={nr} NC={nc} "
+        ok, tol = within(got, want, dtype), TOL_TEXT[dtype]
+    label = LABELS[kern][0]
+    log(f"  {label} {name:<24} {dtype:<8} B={b} NR={nr} NC={nc} P={p} "
         f"max_abs_err={err:.3e} tol {tol} -> {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"K1 disagrees with its plain version: {name} "
-                             f"{dtype} max_abs_err={err}")
+        raise AssertionError(f"{label} disagrees with its plain version: "
+                             f"{name} {dtype} max_abs_err={err}")
     return err
 
 
-def phase_kernel_cases() -> float:
-    log("phase 3: K1 against its plain version on the card")
+def pair_case_inputs():
+    """The detections of the pair-kernel checks: the clustered bench batch,
+    a batch with a padded tail and an all-padding image, a multi-class
+    batch and its class ids."""
     dev = torch.device(DEV)
     cols_1024 = pf.stack_columns(pf.det_columns(*sorted_bench_batch(8, 1024)))
-    cols_4096 = pf.stack_columns(pf.det_columns(*sorted_bench_batch(1, 4096)))
     boxes, scores, valid = sorted_bench_batch(3, 700, seed=5)
     valid[1] = False                      # an all-padding image
     valid[2, 300:] = False                # and padding tail rows
@@ -202,6 +252,13 @@ def phase_kernel_cases() -> float:
     cols_mc = pf.stack_columns(pf.det_columns(*sorted_bench_batch(2, 512)))
     cls = torch.from_numpy(np.random.default_rng(1).integers(
         0, 4, (2, cols_mc.shape[2]))).to(dev)
+    return cols_1024, cols_pad, cols_mc, cls
+
+
+def phase_kernel_cases() -> float:
+    log("phase 3: K1 against its plain version on the card")
+    cols_1024, cols_pad, cols_mc, cls = pair_case_inputs()
+    cols_4096 = pf.stack_columns(pf.det_columns(*sorted_bench_batch(1, 4096)))
     n = cols_1024.shape[2]
     worst = 0.0
     for dtype in ("float32", "bfloat16"):
@@ -328,6 +385,16 @@ def cuda_time(fn, iters, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, reps) -> float:
+    """ms per call of ``fn`` on the host clock, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
 def phase_times(rescorer, dtype):
     log(f"phase 5: times at the bench workload (B=8, N=1024, clustered), "
         f"K1 in {dtype}")
@@ -346,15 +413,7 @@ def phase_times(rescorer, dtype):
 
     # what this run's data needs: neighbour pairs through the MLP, and the
     # IoU test over the valid pairs of the active tiles
-    rv = geom.row[:, 7] > 0
-    cv = geom.col[:, 7] > 0
-    iou = k1.fields_iou(geom.row[..., None], geom.col[:, :, None, :])
-    pair_valid = rv[:, :, None] & cv[:, None, :]
-    nb_pairs = ((iou >= torch.tensor(0.2, device=iou.device))
-                & pair_valid).sum().item()
-    active = geom.flags.repeat_interleave(k1.TILE_I, 1)[:, :1024] \
-        .repeat_interleave(k1.TILE_J, 2)[:, :, :1024] > 0
-    tested = (active & pair_valid).sum().item()
+    nb_pairs, tested = pair_counts(geom)
     p, k = 32, 3
     mlp_ops = nb_pairs * (2 * p * p + (k + 6) * p)
     iou_ops = tested * IOU_OPS
@@ -405,25 +464,28 @@ GRAD_NAMES = ("d_a'", "d_b'", "dWg_k", "dW2", "db2")
 
 
 def pair_args(cols, rows=None, classes=None, block_sparse=True, seed=0,
-              b_cols=None):
-    """(geom, a', b', Wg_k, W2, b2) of one pair stage on random weights, and
-    a random cotangent dm; ``b_cols`` overrides the column detections'
-    b' (the tie probe)."""
+              kern=k1, p=32):
+    """The launch arguments of one pair stage on random weights -- K1's
+    (geom, a', b', Wg_k, W2, b2), or K5's (columns, a, b, Wg, W2, b2) with
+    ``kern=k5`` -- and a random cotangent dm."""
     rng = np.random.default_rng(seed)
     b, _, nc = cols.shape
     row_cols = cols if rows is None else cols[:, :, rows].contiguous()
     nr = row_cols.shape[2]
     g = pf.NUM_PAIR_FEATURES_MC if classes is not None else \
         pf.NUM_PAIR_FEATURES
-    a, bb, prm = random_pair_inputs(rng, b, nr, nc, 32, g)
+    a, bb, prm = random_pair_inputs(rng, b, nr, nc, p, g)
     rcls = None if classes is None else \
         (classes if rows is None else classes[:, rows].contiguous())
+    dm = torch.from_numpy(rng.standard_normal((b, nr, p)).astype(
+        np.float32)).to(a.device)
+    if kern is k5:
+        cols5 = k5.pair_columns(row_cols, cols, 0.2, rcls, classes,
+                                block_sparse)
+        return (cols5, a, bb, prm.wg, prm.w2.contiguous(),
+                prm.b2.contiguous()), dm
     geom = k1.pair_geometry(row_cols, cols, 0.2, rcls, classes, block_sparse)
     a2, b2 = k1.fold_separable(prm.wg, a, bb, geom)
-    if b_cols is not None:
-        b2 = b_cols
-    dm = torch.from_numpy(rng.standard_normal((b, nr, 32)).astype(
-        np.float32)).to(a.device)
     return (geom, a2.contiguous(), b2.contiguous(),
             k1._kernel_wg(prm.wg, geom.multiclass), prm.w2.contiguous(),
             prm.b2.contiguous()), dm
@@ -438,67 +500,76 @@ def grad_errors(got, want, dtype):
         err = (x - y).abs().max().item() if x.numel() else 0.0
         errs[name] = err
         if name in ("d_a'", "d_b'"):
-            if dtype == "float32":
-                good = torch.allclose(x, y, **F32_TOL)
-            else:
-                good = (torch.allclose(x, y, **BF16_TOL) and
-                        ((x - y).abs() > 1e-4).float().mean().item() < 0.01)
+            good = within(x, y, dtype)
         else:
             good = err <= WEIGHT_GRAD_REL * max(y.abs().max().item(), 1e-30)
         ok = ok and good
     return errs, ok
 
 
-def compare_k2(name, dtype, cols, **kw):
-    """K2 on K1's m against the plain backward on the plain forward's m."""
-    args, dm = pair_args(cols, **kw)
-    m_k = k1.launch_kernel(*args, dtype)
-    m_p = k1._reference_core(*args, dtype)
-    got = k1.launch_backward_kernel(*args, m_k, dm, dtype)
-    want = k1.pair_pool_backward_reference(*args, m_p, dm, dtype)
+def compare_k2(name, dtype, cols, kern=k1, **kw):
+    """K2 on K1's m (or K6 on K5's, ``kern=k5``) against the plain
+    backward on the plain forward's m, on random weights."""
+    args, dm = pair_args(cols, kern=kern, **kw)
+    return check_backward(name, dtype, args, dm, kern)
+
+
+def check_backward(name, dtype, args, dm, kern=k1):
+    """The backward kernel on the forward kernel's m against the plain
+    backward on the plain forward's m, on the launch arguments ``args``."""
+    m_k = kern.launch_kernel(*args, dtype)
+    m_p = kern._reference_core(*args, dtype)
+    got = kern.launch_backward_kernel(*args, m_k, dm, dtype)
+    want = kern.pair_pool_backward_reference(*args, m_p, dm, dtype)
     torch.cuda.synchronize()
     errs, ok = grad_errors(got, want, dtype)
-    log(f"  K2 {name:<24} {dtype:<8} NR={args[1].shape[1]} "
-        f"NC={args[2].shape[1]} m==plain m: {torch.equal(m_k, m_p)}; "
+    label = LABELS[kern][1]
+    log(f"  {label} {name:<24} {dtype:<8} NR={args[1].shape[1]} "
+        f"NC={args[2].shape[1]} P={args[1].shape[2]} m==plain m: "
+        f"{torch.equal(m_k, m_p)}; "
         + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
         + f" -> {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"K2 disagrees with its plain version: {name} "
-                             f"{dtype} {errs}")
+        raise AssertionError(f"{label} disagrees with its plain version: "
+                             f"{name} {dtype} {errs}")
     return max(errs.values())
 
 
-def k2_winners(cols, dtype):
+def k2_winners(cols, dtype, kern=k1):
     """dm = 1: db2[q] counts the winners of q, at least one per row with
-    m > 0 (more only at exact ties). A recompute that missed K1's bits
-    would miss winners here."""
-    args, dm = pair_args(cols)
-    m = k1.launch_kernel(*args, dtype)
-    db2 = k1.launch_backward_kernel(*args, m, torch.ones_like(dm), dtype)[4]
+    m > 0 (more only at exact ties). A recompute that missed the forward
+    kernel's bits would miss winners here."""
+    args, dm = pair_args(cols, kern=kern)
+    m = kern.launch_kernel(*args, dtype)
+    db2 = kern.launch_backward_kernel(*args, m, torch.ones_like(dm),
+                                      dtype)[4]
     rows = (m > 0).sum(dim=(0, 1)).float()
-    log(f"  K2 winners {dtype:<8}: {int(db2.sum().item())} for "
+    label = LABELS[kern][1]
+    log(f"  {label} winners {dtype:<8}: {int(db2.sum().item())} for "
         f"{int(rows.sum().item())} (row, q) maxima > 0")
     if not bool((db2 >= rows).all()):
-        raise AssertionError(f"K2 missed winners in {dtype}")
+        raise AssertionError(f"{label} missed winners in {dtype}")
 
 
-def k2_tie_probe(cols, dtype):
+def k2_tie_probe(cols, dtype, kern=k1, classes=None):
     """Every column duplicated: each max then ties exactly between j and
     its copy, and each tie must get the full dm (the TPU kernel's rule),
     so d_b' repeats d_b' of the single problem on both copies, and d_a',
     dWg_k, dW2 and db2 double. A rule that split ties would halve them."""
-    args_s, dm = pair_args(cols)
+    args_s, dm = pair_args(cols, classes=classes, kern=kern)
     geom_s, a2, b2, wg_k, w2, b2bias = args_s
     dup = torch.repeat_interleave(cols, 2, dim=2)
-    geom_d = k1.pair_geometry(cols, dup, 0.2)
+    build_cols = k5.pair_columns if kern is k5 else k1.pair_geometry
+    geom_d = build_cols(cols, dup, 0.2, classes, None if classes is None
+                        else torch.repeat_interleave(classes, 2, dim=1))
     args_d = (geom_d, a2, torch.repeat_interleave(b2, 2, dim=1).contiguous(),
               wg_k, w2, b2bias)
-    m_s = k1.launch_kernel(*args_s, dtype)
-    m_d = k1.launch_kernel(*args_d, dtype)
-    single = k1.launch_backward_kernel(*args_s, m_s, dm, dtype)
-    got = k1.launch_backward_kernel(*args_d, m_d, dm, dtype)
-    plain = k1.pair_pool_backward_reference(
-        *args_d, k1._reference_core(*args_d, dtype), dm, dtype)
+    m_s = kern.launch_kernel(*args_s, dtype)
+    m_d = kern.launch_kernel(*args_d, dtype)
+    single = kern.launch_backward_kernel(*args_s, m_s, dm, dtype)
+    got = kern.launch_backward_kernel(*args_d, m_d, dm, dtype)
+    plain = kern.pair_pool_backward_reference(
+        *args_d, kern._reference_core(*args_d, dtype), dm, dtype)
     torch.cuda.synchronize()
     db_d = got[1]
     want = (2 * single[0], single[1].repeat_interleave(2, dim=1),
@@ -507,26 +578,20 @@ def k2_tie_probe(cols, dtype):
     errs_p, ok_p = grad_errors(got, plain, dtype)
     copies = torch.equal(db_d[:, 0::2], db_d[:, 1::2])
     ok = ok and ok_p and copies and torch.equal(m_s, m_d)
-    log(f"  K2 tie probe {dtype:<8}: copies of d_b' bit-equal {copies}; vs "
-        f"full-gradient rule max {max(errs.values()):.2e}, vs plain "
+    label = LABELS[kern][1]
+    log(f"  {label} tie probe {dtype:<8}: copies of d_b bit-equal {copies}; "
+        f"vs full-gradient rule max {max(errs.values()):.2e}, vs plain "
         f"{max(errs_p.values()):.2e} -> {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"K2 tie rule fails in {dtype}: {errs} {errs_p}")
+        raise AssertionError(f"{label} tie rule fails in {dtype}: {errs} "
+                             f"{errs_p}")
     return max(max(errs.values()), max(errs_p.values()))
 
 
 def phase_k2_cases() -> float:
     log("phase 3b: K2 (pair-pool backward) against its plain version")
-    dev = torch.device(DEV)
-    cols_1024 = pf.stack_columns(pf.det_columns(*sorted_bench_batch(8, 1024)))
+    cols_1024, cols_pad, cols_mc, cls = pair_case_inputs()
     cols_4096 = pf.stack_columns(pf.det_columns(*sorted_bench_batch(1, 4096)))
-    boxes, scores, valid = sorted_bench_batch(3, 700, seed=5)
-    valid[1] = False
-    valid[2, 300:] = False
-    cols_pad = pf.stack_columns(pf.det_columns(boxes, scores, valid))
-    cols_mc = pf.stack_columns(pf.det_columns(*sorted_bench_batch(2, 512)))
-    cls = torch.from_numpy(np.random.default_rng(1).integers(
-        0, 4, (2, cols_mc.shape[2]))).to(dev)
     n = cols_1024.shape[2]
     worst = 0.0
     for dtype in ("float32", "bfloat16"):
@@ -655,18 +720,27 @@ def train_config(tmp: Path, name: str, **train_kw):
                   "snapshot_every": 10, "eval_every": 0, **train_kw}})
 
 
+COUNTERS = {"pair_pool2_fwd": (k1, "pair_pool"),
+            "pair_pool2_bwd": (k1, "pair_pool_backward"),
+            "greedy_scan_batched": (k3, "greedy_scan_batched"),
+            "greedy_scan": (k3, "greedy_scan"),
+            "pair_pool_fwd": (k5, "pair_pool"),
+            "pair_pool_bwd": (k5, "pair_pool_backward")}
+
+
 def reset_counts():
-    k1.pair_pool.launches = 0
-    k1.pair_pool_backward.launches = 0
-    k3.greedy_scan_batched.launches = 0
-    k3.greedy_scan.launches = 0
+    for module, fn in COUNTERS.values():
+        getattr(module, fn).launches = 0
 
 
 def counts() -> dict:
-    return {"pair_pool2_fwd": k1.pair_pool.launches,
-            "pair_pool2_bwd": k1.pair_pool_backward.launches,
-            "greedy_scan_batched": k3.greedy_scan_batched.launches,
-            "greedy_scan": k3.greedy_scan.launches}
+    return {name: getattr(module, fn).launches
+            for name, (module, fn) in COUNTERS.items()}
+
+
+def want_counts(**nonzero) -> dict:
+    """Every kernel's expected launches: ``nonzero``, the rest 0."""
+    return {name: nonzero.get(name, 0) for name in COUNTERS}
 
 
 def state_params(state) -> dict:
@@ -714,10 +788,10 @@ def phase_training(tmp: Path):
     blocks = cfg.model.num_blocks
     # The label check adds one forward (16 K1) and one K3 launch; K4 runs
     # once per image of it.
-    want = {"pair_pool2_fwd": blocks * steps + blocks,
-            "pair_pool2_bwd": blocks * steps,
-            "greedy_scan_batched": steps + 1,
-            "greedy_scan": first.batch_size}
+    want = want_counts(pair_pool2_fwd=blocks * steps + blocks,
+                       pair_pool2_bwd=blocks * steps,
+                       greedy_scan_batched=steps + 1,
+                       greedy_scan=first.batch_size)
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} (16 K1 + 16 K2 "
                              f"+ 1 K3 per step)")
@@ -770,17 +844,37 @@ def phase_train_gradients():
         loss, _ = training.loss_and_metrics(model, arrays, cfg)
         loss.backward()
         grads[impl] = {k: p.grad for k, p in model.named_parameters()}
-    worst, bad = 0.0, []
-    for k, g in grads["kernel"].items():
-        d = grads["dense"][k]
-        worst = max(worst, (g - d).abs().max().item())
-        if not torch.allclose(g, d, **GRAD_TOL):
+    compare_grads(f"kernel path vs dense plain path at B=2 "
+                  f"N={arrays['boxes'].shape[1]}", grads["kernel"],
+                  grads["dense"])
+
+
+def compare_grads(label, got: dict, want: dict):
+    """Two paths' parameter gradients, leaf by leaf: elementwise at
+    GRAD_TOL, and each leaf's max |diff| at most LEAF_GRAD_REL of its own
+    max |g|, so that a leaf of small entries is held to its own scale.
+    Logs the leaves nearest their limit, each with its max |g|."""
+    rows, bad = [], []
+    for k, g in got.items():
+        d = want[k]
+        diff = (g - d).abs().max().item()
+        scale = d.abs().max().item()
+        ratio = diff / max(scale, 1e-30)
+        rows.append((ratio, k, diff, scale))
+        if not torch.allclose(g, d, **GRAD_TOL) or ratio > LEAF_GRAD_REL:
             bad.append(k)
-    log(f"  B=2 N={arrays['boxes'].shape[1]}: {len(grads['kernel'])} "
-        f"parameter gradients, max |diff| {worst:.3e} (tol rtol=atol=1e-3)"
-        f" -> {'ok' if not bad else 'FAIL ' + str(bad[:4])}")
+    rows.sort(reverse=True)
+    log(f"  f32 gradients, {label}: {len(rows)} parameter gradients, max "
+        f"|diff| {max(r[2] for r in rows):.3e}, smallest leaf max |g| "
+        f"{min(r[3] for r in rows):.3e} (tol rtol=atol=1e-3 and max |diff| "
+        f"<= {LEAF_GRAD_REL} of the leaf's max |g|) -> "
+        f"{'ok' if not bad else 'FAIL ' + str(bad[:4])}; nearest their "
+        f"limit:")
+    for ratio, k, diff, scale in rows[:6]:
+        log(f"    {k:<40} max |g| {scale:.3e}  max |diff| {diff:.3e}  "
+            f"ratio {ratio:.2e}")
     if bad:
-        raise AssertionError(f"gradients differ: {bad}")
+        raise AssertionError(f"gradients differ ({label}): {bad}")
 
 
 def phase_train_cli(tmp: Path):
@@ -844,14 +938,15 @@ def log_kernels(by_name: dict, busy_ms: float, per: str):
         log(f"    {ms / busy_ms:6.3f}  {ms:8.4f} ms/{per}  {key[:70]}")
 
 
-def k2_bound(args, m, dm, dtype) -> tuple[float, str, str]:
-    """The least time for K2's work on these inputs: the recompute of every
-    neighbour pair (K1's count), the per-pair backward (dpre1 mask, d_a',
-    d_b', dWg_k) and, per winning (pair, q), a column of W2 dpre2, of dW2
-    and db2; the IoU tests of the active tiles; each input read and each
-    output written once."""
-    geom, a2, b2, wg_k, w2, b2bias = args
-    p, k = a2.shape[-1], wg_k.shape[0]
+def pair_counts(geom) -> tuple[int, int]:
+    """(neighbour pairs, IoU tests) of one pair stage on this run's data:
+    the valid pairs with IoU >= the threshold, and the valid pairs of the
+    active tiles. ``geom`` is K1's geometry, or K5's columns (read through
+    a K1 geometry of the same detections and K5's own flags)."""
+    if isinstance(geom, k5.PairColumns):
+        n = pf.NUM_COLUMNS
+        geom = k1.pair_geometry(geom.row[:, :n], geom.col[:, :n],
+                                geom.neighbor_iou)._replace(flags=geom.flags)
     rv, cv = geom.row[:, 7] > 0, geom.col[:, 7] > 0
     iou = k1.fields_iou(geom.row[..., None], geom.col[:, :, None, :])
     pair_valid = rv[:, :, None] & cv[:, None, :]
@@ -860,13 +955,27 @@ def k2_bound(args, m, dm, dtype) -> tuple[float, str, str]:
     nr, nc = geom.row.shape[2], geom.col.shape[2]
     active = geom.flags.repeat_interleave(k1.TILE_I, 1)[:, :nr] \
         .repeat_interleave(k1.TILE_J, 2)[:, :, :nc] > 0
-    tested = (active & pair_valid).sum().item()
-    winners = k1.launch_backward_kernel(*args, m, torch.ones_like(dm),
-                                        dtype)[4].sum().item()
-    mlp = (nb * (2 * p * p + (k + 6) * p + 3 * p + 2 * k * p)
+    return nb, (active & pair_valid).sum().item()
+
+
+def k2_bound(args, m, dm, dtype, kern=k1) -> tuple[float, str, str]:
+    """The least time for K2's (or K6's) work on these inputs: the
+    recompute of every neighbour pair (the forward's count), the per-pair
+    backward (dpre1 mask, d_a, d_b, dWg) and, per winning (pair, q), a
+    column of W2 dpre2, of dW2 and db2; the IoU tests of the active tiles
+    (and K6's per-pair features); each input read and each output written
+    once."""
+    geom, a2, b2, wg_k, w2, b2bias = args
+    p, k = a2.shape[-1], wg_k.shape[0]
+    nb, tested = pair_counts(geom)
+    winners = kern.launch_backward_kernel(*args, m, torch.ones_like(dm),
+                                          dtype)[4].sum().item()
+    fc1 = (k + 6) * p if kern is k1 else 2 * k * p + 4 * p
+    mlp = (nb * (2 * p * p + fc1 + 3 * p + 2 * k * p)
            + winners * (4 * p + 1))
+    features = nb * FEATURE_OPS if kern is k5 else 0
     ops_s = mlp / (PEAK_BF16 if dtype == "bfloat16" else PEAK_F32) \
-        + tested * IOU_OPS / PEAK_F32
+        + (tested * IOU_OPS + features) / PEAK_F32
     nbytes = sum(t.numel() * t.element_size() for t in
                  (geom.row, geom.col, a2, b2, wg_k, w2, b2bias, geom.flags,
                   m, dm)) + 4 * (a2.numel() + b2.numel() + wg_k.numel()
@@ -925,17 +1034,11 @@ def phase_train_times(state, tmp: Path) -> dict:
         for i in range(n):
             training.train_step(state, batches[i % 4], cfg)
 
-    def host_ms(reps=10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        steps(reps)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / reps
-
     steps(2)
     # in turns (events, host, host, events): the host clock spreads
-    runs = [cuda_time(lambda: steps(1), iters=10, warmup=1), host_ms(),
-            host_ms(), cuda_time(lambda: steps(1), iters=10, warmup=1)]
+    runs = [cuda_time(lambda: steps(1), iters=10, warmup=1),
+            host_ms(lambda: steps(1), 10), host_ms(lambda: steps(1), 10),
+            cuda_time(lambda: steps(1), iters=10, warmup=1)]
     step_ms = float(np.median(runs[0::3]))
     host_med = float(np.median(runs[1:3]))
     busy_ms, by_name = profile_kernels(lambda: steps(1), reps=3)
@@ -971,6 +1074,473 @@ def phase_train_times(state, tmp: Path) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# K5 / K6: the unfolded pair kernel (pair_kernel: 1) and its backward
+# ---------------------------------------------------------------------------
+
+
+def phase_k5_cases() -> float:
+    log("phase 3d: K5 (the unfolded pair kernel, pair_kernel: 1) against "
+        "its plain version on the card")
+    cols_1024, cols_pad, cols_mc, cls = pair_case_inputs()
+    cols_4096 = pf.stack_columns(pf.det_columns(*sorted_bench_batch(1, 4096)))
+    small = cols_1024[:2, :, :512].contiguous()
+    n = cols_1024.shape[2]
+    worst = 0.0
+    for dtype in ("float32", "bfloat16"):
+        worst = max(worst,
+                    compare("clustered_b8_n1024", dtype, cols_1024, kern=k5),
+                    compare("rect_odd", dtype, cols_1024[:2, :, :n - 23],
+                            rows=slice(n // 9, n * 7 // 8 - 5), kern=k5),
+                    compare("rect_multiclass", dtype,
+                            cols_mc[:, :, :500].contiguous(),
+                            rows=slice(37, 301),
+                            classes=cls[:, :500].contiguous(), kern=k5),
+                    compare("block_sparse_off", dtype, cols_1024[:2],
+                            block_sparse=False, kern=k5),
+                    compare("multiclass", dtype, cols_mc, classes=cls,
+                            kern=k5),
+                    compare("padded_all_padding", dtype, cols_pad, kern=k5),
+                    compare("p16", dtype, small, p=16, kern=k5),
+                    compare("p64_multiclass", dtype, cols_mc, classes=cls,
+                            p=64, kern=k5))
+    worst = max(worst, compare("clustered_b1_n4096", "float32", cols_4096,
+                               kern=k5))
+    compare("mask_probe_b8_n1024", "float32", cols_1024, probe=True, kern=k5)
+    compare("mask_probe_b1_n4096", "float32", cols_4096, probe=True, kern=k5)
+    compare("mask_probe_multiclass", "float32", cols_mc, classes=cls,
+            probe=True, kern=k5)
+    return worst
+
+
+def phase_k6_cases() -> float:
+    log("phase 3e: K6 (the unfolded pair-pool backward) against its plain "
+        "version")
+    cols_1024, cols_pad, cols_mc, cls = pair_case_inputs()
+    small = cols_1024[:2, :, :512].contiguous()
+    n = cols_1024.shape[2]
+    worst = 0.0
+    for dtype in ("float32", "bfloat16"):
+        worst = max(worst,
+                    compare_k2("clustered_b8_n1024", dtype, cols_1024,
+                               kern=k5),
+                    compare_k2("rect_odd", dtype, cols_1024[:2, :, :n - 23],
+                               rows=slice(n // 9, n * 7 // 8 - 5), kern=k5),
+                    compare_k2("block_sparse_off", dtype, cols_1024[:2],
+                               block_sparse=False, kern=k5),
+                    compare_k2("multiclass", dtype, cols_mc, classes=cls,
+                               kern=k5),
+                    compare_k2("padded_all_padding", dtype, cols_pad,
+                               kern=k5),
+                    compare_k2("p16", dtype, small, p=16, kern=k5),
+                    compare_k2("p64_multiclass", dtype, cols_mc, classes=cls,
+                               p=64, kern=k5),
+                    k2_tie_probe(small, dtype, kern=k5),
+                    k2_tie_probe(cols_mc, dtype, kern=k5, classes=cls))
+        k2_winners(cols_1024, dtype, kern=k5)
+    args, dm = pair_args(cols_1024, kern=k5)
+    for dtype in ("float32", "bfloat16"):
+        m = k5.launch_kernel(*args, dtype)
+        one = k5.launch_backward_kernel(*args, m, dm, dtype)
+        two = k5.launch_backward_kernel(*args, m, dm, dtype)
+        same = all(torch.equal(x, y) for x, y in zip(one, two))
+        log(f"  K6 determinism {dtype}: two launches bit-identical: {same}")
+        if not same:
+            raise AssertionError(f"K6 is not deterministic in {dtype}")
+    return worst
+
+
+def k5_bound(args, dtype) -> tuple[float, str, str]:
+    """The least time for K5's work on these inputs: every neighbour pair
+    through the features and the MLP (FC1 over G features, FC2), the IoU
+    tests of the active tiles, each input read and the output written
+    once."""
+    cols, a, b, wg, w2, b2bias = args
+    p, g = a.shape[-1], wg.shape[0]
+    nb, tested = pair_counts(cols)
+    mlp = nb * (2 * p * p + 2 * g * p + 4 * p)
+    ops_s = mlp / (PEAK_BF16 if dtype == "bfloat16" else PEAK_F32) \
+        + (tested * IOU_OPS + nb * FEATURE_OPS) / PEAK_F32
+    nbytes = sum(t.numel() * t.element_size() for t in
+                 (cols.row, cols.col, a, b, wg, w2, b2bias, cols.flags)) \
+        + a.numel() * 4                                     # the output m
+    bytes_s = nbytes / PEAK_BYTES
+    how = (f"{nb} neighbour pairs x {2 * p * p + 2 * g * p + 4 * p} ops, "
+           f"{tested} IoU tests, {nbytes / 1e6:.2f} MB")
+    return max(ops_s, bytes_s) * 1e3, \
+        "operations" if ops_s >= bytes_s else "bytes", how
+
+
+def cuda_once(fn):
+    """One call of ``fn`` between CUDA events -> (ms, its result)."""
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def check_forward(name, dtype, got, want) -> float:
+    """A K5 output against the plain version's on the same launch
+    arguments, at phase 3d's tolerance."""
+    err = (got - want).abs().max().item()
+    ok = within(got, want, dtype)
+    log(f"  K5 {name:<36} {dtype:<8} B={got.shape[0]} NR={got.shape[1]} "
+        f"P={got.shape[2]} bit-equal {torch.equal(got, want)}, max_abs_err="
+        f"{err:.3e} tol {TOL_TEXT[dtype]} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K5 disagrees with its plain version: {name} "
+                             f"{dtype} max_abs_err={err}")
+    return err
+
+
+def k5_k6_times(label, fwd_args, bwd_args) -> tuple[dict, dict]:
+    """K5 and K6 ms/launch on launch arguments captured from the model,
+    beside their plain versions and bounds; the same plain runs hold K5
+    and K6 to them at this shape (phase 3d/3e tolerances), in the
+    captured dtype and again in f32 -> (times, worst errors)."""
+    dtype = fwd_args[-1]
+    args, m, dm = bwd_args[:6], bwd_args[6], bwd_args[7]
+    k5_ms = cuda_time(lambda: k5.launch_kernel(*fwd_args), iters=20)
+    k6_ms = cuda_time(lambda: k5.launch_backward_kernel(*bwd_args), iters=10)
+    k5_plain, m_first = cuda_once(lambda: k5._reference_core(*fwd_args))
+    m_plain = k5._reference_core(*args, dtype)
+    k6_plain, want = cuda_once(lambda: k5.pair_pool_backward_reference(
+        *args, m_plain, dm, dtype))
+    fwd_err = max(
+        check_forward(f"{label}, first block", dtype,
+                      k5.launch_kernel(*fwd_args), m_first),
+        check_forward(f"{label}, last block", dtype, m, m_plain))
+    got = k5.launch_backward_kernel(*bwd_args)
+    torch.cuda.synchronize()
+    errs, ok = grad_errors(got, want, dtype)
+    log(f"  K6 {label + ', last block':<36} {dtype:<8} "
+        + " ".join(f"{n}={e:.2e}" for n, e in errs.items())
+        + f" -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K6 disagrees with its plain version: {label} "
+                             f"{dtype} {errs}")
+    bwd_err = max(max(errs.values()),
+                  check_backward(f"{label}, last block", "float32", args, dm,
+                                 k5))
+    k5_b, k5_by, k5_how = k5_bound(fwd_args[:6], dtype)
+    k6_b, k6_by, k6_how = k2_bound(args, m, dm, dtype, kern=k5)
+    log(f"  {label}: K5 {dtype} {k5_ms:.4f} ms/launch, plain {k5_plain:.3f}"
+        f" ms, bound {k5_b:.5f} ms ({k5_by}: {k5_how})")
+    log(f"  {label}: K6 {dtype} {k6_ms:.4f} ms/launch, plain {k6_plain:.3f}"
+        f" ms, bound {k6_b:.5f} ms ({k6_by}: {k6_how})")
+    times = {"pair_pool_fwd": dict(ms=k5_ms, plain_ms=k5_plain,
+                                   bound_ms=k5_b, bound_by=k5_by),
+             "pair_pool_bwd": dict(ms=k6_ms, plain_ms=k6_plain,
+                                   bound_ms=k6_b, bound_by=k6_by)}
+    return times, {"pair_pool_fwd": fwd_err, "pair_pool_bwd": bwd_err}
+
+
+def capture_pair(kern, model, boxes, scores, valid, classes=None):
+    """The forward and backward kernel's launch arguments (K5/K6, or K1/K2
+    with ``kern=k1``) of one forward and backward of ``model``: the first
+    block's forward, the last block's backward."""
+    with torch.inference_mode():
+        fwd = capture(kern, "launch_kernel",
+                      lambda: model(boxes, scores, valid, classes))
+    cot = torch.randn(scores.shape, generator=torch.Generator(
+        device=scores.device).manual_seed(0), device=scores.device)
+    bwd = capture(kern, "launch_backward_kernel", lambda: (
+        model(boxes, scores, valid, classes) * cot).sum().backward())
+    model.zero_grad(set_to_none=True)
+    return fwd, bwd
+
+
+def bench_k5_k6_times() -> dict:
+    """K5/K6 at the serving bench batch (B=8, N=1024, clustered) of the
+    serving_bucketed model with pair_kernel 1, timed and held against
+    their plain versions -> the worst errors."""
+    cfg = load_config(experiment_path("serving_bucketed"),
+                      {"model": {"pair_kernel": 1}})
+    model = training.build_model(cfg, "kernel", DEV)
+    model.load_state_dict(as_state_dict(init_params(cfg.model, seed=0)))
+    fwd, bwd = capture_pair(k5, model, *sorted_bench_batch(8, 1024))
+    return k5_k6_times("serving bench B=8 N=1024", fwd, bwd)[1]
+
+
+# ---------------------------------------------------------------------------
+# config 4 (N=4096) and config 3 (80 classes)
+# ---------------------------------------------------------------------------
+
+
+def crowd_config(tmp: Path | None = None, **model):
+    """Config 4 (crowded_4096.yaml) at full width, pair_kernel 1 unless
+    ``model`` says otherwise, checkpointing under ``tmp``."""
+    train = {} if tmp is None else {
+        "checkpoint_dir": str(tmp / "crowd"), "log_every": 1,
+        "snapshot_every": 0, "eval_every": 0}
+    return load_config(experiment_path("crowded_4096"), {
+        "model": {"pair_kernel": 1, **model}, "train": train})
+
+
+def crowd_batch(b: int):
+    """The reference's N=4096 oracle batch: layout_batch("clustered", b,
+    4096) with every detection from 3900 on padding."""
+    batch = layout_batch("clustered", b, 4096, seed=0)
+    valid = batch.valid.copy()
+    valid[:, 3900:] = False
+    return batch.boxes, batch.scores, valid
+
+
+def model_logits(cfg, arrays, params=None):
+    model = training.build_model(cfg, "kernel", DEV)
+    model.load_state_dict(as_state_dict(params or init_params(cfg.model)))
+    with torch.inference_mode():
+        return model(*[torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
+                       for x in arrays])
+
+
+def phase_crowd_serving():
+    log("phase 10: main path of this slice -- config 4 (crowded_4096.yaml: "
+        "16 blocks, 128/32/32, N=4096, batch 2) with pair_kernel 1 (K5/K6)")
+    cfg = crowd_config()
+    boxes, scores, valid = crowd_batch(2)
+    images = [(boxes[b][valid[b]], scores[b][valid[b]], None)
+              for b in range(2)]
+    rescorer = Rescorer(cfg, init_params(cfg.model, seed=0), device=DEV)
+    reset_counts()
+    out = rescorer.rescore_batch(images)
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches != want_counts(pair_pool_fwd=cfg.model.num_blocks):
+        raise AssertionError(f"config 4 serving launches {launches}")
+    for im, sc in zip(images, out):
+        if len(sc) != len(im[1]) or not np.isfinite(sc).all() \
+                or sc.min() < 0 or sc.max() > 1:
+            raise AssertionError("bad rescored output at N=4096")
+    # padding inert: moving the padded detections changes no valid logit
+    model = rescorer.model
+    t = [torch.from_numpy(x).to(DEV) for x in (boxes, scores, valid)]
+    moved = [x.clone() for x in t[:2]]
+    pad = ~t[2]
+    moved[0][pad] = torch.rand_like(moved[0][pad]) * 640.0
+    moved[1][pad] = torch.rand_like(moved[1][pad])
+    with torch.inference_mode():
+        logits = model(*t)
+        logits_moved = model(moved[0], moved[1], t[2])
+    inert = (torch.equal(logits[t[2]], logits_moved[t[2]])
+             and bool((logits[pad] == PAD_LOGIT).all()))
+    log(f"  Rescorer.rescore_batch of 2 images x {len(images[0][1])} "
+        f"detections (bucket 4096): launches {launches['pair_pool_fwd']} K5, "
+        f"0 K1; scores finite in [0, 1]; padding inert (valid logits "
+        f"bit-equal when the padded boxes move, PAD_LOGIT on padding): "
+        f"{inert}")
+    if not inert:
+        raise AssertionError("padding is not inert at N=4096")
+    return rescorer
+
+
+def phase_crowd_oracle():
+    """K5 against K1 on the same f32 parameters: the reference's oracle
+    shape (tests/test_tpu_hw.py:366: 2 blocks, width 64/32/32, B=1
+    N=4096) within 2e-4, and config 4's 16 blocks within LOGIT_TOL."""
+    two = dict(num_blocks=2, feature_dim=64, reduced_dim=32, pairwise_dim=32,
+               pair_matmul_dtype="float32")
+    for label, b, model_kw, tol in (
+            ("2 blocks, 64/32/32, B=1", 1, two, dict(rtol=2e-4, atol=2e-4)),
+            ("16 blocks, 128/32/32, B=2", 2,
+             dict(pair_matmul_dtype="float32"), LOGIT_TOL)):
+        arrays = crowd_batch(b)
+        cfgs = {pk: crowd_config(**model_kw, pair_kernel=pk) for pk in (1, 2)}
+        reset_counts()
+        out = {pk: model_logits(cfg, arrays) for pk, cfg in cfgs.items()}
+        torch.cuda.synchronize()
+        launches = counts()
+        blocks = cfgs[1].model.num_blocks
+        valid = torch.from_numpy(arrays[2]).to(DEV)
+        err = (out[1] - out[2]).abs().max().item()
+        ok = (torch.allclose(out[1], out[2], **tol)
+              and bool(torch.isfinite(out[1][valid]).all())
+              and launches == want_counts(pair_pool_fwd=blocks,
+                                          pair_pool2_fwd=blocks))
+        log(f"  K5 vs K1, f32 logits at N=4096, {label}: max |diff| "
+            f"{err:.3e} (tol rtol=atol={tol['atol']}); {blocks} K5 + "
+            f"{blocks} K1 launches -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K5 and K1 disagree at N=4096 ({label}): "
+                                 f"{err}, launches {launches}")
+
+
+def phase_crowd_training(tmp: Path):
+    log(f"  training: config 4, {CROWD_STEPS} steps through K5/K6 on "
+        f"synthetic_roidb({CROWD_DATA})")
+    cfg = crowd_config(tmp)
+    roidb = synthetic_roidb(**CROWD_DATA)
+    first = next(BatchIterator(roidb, 2, cfg.data.bucket_sizes))
+    log(f"  data: {int(first.valid.sum(1).min())}-"
+        f"{int(first.valid.sum(1).max())} detections per image -> B, N, G "
+        f"= {first.batch_size}, {first.padded_n}, {first.padded_g}")
+    metrics_path = tmp / "crowd_metrics.jsonl"
+    reset_counts()
+    t0 = time.perf_counter()
+    state = training.train(cfg, roidb, pool_impl="kernel",
+                           metrics_path=str(metrics_path),
+                           max_steps=CROWD_STEPS, device=DEV)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts()
+    steps, blocks = state.step, cfg.model.num_blocks
+    want = want_counts(pair_pool_fwd=blocks * steps,
+                       pair_pool_bwd=blocks * steps,
+                       greedy_scan_batched=steps)
+    log(f"  {steps} steps in {run_s:.1f} s; launches {launches}")
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want} (16 K5 + 16 K6 "
+                             f"+ 1 K3 per step)")
+    losses = [json.loads(x)["loss"] for x in
+              metrics_path.read_text().splitlines()]
+    log(f"  = {blocks} K5 + {blocks} K6 + 1 K3 per step; loss per step: "
+        f"{' '.join(f'{x:.4f}' for x in losses)}")
+    if len(losses) != steps or not np.isfinite(losses).all() \
+            or losses[-1] >= losses[0]:
+        raise AssertionError(f"loss not finite and falling: {losses}")
+    return state, launches, cfg, first
+
+
+def phase_crowd_gradients(batch):
+    """f32 gradients of config 4's 16 blocks at N=4096: the K5/K6 path
+    against the K1/K2 path on the same parameters and batch."""
+    arrays = training.batch_to_device(batch, torch.device(DEV))
+    grads = {}
+    for pk in (1, 2):
+        cfg = crowd_config(pair_kernel=pk, pair_matmul_dtype="float32")
+        model = training.build_model(cfg, "kernel", DEV)
+        model.load_state_dict(as_state_dict(init_params(cfg.model)))
+        loss, _ = training.loss_and_metrics(model, arrays, cfg)
+        loss.backward()
+        grads[pk] = {k: p.grad for k, p in model.named_parameters()}
+    compare_grads("K5/K6 path vs K1/K2 path at B=2 N=4096", grads[1],
+                  grads[2])
+
+
+def phase_crowd_times(state, cfg, batch) -> tuple[dict, dict]:
+    log("  times at config 4 (B=2, N=4096), pair products in "
+        f"{cfg.model.pair_matmul_dtype}")
+    dev = torch.device(DEV)
+    arrays = training.batch_to_device(batch, dev)
+    model = state.model
+    det = (arrays["boxes"], arrays["scores"], arrays["valid"])
+    fwd, bwd = capture_pair(k5, model, *det)
+    times, worst = k5_k6_times("config 4 B=2 N=4096", fwd, bwd)
+    # K1/K2 on the same batch and weights, to say where each pair kernel
+    # is faster (pair_kernel 1 is the reference's default)
+    other = training.build_model(
+        crowd_config(pair_kernel=2), "kernel", DEV)
+    other.load_state_dict(model.state_dict())
+    fwd2, bwd2 = capture_pair(k1, other, *det)
+    k1_ms = cuda_time(lambda: k1.launch_kernel(*fwd2), iters=20)
+    k2_ms = cuda_time(lambda: k1.launch_backward_kernel(*bwd2), iters=10)
+    log(f"  config 4 B=2 N=4096, same batch and weights: K1 {fwd2[-1]} "
+        f"{k1_ms:.4f} ms/launch, K2 {k2_ms:.4f} ms/launch (K5 "
+        f"{times['pair_pool_fwd']['ms']:.4f}, K6 "
+        f"{times['pair_pool_bwd']['ms']:.4f})")
+
+    def forward():
+        with torch.inference_mode():
+            model(arrays["boxes"], arrays["scores"], arrays["valid"])
+
+    def step():
+        training.train_step(state, arrays, cfg)
+
+    dets = 2 * 4096
+    for name, fn in (("forward", forward), ("training step", step)):
+        fn()
+        runs = [cuda_time(fn, iters=10, warmup=1), host_ms(fn, 10),
+                host_ms(fn, 10), cuda_time(fn, iters=10, warmup=1)]
+        events = float(np.median(runs[0::3]))
+        busy_ms, by_name = profile_kernels(fn, reps=2)
+        k5_share = sum(v for key, v in by_name.items()
+                       if "pair_pool_fwd" in key or "pair_pool_bwd" in key)
+        busy = (f"device busy {busy_ms / events:.3f}, K5+K6 "
+                f"{k5_share / busy_ms:.3f} of kernel time" if busy_ms
+                else "profile: not measured")
+        log(f"  config 4 {name}, ms (events, host, host, events): "
+            f"{', '.join(f'{x:.3f}' for x in runs)}; CUDA events {events:.3f}"
+            f" ms = {dets / events * 1e3:.0f} dets/s, host "
+            f"{float(np.median(runs[1:3])):.3f} ms; {busy}")
+    return times, worst
+
+
+def phase_multiclass(tmp: Path):
+    log("phase 11: config 3 (coco_multiclass.yaml: 80 classes, class "
+        "embedding 32, 16 blocks, batch 8, class-aware matching) on 80-class "
+        "synthetic data, through K1/K2 and through K5/K6")
+    roidb = synthetic_roidb(**{**TRAIN_DATA, "num_classes": 80})
+    first = next(BatchIterator(roidb, 8, (256, 512, 1024)))
+    log(f"  data: B, N, G = {first.batch_size}, {first.padded_n}, "
+        f"{first.padded_g}; {len(np.unique(first.classes[first.valid]))} "
+        f"classes in the first batch")
+
+    def config(pk, **model):
+        return load_config(experiment_path("coco_multiclass"), {
+            "data": {"dataset": "synthetic"},
+            "model": {"pair_kernel": pk, **model},
+            "train": {"checkpoint_dir": str(tmp / f"mc{pk}"), "log_every": 1,
+                      "snapshot_every": 0, "eval_every": 0}})
+
+    steps = 5
+    for pk, fwd, bwd in ((2, "pair_pool2_fwd", "pair_pool2_bwd"),
+                         (1, "pair_pool_fwd", "pair_pool_bwd")):
+        cfg = config(pk)
+        metrics_path = tmp / f"mc{pk}.jsonl"
+        reset_counts()
+        state = training.train(cfg, roidb, pool_impl="kernel",
+                               metrics_path=str(metrics_path),
+                               max_steps=steps, device=DEV)
+        torch.cuda.synchronize()
+        launches = counts()
+        blocks = cfg.model.num_blocks
+        want = want_counts(**{fwd: blocks * steps, bwd: blocks * steps,
+                              "greedy_scan_batched": steps})
+        losses = [json.loads(x)["loss"] for x in
+                  metrics_path.read_text().splitlines()]
+        ok = launches == want and state.step == steps \
+            and np.isfinite(losses).all() and len(losses) == steps
+        log(f"  pair_kernel {pk}: {steps} steps, launches {launches} "
+            f"({blocks} {LABELS[k1 if pk == 2 else k5][0]} + {blocks} "
+            f"{LABELS[k1 if pk == 2 else k5][1]} + 1 K3 per step); loss "
+            f"{' '.join(f'{x:.4f}' for x in losses)} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"config 3 with pair_kernel {pk}: launches "
+                                 f"{launches} != {want} or losses {losses}")
+
+    # one served batch with class ids, f32, through both kernels
+    images = [(first.boxes[b][first.valid[b]], first.scores[b][first.valid[b]],
+               first.classes[b][first.valid[b]]) for b in range(8)]
+    params = init_params(config(1).model, seed=0)
+    logits, served = {}, {}
+    for pk in (1, 2):
+        cfg = config(pk, pair_matmul_dtype="float32")
+        rescorer = Rescorer(cfg, params, device=DEV)
+        reset_counts()
+        served[pk] = rescorer.rescore_batch(images)
+        launches = counts()
+        name = "pair_pool_fwd" if pk == 1 else "pair_pool2_fwd"
+        if launches != want_counts(**{name: cfg.model.num_blocks}):
+            raise AssertionError(f"served batch launches {launches}")
+        arrays, _ = rescorer._pack([(i,) + im for i, im in enumerate(images)],
+                                   first.padded_n)
+        logits[pk] = model_logits(cfg, arrays, params)
+    err = (logits[1] - logits[2]).abs().max().item()
+    moved = max(np.abs(a - b).max() for a, b in zip(served[1], served[2]))
+    ok = torch.allclose(logits[1], logits[2], **LOGIT_TOL)
+    log(f"  served batch of 8 images with class ids: {cfg.model.num_blocks} "
+        f"K5 / {cfg.model.num_blocks} K1 launches;"
+        f" f32 logits K5 vs K1 max |diff| {err:.3e} (tol rtol=atol=1e-3), "
+        f"served scores max |diff| {moved:.3e} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"config 3 logits differ between K5 and K1: "
+                             f"{err}")
+
+
 def phase_build():
     log(f"phase 2: build {', '.join(KERNELS)} from ops/cuda/csrc/, one nvcc "
         f"each, all at once")
@@ -997,6 +1567,8 @@ def main() -> int:
              "pair_pool2_bwd": phase_k2_cases(),
              "greedy_scan_batched": 0.0, "greedy_scan": 0.0}   # exact
     phase_scan_cases()
+    worst.update(pair_pool_fwd=phase_k5_cases(),
+                 pair_pool_bwd=phase_k6_cases())
     cfg = load_config(experiment_path("serving_bucketed"))
     rescorer, serve_launches = phase_serving(cfg)
     times = {"pair_pool2_fwd": phase_times(rescorer,
@@ -1006,8 +1578,23 @@ def main() -> int:
         phase_train_gradients()
         phase_train_cli(Path(tmp))
         times.update(phase_train_times(state, Path(tmp)))
+        phase_crowd_serving()
+        phase_crowd_oracle()
+        crowd_state, crowd_launches, crowd_cfg, crowd_first = \
+            phase_crowd_training(Path(tmp))
+        phase_crowd_gradients(crowd_first)
+        bench_worst = bench_k5_k6_times()
+        crowd_times, crowd_worst = phase_crowd_times(crowd_state, crowd_cfg,
+                                                     crowd_first)
+        times.update(crowd_times)
+        for name in crowd_worst:
+            worst[name] = max(worst[name], bench_worst[name],
+                              crowd_worst[name])
+        phase_multiclass(Path(tmp))
     log(f"launches on the main paths: serving K1 {serve_launches}; "
-        f"training {launches}")
+        f"training {launches}; config 4 training {crowd_launches}")
+    launches = {**launches, "pair_pool_fwd": crowd_launches["pair_pool_fwd"],
+                "pair_pool_bwd": crowd_launches["pair_pool_bwd"]}
 
     log(card)
     log(json.dumps({"kernels": [{

@@ -9,7 +9,8 @@
 Images are padded to shape buckets and batched per bucket; results come
 back per detection in input order. ``params`` is a PyTorch ``state_dict``
 or a JAX parameter tree of numpy arrays (bridged by ``params.py``). On
-CUDA the default pool path is the K1 kernel; there is no CPU fallback —
+CUDA the default pool path is the pair kernel of ``model.pair_kernel`` (K1
+or K5); there is no CPU fallback —
 ``device="cpu"`` must be asked for.
 """
 
@@ -64,14 +65,16 @@ class Rescorer:
     def _dispatch(self, boxes_a, scores_a, valid_a, classes_a):
         """Enqueue one padded batch on the device; returns (device tensor
         of probabilities, row count). CUDA work is asynchronous: the
-        caller can pack the next batch while this one computes."""
-        del classes_a  # class-agnostic only (ROADMAP.md item 11)
-
+        caller can pack the next batch while this one computes. The class
+        ids reach a multi-class model and nothing else."""
         def dev(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
+        classes = (dev(classes_a) if self.cfg.model.num_classes > 1
+                   else None)
         with torch.inference_mode():
-            logits = self.model(dev(boxes_a), dev(scores_a), dev(valid_a))
+            logits = self.model(dev(boxes_a), dev(scores_a), dev(valid_a),
+                                classes)
             return torch.sigmoid(logits), scores_a.shape[0]
 
     def _run(self, boxes_a, scores_a, valid_a, classes_a) -> np.ndarray:
@@ -126,6 +129,12 @@ class Rescorer:
                 f"image {idx}: classes length {len(classes)} != "
                 f"detections {len(scores)}"
             )
+        nc = self.cfg.model.num_classes
+        if nc > 1 and len(classes) and not (
+                0 <= np.min(classes) and np.max(classes) < nc):
+            # An id the class embedding lacks would fault the device.
+            raise ValueError(f"image {idx}: class ids must lie in "
+                             f"[0, {nc})")
         max_bucket = max(self.cfg.data.bucket_sizes)
         if len(scores) > max_bucket and not truncate:
             raise ValueError(

@@ -44,13 +44,14 @@ class ModelConfig:
     # a clustered image skip.
     block_sparse: bool = True
     sort_detections: bool = True
-    # The TPU kernel's tile shape. Accepted and ignored: the CUDA kernel
-    # has its own tile (ops/cuda/pairwise2.py TILE_I x TILE_J), and the
+    # The TPU kernel's tile shape. Accepted and ignored: the CUDA kernels
+    # have their own tile (ops/cuda/launch.py TILE_I x TILE_J), and the
     # result does not depend on the tile.
     pair_tile_i: int = 128
     pair_tile_j: int = 128
-    # Pair-kernel generation: 2 = separable-fold kernel (the only one
-    # ported); 1 = the unfolded kernel, not ported yet.
+    # Pair-kernel generation: 2 = the separable-fold kernel K1/K2
+    # (ops/cuda/pairwise2.py); 1 = the unfolded kernel K5/K6
+    # (ops/cuda/pairwise.py).
     pair_kernel: int = 2
     # Elementwise dtype of the pair stage's streamed tensors; only
     # float32 is ported. Requires pair_matmul_dtype='bfloat16'.

@@ -10,8 +10,12 @@ Per image with N detections and neighbour set E = {(i,j): IoU >= 0.2}
     logit_i = FC_head(c_K,i); padding gets PAD_LOGIT
 
 ``pool_impl``: "dense" materializes the pair tensor (row-chunked);
-"kernel" streams it through K1, with K2 as its backward
-(``ops/cuda/pairwise2.py``); on CPU tensors both are their plain versions.
+"kernel" streams it through a pair kernel: ``pair_kernel: 2`` is K1, with
+K2 as its backward (``ops/cuda/pairwise2.py``), ``pair_kernel: 1`` is K5,
+with K6 (``ops/cuda/pairwise.py``); on CPU tensors each is its plain
+version. ``num_classes > 1`` adds the class embedding to the input
+features, ranks scores within each class and gives the pair stage a ninth
+feature, the class match.
 ``remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``), the JAX model's ``nn.remat``. The kernel
 path sorts detections by Morton key first and unsorts the logits (a pure
@@ -31,7 +35,7 @@ from gossipnet_tpu_torch.config import ModelConfig
 from gossipnet_tpu_torch.ops import order as ordering
 from gossipnet_tpu_torch.ops import pair_features as pf
 from gossipnet_tpu_torch.ops import ranking
-from gossipnet_tpu_torch.ops.cuda import pairwise2
+from gossipnet_tpu_torch.ops.cuda import pairwise, pairwise2
 
 NEG_INF = -1e30
 PAD_LOGIT = -1e4  # logit assigned to padded detections at the head
@@ -55,18 +59,10 @@ def check_supported(cfg: ModelConfig, pool_impl: str) -> None:
     if pool_impl not in POOL_IMPLS:
         raise ValueError(f"unknown pool_impl {pool_impl!r}; "
                          f"options: {POOL_IMPLS}")
-    if cfg.num_classes > 1:
-        raise NotImplementedError(
-            "multi-class GossipNet (num_classes > 1) is not ported yet: "
-            "ROADMAP.md item 11")
     if cfg.dtype != "float32":
         raise NotImplementedError(
             f"model.dtype={cfg.dtype!r} is not ported yet (float32 only): "
             "ROADMAP.md item 16")
-    if pool_impl == "kernel" and cfg.pair_kernel != 2:
-        raise NotImplementedError(
-            f"pair_kernel={cfg.pair_kernel} (the unfolded TPU kernel) is not "
-            "ported yet: ROADMAP.md kernel K5")
     if pool_impl == "kernel" and cfg.pair_elementwise_dtype != "float32":
         raise NotImplementedError(
             "pair_elementwise_dtype=bfloat16 is not ported yet: "
@@ -159,12 +155,12 @@ class GossipBlock(nn.Module):
 class GossipNet(nn.Module):
     """Rescoring network over a batch of padded detection sets.
 
-    Inputs: boxes [B, N, 4] xyxy, scores [B, N], valid [B, N] bool.
-    Output: logits [B, N]; padded entries get PAD_LOGIT. Parameters are
-    created uninitialised; load them with ``load_state_dict`` (see
-    ``params.py``). ``remat`` rematerialises each block in the backward
-    (trades recompute for activation memory; with the kernel path the
-    recompute launches K1 again).
+    Inputs: boxes [B, N, 4] xyxy, scores [B, N], valid [B, N] bool,
+    classes [B, N] int (multi-class only). Output: logits [B, N]; padded
+    entries get PAD_LOGIT. Parameters are created uninitialised; load them
+    with ``load_state_dict`` (see ``params.py``). ``remat`` rematerialises
+    each block in the backward (trades recompute for activation memory;
+    with the kernel path the recompute launches the pair kernel again).
     """
 
     def __init__(self, cfg: ModelConfig, pool_impl: str = "dense",
@@ -179,19 +175,51 @@ class GossipNet(nn.Module):
         self.cfg = cfg
         self.pool_impl = pool_impl
         self.remat = remat
-        num_g = pf.NUM_PAIR_FEATURES
-        self.init_fc = _linear(1 + int(cfg.score_rank_feature),
-                               cfg.feature_dim, device)
+        self.multiclass = cfg.num_classes > 1
+        num_g = (pf.NUM_PAIR_FEATURES_MC if self.multiclass
+                 else pf.NUM_PAIR_FEATURES)
+        phi_dim = 1 + int(cfg.score_rank_feature)
+        if self.multiclass:
+            self.class_embed = skip_init(nn.Embedding, cfg.num_classes,
+                                         cfg.class_embed_dim, device=device)
+            phi_dim += cfg.class_embed_dim
+        self.init_fc = _linear(phi_dim, cfg.feature_dim, device)
         self.blocks = nn.ModuleList(
             GossipBlock(cfg, num_g, device) for _ in range(cfg.num_blocks))
         self.head = _linear(cfg.feature_dim, 1, device)
 
+    def _pool_fn(self, cols: pf.DetColumns, classes: Tensor | None):
+        """The pair stage of every block on these detections."""
+        cfg = self.cfg
+        if self.pool_impl == "dense":
+            g, mask = pf.dense_pair_tensor(cols, cfg.neighbor_iou, classes)
+
+            def pool_fn(prm: PairParams, a, b):
+                return pair_pool_dense(a, b, prm.wg, prm.w2, prm.b2, g, mask)
+            return pool_fn
+        stacked = pf.stack_columns(cols)
+        kernel, build = ((pairwise2, pairwise2.pair_geometry)
+                         if cfg.pair_kernel == 2
+                         else (pairwise, pairwise.pair_columns))
+        geom = build(stacked, stacked, cfg.neighbor_iou, classes,
+                     block_sparse=cfg.block_sparse)
+
+        def pool_fn(prm: PairParams, a, b):
+            return kernel.pair_pool(
+                stacked, stacked, a, b, prm, cfg.neighbor_iou,
+                compute_dtype=cfg.pair_matmul_dtype,
+                block_sparse=cfg.block_sparse, geometry=geom)
+        return pool_fn
+
     def forward(self, boxes: Tensor, scores: Tensor, valid: Tensor,
                 classes: Tensor | None = None) -> Tensor:
         cfg = self.cfg
+        if self.multiclass and classes is None:
+            raise ValueError("multi-class model requires `classes`")
         boxes = boxes.float()
         scores = scores.float()
         valid = valid.bool()
+        classes = classes if self.multiclass else None
 
         inv_perm = None
         if self.pool_impl == "kernel" and cfg.sort_detections:
@@ -201,30 +229,19 @@ class GossipNet(nn.Module):
             boxes = torch.gather(boxes, -2, perm[..., None].expand_as(boxes))
             scores = torch.gather(scores, -1, perm)
             valid = torch.gather(valid, -1, perm)
+            if classes is not None:
+                classes = torch.gather(classes, -1, perm)
 
         cols = pf.det_columns(boxes, scores, valid)
         phi = [scores[..., None]]
         if cfg.score_rank_feature:
-            phi.append(ranking.score_rank(scores, valid)[..., None])
+            phi.append(ranking.score_rank(scores, valid, classes,
+                                          cfg.num_classes)[..., None])
+        if classes is not None:
+            phi.append(self.class_embed(classes.long()))
         c = self.init_fc(torch.cat(phi, dim=-1))
 
-        if self.pool_impl == "dense":
-            g, mask = pf.dense_pair_tensor(cols, cfg.neighbor_iou)
-
-            def pool_fn(prm: PairParams, a, b):
-                return pair_pool_dense(a, b, prm.wg, prm.w2, prm.b2, g, mask)
-        else:
-            stacked = pf.stack_columns(cols)
-            geom = pairwise2.pair_geometry(
-                stacked, stacked, cfg.neighbor_iou,
-                block_sparse=cfg.block_sparse)
-
-            def pool_fn(prm: PairParams, a, b):
-                return pairwise2.pair_pool(
-                    stacked, stacked, a, b, prm, cfg.neighbor_iou,
-                    compute_dtype=cfg.pair_matmul_dtype,
-                    block_sparse=cfg.block_sparse, geometry=geom)
-
+        pool_fn = self._pool_fn(cols, classes)
         for block in self.blocks:
             if self.remat and torch.is_grad_enabled():
                 c = checkpoint(block, c, pool_fn, use_reentrant=False)

@@ -30,7 +30,6 @@ find the same winners.
 
 from __future__ import annotations
 
-import ctypes
 from types import SimpleNamespace
 from typing import NamedTuple
 
@@ -39,8 +38,14 @@ import torch.nn.functional as F
 from torch import Tensor
 
 from gossipnet_tpu_torch.ops import pair_features as pf
-
-TILE_I, TILE_J = 32, 64   # the kernel's row / column tile (csrc constants)
+from gossipnet_tpu_torch.ops.cuda.launch import (
+    TILE_I,
+    TILE_J,
+    backward_launch,
+    check_dtype,
+    check_inputs,
+    forward_launch,
+)
 
 # Wg rows folded into the row (a) / column (b) terms outside the kernel,
 # and the rows kept in the kernel (pair_features.py order).
@@ -54,7 +59,6 @@ _CI_FIELDS = ("x1", "y1", "x2", "y2", "area", "inv_w", "inv_h", "valid")
 _CJ_FIELDS = ("x1", "y1", "x2", "y2", "area", "cx", "cy", "valid")
 _VALID = 7
 
-_COMPUTE_DTYPES = ("float32", "bfloat16")
 _CHUNK_ELEMENTS = 1 << 25   # pair activations per row chunk of the plain version
 
 
@@ -75,19 +79,20 @@ class PairGeometry(NamedTuple):
 
 
 def tile_activity(row: Tensor, col: Tensor, ti: int = TILE_I,
-                  tj: int = TILE_J) -> Tensor:
+                  tj: int = TILE_J, valid_field: int = _VALID) -> Tensor:
     """Per tile pair flags, int32 [B, ceil(NR/ti), ceil(NC/tj)].
 
     A tile pair is inactive when the bounding boxes of its valid row and
     column detections do not meet: then no pair in it has IoU > 0, so
     skipping it is exact for neighbor_iou > 0 (``pairwise.py``
     ``_tile_activity``, at the CUDA kernel's tile shape; the ragged edge
-    pads with invalid entries).
+    pads with invalid entries). ``row`` / ``col`` hold x1, y1, x2, y2 as
+    fields 0-3 and validity as field ``valid_field``.
     """
     big = 1e30
 
     def extent(fields: Tensor, t: int):
-        valid = fields[:, _VALID] > 0.0
+        valid = fields[:, valid_field] > 0.0
         pad = (-fields.shape[-1]) % t
 
         def reduce(x, fill, op):
@@ -151,12 +156,6 @@ def fold_separable(wg: Tensor, a: Tensor, b: Tensor,
 def _kernel_wg(wg: Tensor, multiclass: bool) -> Tensor:
     rows = _KERNEL_ROWS_MC if multiclass else _KERNEL_ROWS
     return wg.float()[list(rows)].contiguous()
-
-
-def _check_dtype(compute_dtype: str) -> None:
-    if compute_dtype not in _COMPUTE_DTYPES:
-        raise ValueError(f"compute_dtype must be one of {_COMPUTE_DTYPES}, "
-                         f"got {compute_dtype!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -288,7 +287,7 @@ def pair_pool_reference(row_cols: Tensor, col_cols: Tensor, a: Tensor,
     [G, P], ``w2`` [P, P] (in, out) and ``b2`` [P]. The CPU path of
     :func:`pair_pool` and the kernel's oracle on the card.
     """
-    _check_dtype(compute_dtype)
+    check_dtype(compute_dtype)
     geom = geometry or pair_geometry(row_cols, col_cols, neighbor_iou,
                                      classes, col_classes)
     a2, b2 = fold_separable(pair_params.wg, a, b, geom)
@@ -302,72 +301,7 @@ def pair_pool_reference(row_cols: Tensor, col_cols: Tensor, a: Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _library(name: str = "pairwise2_fwd") -> ctypes.CDLL:
-    """K1's ("pairwise2_fwd") or K2's ("pairwise2_bwd") library, bound."""
-    from gossipnet_tpu_torch.ops.cuda import build
-
-    lib = build.load(name)
-    if not getattr(lib, "_gnet_bound", False):
-        if name == "pairwise2_fwd":
-            fn, tiles_fn, n_ptr = (lib.gnet_pair_pool2_fwd,
-                                   lib.gnet_pair_pool2_tiles, 9)
-        else:
-            fn, tiles_fn, n_ptr = (lib.gnet_pair_pool2_bwd,
-                                   lib.gnet_pair_pool2_bwd_tiles, 15)
-        tiles_fn.argtypes = []
-        tiles_fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        tiles = tiles_fn()
-        if tiles != TILE_I * 1000 + TILE_J:
-            raise RuntimeError(f"{name}.cu tiles {tiles} do not match "
-                               f"TILE_I={TILE_I}, TILE_J={TILE_J}")
-        lib._gnet_bound = True
-    return lib
-
-
-def _check_inputs(name: str, geom: PairGeometry, a2: Tensor, b2: Tensor,
-                  wg_k: Tensor, w2: Tensor, b2bias: Tensor,
-                  compute_dtype: str, **rows_p: Tensor) -> None:
-    """Device, dtype, shape and contiguity of a K1/K2 launch; raises on
-    anything the kernels do not take. ``rows_p``: further [B, NR, P]
-    float32 inputs (K2's m and dm)."""
-    _check_dtype(compute_dtype)
-    bsz, ci, nr = geom.row.shape
-    nc = geom.col.shape[2]
-    p = a2.shape[-1]
-    k = wg_k.shape[0]
-    expect = {
-        "row": (geom.row, (bsz, ci, nr), torch.float32),
-        "col": (geom.col, (bsz, ci, nc), torch.float32),
-        "a'": (a2, (bsz, nr, p), torch.float32),
-        "b'": (b2, (bsz, nc, p), torch.float32),
-        "wg_k": (wg_k, (k, p), torch.float32),
-        "w2": (w2, (p, p), torch.float32),
-        "b2": (b2bias, (p,), torch.float32),
-        "flags": (geom.flags, (bsz, -(-nr // TILE_I), -(-nc // TILE_J)),
-                  torch.int32),
-    }
-    expect.update({n: (t, (bsz, nr, p), torch.float32)
-                   for n, t in rows_p.items()})
-    device = a2.device
-    if device.type != "cuda":
-        raise RuntimeError(f"{name} kernel needs CUDA tensors, got {device}")
-    for n, (t, shape, dtype) in expect.items():
-        if t.device != device:
-            raise ValueError(f"{n} is on {t.device}, expected {device}")
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{n}: got {tuple(t.shape)} {t.dtype}, "
-                             f"expected {shape} {dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{n} must be contiguous")
-    if p not in (8, 16, 32, 64):
-        raise ValueError(f"{name} is built for pairwise_dim 8/16/32/64, "
-                         f"got {p}")
-    if (k, ci) not in ((3, 8), (4, 9)):
-        raise ValueError(f"{name} takes 3 features with 8 fields or 4 with "
-                         f"9, got {k} and {ci}")
+_LAYOUTS = ((3, len(_CI_FIELDS)), (4, len(_CI_FIELDS) + 1))
 
 
 def launch_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
@@ -377,22 +311,11 @@ def launch_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
     Checks device, dtype, shape and contiguity and raises on anything the
     kernel does not take; raises if the launch is refused.
     """
-    _check_inputs("K1", geom, a2, b2, wg_k, w2, b2bias, compute_dtype)
-    bsz, _, nr = geom.row.shape
-    nc, p, k = geom.col.shape[2], a2.shape[-1], wg_k.shape[0]
-    lib = _library("pairwise2_fwd")
-    out = torch.empty((bsz, nr, p), dtype=torch.float32, device=a2.device)
-    with torch.cuda.device(a2.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gnet_pair_pool2_fwd(
-            geom.row.data_ptr(), geom.col.data_ptr(), a2.data_ptr(),
-            b2.data_ptr(), wg_k.data_ptr(), w2.data_ptr(),
-            b2bias.data_ptr(), geom.flags.data_ptr(), out.data_ptr(),
-            bsz, nr, nc, p, k, geom.neighbor_iou,
-            int(compute_dtype == "bfloat16"), stream)
-    if err != 0:
-        raise RuntimeError(f"K1 (pairwise2_fwd.cu) launch failed: CUDA "
-                           f"error {err}")
+    check_inputs("K1", geom, a2, b2, wg_k, w2, b2bias, compute_dtype,
+                  _LAYOUTS)
+    out = forward_launch("pairwise2_fwd", "K1", "gnet_pair_pool2_fwd",
+                          "gnet_pair_pool2_tiles", geom, a2, b2, wg_k, w2,
+                          b2bias, compute_dtype)
     pair_pool.launches += 1
     return out
 
@@ -401,40 +324,14 @@ def launch_backward_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor,
                            wg_k: Tensor, w2: Tensor, b2bias: Tensor,
                            m: Tensor, dm: Tensor, compute_dtype: str):
     """One K2 launch on the current stream -> (d_a', d_b', dWg_k, dW2, db2)
-    float32, as :func:`pair_pool_backward_reference` returns them.
-
-    d_b' and the weight gradients leave the kernel as per-row-tile and
-    per-block partials (no float atomics) and are summed here, so two
-    launches on the same inputs give identical bits.
-    """
-    _check_inputs("K2", geom, a2, b2, wg_k, w2, b2bias, compute_dtype,
-                  m=m, dm=dm)
-    bsz, _, nr = geom.row.shape
-    nc, p, k = geom.col.shape[2], a2.shape[-1], wg_k.shape[0]
-    ni = geom.flags.shape[1]
-    lib = _library("pairwise2_bwd")
-    f32 = dict(dtype=torch.float32, device=a2.device)
-    da = torch.empty((bsz, nr, p), **f32)
-    db_part = torch.zeros((bsz, ni, nc, p), **f32)
-    dwg_part = torch.empty((bsz * ni, k, p), **f32)
-    dw2_part = torch.empty((bsz * ni, p, p), **f32)
-    db2_part = torch.empty((bsz * ni, p), **f32)
-    with torch.cuda.device(a2.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gnet_pair_pool2_bwd(
-            geom.row.data_ptr(), geom.col.data_ptr(), a2.data_ptr(),
-            b2.data_ptr(), wg_k.data_ptr(), w2.data_ptr(),
-            b2bias.data_ptr(), geom.flags.data_ptr(), m.data_ptr(),
-            dm.data_ptr(), da.data_ptr(), db_part.data_ptr(),
-            dwg_part.data_ptr(), dw2_part.data_ptr(), db2_part.data_ptr(),
-            bsz, nr, nc, p, k, geom.neighbor_iou,
-            int(compute_dtype == "bfloat16"), stream)
-    if err != 0:
-        raise RuntimeError(f"K2 (pairwise2_bwd.cu) launch failed: CUDA "
-                           f"error {err}")
+    float32, as :func:`pair_pool_backward_reference` returns them."""
+    check_inputs("K2", geom, a2, b2, wg_k, w2, b2bias, compute_dtype,
+                  _LAYOUTS, m=m, dm=dm)
+    grads = backward_launch("pairwise2_bwd", "K2", "gnet_pair_pool2_bwd",
+                             "gnet_pair_pool2_bwd_tiles", geom, a2, b2, wg_k,
+                             w2, b2bias, m, dm, compute_dtype)
     pair_pool_backward.launches += 1
-    return (da, db_part.sum(dim=1), dwg_part.sum(dim=0),
-            dw2_part.sum(dim=0), db2_part.sum(dim=0))
+    return grads
 
 
 def pair_pool_backward(geom: PairGeometry, a2: Tensor, b2: Tensor,
@@ -501,7 +398,7 @@ def pair_pool(row_cols: Tensor, col_cols: Tensor, a: Tensor, b: Tensor,
     """
     if a.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"pair_pool runs on cpu or cuda, got {a.device}")
-    _check_dtype(compute_dtype)
+    check_dtype(compute_dtype)
     geom = geometry or pair_geometry(row_cols, col_cols, neighbor_iou,
                                      classes, col_classes, block_sparse)
     a2, b2 = fold_separable(pair_params.wg, a, b, geom)

@@ -115,8 +115,9 @@ def as_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
 
 def init_params(cfg: ModelConfig, seed: int = 0) -> dict:
     """Random parameters in the flax tree layout, drawn with numpy from
-    ``seed``: LeCun-normal kernels and zero biases, as the flax model
-    initialises (the draws differ from jax.random's)."""
+    ``seed``: LeCun-normal kernels, zero biases and (multi-class) a class
+    embedding, as the flax model initialises (the draws differ from
+    jax.random's)."""
     rng = np.random.default_rng(seed)
     fd, rd, p = cfg.feature_dim, cfg.reduced_dim, cfg.pairwise_dim
 
@@ -128,8 +129,15 @@ def init_params(cfg: ModelConfig, seed: int = 0) -> dict:
         return {"kernel": kernel(fan_in, fan_out),
                 "bias": np.zeros(fan_out, np.float32)}
 
-    tree = {"init_fc": dense(1 + int(cfg.score_rank_feature), fd)}
-    g = pf.NUM_PAIR_FEATURES
+    multiclass = cfg.num_classes > 1
+    phi = 1 + int(cfg.score_rank_feature)
+    tree = {}
+    if multiclass:   # flax Embed's init: variance 1 / embedding width
+        tree["class_embed"] = {"embedding": kernel(cfg.class_embed_dim,
+                                                   cfg.num_classes).T.copy()}
+        phi += cfg.class_embed_dim
+    tree["init_fc"] = dense(phi, fd)
+    g = pf.NUM_PAIR_FEATURES_MC if multiclass else pf.NUM_PAIR_FEATURES
     for k in range(cfg.num_blocks):
         block = {
             "reduce": dense(fd, rd),

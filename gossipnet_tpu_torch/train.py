@@ -1,11 +1,13 @@
 """Training (port of ``gossipnet_tpu/train.py``): the matching-driven loss,
 an optimizer with optax's semantics, checkpoint/resume and the CLI.
 
-One step is the forward (16 K1 launches at config 2), greedy det<->GT
-matching on the detached logits (one K3 launch), the balanced logistic
-loss, the backward (16 K2 launches) and the optimizer update. Batches are
-padded to static buckets; a resumed run replays the exact stream (model,
-optimizer, schedule, step, generator and iterator cursor are all saved).
+One step is the forward (16 K1 launches at config 2; K5 with
+``pair_kernel: 1``), greedy det<->GT matching on the detached logits (one
+K3 launch; within classes when ``matching.class_aware``), the balanced
+logistic loss, the backward (16 K2 launches; K6) and the optimizer
+update. Batches are padded to static buckets; a resumed run replays the
+exact stream (model, optimizer, schedule, step, generator and iterator
+cursor are all saved).
 
     python -m gossipnet_tpu_torch.train -c experiments/coco_persons_full.yaml
 
@@ -236,9 +238,10 @@ def create_train_state(cfg: Config, model: GossipNet, seed: int | None = None,
 
 def loss_and_metrics(model: GossipNet, batch_arrays: dict,
                      cfg: Config) -> tuple[Tensor, dict]:
-    """Forward + matching + weighted logistic loss, all on the device."""
+    """Forward + matching + weighted logistic loss, all on the device (a
+    class-agnostic model ignores the batch's class ids)."""
     logits = model(batch_arrays["boxes"], batch_arrays["scores"],
-                   batch_arrays["valid"])
+                   batch_arrays["valid"], batch_arrays["classes"])
     return matching_loss(logits, batch_arrays, cfg)
 
 
@@ -433,7 +436,8 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--metrics", default="train_metrics.jsonl")
     p.add_argument("--pool-impl", default="kernel",
                    choices=["dense", "kernel"],
-                   help="pair stage: K1/K2 CUDA kernels (default) or dense")
+                   help="pair stage: the CUDA pair kernels of "
+                        "model.pair_kernel (default) or dense")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="trace of training steps (not ported: item 13)")
     p.add_argument("--tensorboard", default=None, metavar="DIR",

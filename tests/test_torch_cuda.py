@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: K1
 (pair-pool forward), K2 (its backward: f32, bf16, the tie rule, two
-launches bit-identical), K3/K4 (the matching scan, exactly), and one
-training step of config 2 with its launch counts.
+launches bit-identical), K3/K4 (the matching scan, exactly), K5/K6 (the
+unfolded pair pool and its backward, the same checks), one training step
+of config 2 and one of config 3 through K5/K6, with their launch counts.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
 without one. The file imports no JAX, so it runs where JAX is not
@@ -15,7 +16,7 @@ tests/test_torch_pair_pool.py (one bf16 ulp of an h1 value may flip):
 rtol = atol = 2e-2 everywhere and 1e-4 on 99% of the outputs. Neighbour
 masks are exact by construction (explicitly rounded IoU). K2's weight
 gradients sum over every pair in another order: 1e-4 of their largest
-entry. The scan does comparisons only: exact.
+entry; K6's the same. The scan does comparisons only: exact.
 """
 
 import numpy as np
@@ -242,5 +243,133 @@ def test_one_train_step_on_card_launches_k1_k2_k3():
     after = (k1.pair_pool.launches, k1.pair_pool_backward.launches,
              k3.greedy_scan_batched.launches)
     assert tuple(a - b for a, b in zip(after, before)) == (16, 16, 1)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert float(metrics["grad_norm"]) > 0
+
+
+# ---------------------------------------------------------------------------
+# K5/K6 (pair_kernel: 1) and one config-3 training step through them
+# ---------------------------------------------------------------------------
+
+
+def _k5_args(rng, b, n, dev, p=32, num_classes=0, dup_cols=False,
+             n_valid=None, rows=slice(None)):
+    """(PairColumns, a, b, Wg, W2, b2) of one unfolded pair stage on random
+    weights, and a random cotangent dm."""
+    from gossipnet_tpu_torch.ops.cuda import pairwise as k5
+
+    boxes, scores, valid, classes = _clustered(rng, b, n, n_valid=n_valid,
+                                               num_classes=num_classes)
+    cs = pf.stack_columns(pf.det_columns(
+        torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev),
+        torch.from_numpy(valid).to(dev)))
+    cls = None if classes is None else torch.from_numpy(classes).to(dev)
+    col, col_cls = cs, cls
+    if dup_cols:
+        col = torch.repeat_interleave(cs, 2, dim=2)
+        col_cls = None if cls is None else torch.repeat_interleave(cls, 2, 1)
+    rcls = None if cls is None else cls[:, rows].contiguous()
+    cols = k5.pair_columns(cs[:, :, rows].contiguous(), col, THR, rcls,
+                           col_cls)
+    nr, nc = cols.row.shape[2], cols.col.shape[2]
+
+    def t(*shape, scale=0.5):
+        return torch.from_numpy(
+            rng.normal(0, scale, shape).astype(np.float32)).to(dev)
+
+    bb = t(b, n, p, scale=1.0)
+    if dup_cols:
+        bb = torch.repeat_interleave(bb, 2, dim=1).contiguous()
+    return (cols, t(b, nr, p, scale=1.0), bb, t(cols.num_features, p),
+            t(p, p), t(p)), t(b, nr, p, scale=1.0)
+
+
+K5_CASES = {
+    "odd_padded": dict(b=2, n=301, n_valid=270),
+    "rect": dict(b=2, n=200, rows=slice(7, 130)),
+    "multiclass": dict(b=2, n=256, num_classes=5),
+    "p16": dict(b=2, n=150, p=16),
+    "p64_multiclass": dict(b=1, n=150, p=64, num_classes=3),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(K5_CASES))
+def test_k5_k6_match_plain_on_card(name, dtype):
+    from gossipnet_tpu_torch.ops.cuda import pairwise as k5
+
+    dev = _card()
+    rng = np.random.default_rng(len(name))
+    args, dm = _k5_args(rng, dev=dev, **K5_CASES[name])
+    before = k5.pair_pool.launches, k5.pair_pool_backward.launches
+    m = k5.launch_kernel(*args, dtype)
+    m_plain = k5._reference_core(*args, dtype)
+    got = k5.pair_pool_backward(*args, m, dm, dtype)
+    want = k5.pair_pool_backward_reference(*args, m_plain, dm, dtype)
+    torch.cuda.synchronize()
+    assert (k5.pair_pool.launches, k5.pair_pool_backward.launches) == \
+        (before[0] + 1, before[1] + 1)
+    x, y = m.cpu().numpy(), m_plain.cpu().numpy()
+    assert (y > 0).any()
+    if dtype == "float32":
+        np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_allclose(x, y, rtol=2e-2, atol=2e-2)
+        assert np.mean(np.abs(x - y) > 1e-4) < 0.01
+    _assert_grads(got, want, dtype)
+    again = k5.launch_backward_kernel(*args, m, dm, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k6_gives_each_tie_the_full_gradient_on_card(dtype):
+    from gossipnet_tpu_torch.ops.cuda import pairwise as k5
+
+    dev = _card()
+    args_d, dm = _k5_args(np.random.default_rng(3), 2, 200, dev,
+                          num_classes=4, dup_cols=True)
+    args_s, _ = _k5_args(np.random.default_rng(3), 2, 200, dev,
+                         num_classes=4)
+    cols_d, a, b_d, wg, w2, b2b = args_d
+    args_s = (args_s[0], a, b_d[:, 0::2].contiguous(), wg, w2, b2b)
+    m_s = k5.launch_kernel(*args_s, dtype)
+    m_d = k5.launch_kernel(*args_d, dtype)
+    single = k5.launch_backward_kernel(*args_s, m_s, dm, dtype)
+    dup = k5.launch_backward_kernel(*args_d, m_d, dm, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(m_s, m_d)
+    assert torch.equal(dup[1][:, 0::2], dup[1][:, 1::2])
+    _assert_grads(dup, (2 * single[0], single[1].repeat_interleave(2, dim=1),
+                        2 * single[2], 2 * single[3], 2 * single[4]), dtype)
+
+
+@pytest.mark.cuda
+def test_one_config3_train_step_on_card_launches_k5_k6_k3():
+    from gossipnet_tpu_torch import train as training
+    from gossipnet_tpu_torch.config import experiment_path, load_config
+    from gossipnet_tpu_torch.data.bucketing import BatchIterator
+    from gossipnet_tpu_torch.data.synthetic import synthetic_roidb
+    from gossipnet_tpu_torch.ops.cuda import matching_scan as k3
+    from gossipnet_tpu_torch.ops.cuda import pairwise as k5
+
+    dev = _card()
+    cfg = load_config(experiment_path("coco_multiclass"),
+                      {"data": {"dataset": "synthetic"},
+                       "model": {"pair_kernel": 1}})
+    roidb = synthetic_roidb(num_images=8, seed=0, num_gt=40, dets_per_gt=8,
+                            num_clutter=40, num_classes=80)
+    batch = next(BatchIterator(roidb, 8, cfg.data.bucket_sizes))
+    model = training.build_model(cfg, "kernel", dev)
+    state = training.create_train_state(cfg, model)
+    before = (k5.pair_pool.launches, k5.pair_pool_backward.launches,
+              k3.greedy_scan_batched.launches, k1.pair_pool.launches)
+    state, metrics = training.train_step(
+        state, training.batch_to_device(batch, dev), cfg)
+    torch.cuda.synchronize()
+    after = (k5.pair_pool.launches, k5.pair_pool_backward.launches,
+             k3.greedy_scan_batched.launches, k1.pair_pool.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (16, 16, 1, 0)
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert float(metrics["grad_norm"]) > 0

@@ -37,7 +37,9 @@ def test_port_and_chip_smoke_import_no_jax():
                          check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
-    for name in ("ops.cuda.pairwise2", "serve", "ops.geometry", "ops.matching",
+    for name in ("ops.cuda.pairwise2", "ops.cuda.pairwise",
+                 "ops.cuda.launch", "ops.ranking",
+                 "serve", "ops.geometry", "ops.matching",
                  "ops.cuda.matching_scan", "losses", "train",
                  "utils.checkpoint", "utils.metrics", "data.bucketing"):
         assert f"gossipnet_tpu_torch.{name}" in result["modules"], name
@@ -136,13 +138,16 @@ def test_kernel_build_paths_stay_in_the_checkout():
     assert "--use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     np.testing.assert_equal(len(path.stem.split("-")[-1]), 16)
-    for name in ("pairwise2_bwd", "matching_scan"):
+    for name in ("pairwise2_bwd", "matching_scan", "pairwise_fwd",
+                 "pairwise_bwd"):
         assert (build.CSRC / f"{name}.cu").exists()
 
 
 def test_kernel_library_hash_covers_shared_headers(tmp_path):
-    """K1 and K2 share csrc/pairwise2_pair.cuh: an edit to the header must
-    give both a new library path, or a stale build would be reused."""
+    """K1 and K2 share csrc/pairwise2_pair.cuh, K5 and K6
+    csrc/pairwise_pair.cuh: an edit to a header must give every kernel
+    that includes it a new library path, or a stale build would be
+    reused."""
     import shutil
 
     from gossipnet_tpu_torch.ops.cuda import build
@@ -150,13 +155,21 @@ def test_kernel_library_hash_covers_shared_headers(tmp_path):
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     before = {n: build.library_path(n, csrc)
-              for n in ("pairwise2_fwd", "pairwise2_bwd", "matching_scan")}
+              for n in ("pairwise2_fwd", "pairwise2_bwd", "matching_scan",
+                        "pairwise_fwd", "pairwise_bwd")}
     assert before["pairwise2_fwd"] == build.library_path("pairwise2_fwd")
     header = csrc / "pairwise2_pair.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: build.library_path(n, csrc) for n in before}
     assert after["pairwise2_fwd"] != before["pairwise2_fwd"]
     assert after["pairwise2_bwd"] != before["pairwise2_bwd"]
+    # K5 and K6 share csrc/pairwise_pair.cuh, which includes K1's header
+    assert after["pairwise_fwd"] != before["pairwise_fwd"]
+    header = csrc / "pairwise_pair.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    again = {n: build.library_path(n, csrc) for n in before}
+    assert again["pairwise_fwd"] != after["pairwise_fwd"]
+    assert again["pairwise_bwd"] != after["pairwise_bwd"]
     (csrc / "new_helper.cuh").write_text("#pragma once\n")
     assert build.library_path("pairwise2_fwd", csrc) != \
         after["pairwise2_fwd"]

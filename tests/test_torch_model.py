@@ -1,6 +1,6 @@
 """The PyTorch GossipNet against the JAX one: the golden fixture through
-the weights bridge, random parameters on both pool paths, the config copy
-and the options the port refuses.
+the weights bridge, random parameters on both pool paths, the config copy,
+the options the port refuses and those it now runs.
 
 Tolerance for logits: rtol = atol = 1e-4, as tests/test_golden.py holds
 the JAX dense path. Both sides compute in IEEE f32 (pair_matmul_dtype
@@ -129,9 +129,6 @@ def test_shipped_configs_load_like_jax():
 
 
 @pytest.mark.parametrize("override,pool_impl,item", [
-    ({"num_classes": 80}, "dense", "item 11"),
-    ({"num_classes": 80}, "kernel", "item 11"),
-    ({"pair_kernel": 1}, "kernel", "K5"),
     ({"pair_elementwise_dtype": "bfloat16"}, "kernel", "item 16"),
     ({"dtype": "bfloat16"}, "dense", "item 16"),
 ])
@@ -139,6 +136,31 @@ def test_unported_options_raise(override, pool_impl, item):
     cfg = t_config.ModelConfig(**override)
     with pytest.raises(NotImplementedError, match=item):
         check_supported(cfg, pool_impl)
+
+
+@pytest.mark.parametrize("override,pool_impl", [
+    ({"num_classes": 80}, "dense"),
+    ({"num_classes": 80}, "kernel"),
+    ({"pair_kernel": 1}, "kernel"),
+    ({"num_classes": 80, "pair_kernel": 1}, "kernel"),
+])
+def test_multiclass_and_unfolded_kernel_build_and_run(rng, override,
+                                                      pool_impl):
+    """The multi-class model and ``pair_kernel: 1`` (K5/K6) are ported:
+    they build, and on CPU tensors run their plain versions."""
+    cfg = t_config.ModelConfig(num_blocks=1, feature_dim=16, reduced_dim=8,
+                               pairwise_dim=8, **override)
+    check_supported(cfg, pool_impl)
+    model = GossipNet(cfg, pool_impl=pool_impl, device="cpu")
+    model.load_state_dict(params_from_jax(init_params(cfg)))
+    boxes, scores, valid, _ = _problem(rng, b=1, n=24)
+    args = [torch.from_numpy(np.array(x)) for x in (boxes, scores, valid)]
+    if cfg.num_classes > 1:
+        args.append(torch.from_numpy(rng.integers(0, 80, (1, 24))))
+    logits = model(*args)
+    logits.sum().backward()
+    assert torch.isfinite(logits).all()
+    assert all(p.grad is not None for p in model.parameters())
 
 
 def test_model_defaults_to_cuda_and_raises_without_a_card():
