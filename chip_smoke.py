@@ -4,9 +4,10 @@
 
 Phases (each raises on failure; the script then exits non-zero):
 1. the card (nvidia-smi name and power limit) and the software versions;
-2. builds K1, K2 and K3/K4 (ops/cuda/csrc/pairwise2_fwd.cu,
-   pairwise2_bwd.cu, matching_scan.cu) from the sources here, one nvcc
-   each, all at once, with each build's time and ptxas registers/spills;
+2. builds the six kernel sources (ops/cuda/csrc/pairwise2_fwd.cu,
+   pairwise2_bwd.cu, matching_scan.cu, pairwise_fwd.cu, pairwise_bwd.cu,
+   pair_ablate.cu) from the sources here, one nvcc each, all at once, with
+   each build's time and ptxas registers/spills;
 3. K1 against its plain PyTorch version on the card: f32 and bf16, the
    clustered B=8 N=1024 batch, B=1 N=4096, an odd rectangular NR != NC,
    block-sparse on and off, multi-class, all-padding rows; a probe with
@@ -59,7 +60,28 @@ Phases (each raises on failure; the script then exits non-zero):
 11. config 3 (coco_multiclass.yaml, 80 classes) on 80-class synthetic
    data: 5 training steps through K1/K2 with the class-match feature and 5
    through K5/K6 with nine features, launches counted; one served batch
-   with class ids, whose f32 logits agree between the two kernels.
+   with class ids, whose f32 logits agree between the two kernels;
+3f. (run after phase 3e) K7, the per-tile ablation of the pair tile
+   (pair_ablate.cu), against its plain version: six modes x column tiles
+   of 32, 64 and 128 at a small ragged shape with invalid detections and
+   at the probe's own B=8 N=1024 P=32: the five f32 modes at rtol = atol =
+   1e-5, bf3d within one bf16 step and bit-equal on 99%, rows without a
+   neighbour (-1e30) at the same places, two launches bit-identical;
+12. the ablation tool (gossipnet_tpu_torch.tools.kernel_ablate) as a user
+   runs it: ``all`` chains 40 K7 launches per mode, times them with CUDA
+   events and prints ms/call, us/tile and full - mode; the launch counter
+   must read 40 per timed chain and 41 per mode with its warm-up; then ``full`` at column tiles 32 and 128; the
+   plain version's time and the bound per mode;
+13. the evaluation path: evaluate.main on the card evaluates 64 synthetic
+   images with the 16-block config 2 model (seeded weights), 16 K1
+   launches per batch and no other kernel; its scores equal
+   Rescorer.rescore_batch's; K1 on the launch arguments of each evaluation
+   batch (B=8 N=256) against its plain version, and the f32 scores of the
+   K1 path against the dense plain path's; the COCO stats of the model, of the raw
+   scores and of swept GreedyNMS; the warm wall time, forward and host
+   matching apart; then train() with a validation set at N=1024 and
+   eval_every=2 logs val_AP, keeps the best checkpoint, and the eval CLI
+   reads it with --best.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result
@@ -80,10 +102,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gossipnet_tpu_torch import evaluate
+from gossipnet_tpu_torch import native
 from gossipnet_tpu_torch import train as training
 from gossipnet_tpu_torch.api import Rescorer
 from gossipnet_tpu_torch.config import load_config, experiment_path
-from gossipnet_tpu_torch.data.bucketing import BatchIterator, make_batch
+from gossipnet_tpu_torch.data.bucketing import (
+    BatchIterator,
+    eval_batches,
+    make_batch,
+)
 from gossipnet_tpu_torch.data.synthetic import (
     layout_batch,
     layout_record,
@@ -93,12 +121,14 @@ from gossipnet_tpu_torch.models.gossipnet import PAD_LOGIT, PairParams
 from gossipnet_tpu_torch.ops import matching
 from gossipnet_tpu_torch.ops import order
 from gossipnet_tpu_torch.ops import pair_features as pf
+from gossipnet_tpu_torch.ops.cuda import ablate as k7
 from gossipnet_tpu_torch.ops.cuda import build
 from gossipnet_tpu_torch.ops.cuda import matching_scan as k3
 from gossipnet_tpu_torch.ops.cuda import pairwise as k5
 from gossipnet_tpu_torch.ops.cuda import pairwise2 as k1
 from gossipnet_tpu_torch.params import as_state_dict, init_params
 from gossipnet_tpu_torch.serving import serve_stream
+from gossipnet_tpu_torch.tools import kernel_ablate
 
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 on CUDA cores,
 # HBM3 bandwidth. Bounds below are against these, at the card's power
@@ -117,7 +147,7 @@ GRAD_TOL = dict(rtol=1e-3, atol=1e-3)   # the same, through the backward
 LEAF_GRAD_REL = 1e-3
 WEIGHT_GRAD_REL = 1e-4   # sums over ~1e5 pairs in another order, of max|x|
 KERNELS = ("pairwise2_fwd", "pairwise2_bwd", "matching_scan",
-           "pairwise_fwd", "pairwise_bwd")
+           "pairwise_fwd", "pairwise_bwd", "pair_ablate")
 COCO_THRESHOLDS = tuple(np.round(np.arange(0.5, 0.951, 0.05), 2).tolist())
 # The reference's step probe (scripts/probe.py:70): buckets to B=8 N=1024
 # G=112 at config 2's batch size.
@@ -138,6 +168,7 @@ KERNEL_ROWS = {
                       "gossipnet_tpu/ops/pallas/pairwise.py:314"),
     "pair_pool_bwd": ("pairwise_bwd.cu",
                       "gossipnet_tpu/ops/pallas/pairwise.py:492"),
+    "pair_ablate": ("pair_ablate.cu", "scripts/kernel_ablate.py:19"),
 }
 # the pair kernels' labels in the log: (forward, backward)
 LABELS = {k1: ("K1", "K2"), k5: ("K5", "K6")}
@@ -725,7 +756,8 @@ COUNTERS = {"pair_pool2_fwd": (k1, "pair_pool"),
             "greedy_scan_batched": (k3, "greedy_scan_batched"),
             "greedy_scan": (k3, "greedy_scan"),
             "pair_pool_fwd": (k5, "pair_pool"),
-            "pair_pool_bwd": (k5, "pair_pool_backward")}
+            "pair_pool_bwd": (k5, "pair_pool_backward"),
+            "pair_ablate": (k7, "pair_ablate")}
 
 
 def reset_counts():
@@ -958,6 +990,35 @@ def pair_counts(geom) -> tuple[int, int]:
     return nb, (active & pair_valid).sum().item()
 
 
+def lane_use(geom) -> tuple[int, int]:
+    """(neighbour pairs, warp steps) of K5's or K1's inner loop on this
+    run's data: a warp holds 32 consecutive rows and runs the products for
+    a column when any of them has it as neighbour, so the share of lanes
+    that do useful work there is pairs / (32 x steps). Counted from the
+    masks, not timed. ``geom`` as for :func:`pair_counts`."""
+    if isinstance(geom, k5.PairColumns):
+        n = pf.NUM_COLUMNS
+        geom = k1.pair_geometry(geom.row[:, :n], geom.col[:, :n],
+                                geom.neighbor_iou)
+    rv, cv = geom.row[:, 7] > 0, geom.col[:, 7] > 0
+    iou = k1.fields_iou(geom.row[..., None], geom.col[:, :, None, :])
+    nb = (iou >= torch.tensor(geom.neighbor_iou, device=iou.device)) \
+        & rv[:, :, None] & cv[:, None, :]
+    bsz, nr, nc = nb.shape
+    pad = -nr % k1.TILE_I
+    rows = torch.nn.functional.pad(nb, (0, 0, 0, pad))
+    steps = rows.view(bsz, -1, k1.TILE_I, nc).any(dim=2).sum().item()
+    return nb.sum().item(), steps
+
+
+def log_lane_use(label: str, geom) -> None:
+    pairs, steps = lane_use(geom)
+    log(f"  lane use of the pair products, {label}: {pairs} neighbour pairs "
+        f"in {steps} warp steps of 32 rows = "
+        f"{pairs / max(32 * steps, 1):.4f} of the lanes (counted from the "
+        f"masks)")
+
+
 def k2_bound(args, m, dm, dtype, kern=k1) -> tuple[float, str, str]:
     """The least time for K2's (or K6's) work on these inputs: the
     recompute of every neighbour pair (the forward's count), the per-pair
@@ -1149,6 +1210,345 @@ def phase_k6_cases() -> float:
             raise AssertionError(f"K6 is not deterministic in {dtype}")
     return worst
 
+# ---------------------------------------------------------------------------
+# K7: the per-tile ablation of the pair tile
+# ---------------------------------------------------------------------------
+
+K7_ARGS = ("cols", "a", "b", "wg", "w2", "b2")
+BF16_STEP = 2.0 ** -7    # one bf16 step, relative
+
+
+def k7_inputs(small: bool) -> dict:
+    """The probe's own inputs (B=8, N=1024, 600-pixel canvas, all valid),
+    or a small ragged case: B=2, N=200 (no multiple of any tile) in a
+    200-pixel canvas with 20 invalid detections, so that neighbours,
+    non-neighbours and rows without a neighbour mix."""
+    if not small:
+        return kernel_ablate.probe_inputs(device=DEV)
+    inputs = kernel_ablate.probe_inputs(2, 200, canvas=200.0, seed=1,
+                                        device=DEV)
+    inputs["cols"][:, pf.DetColumns._fields.index("valid"), 150:170] = 0.0
+    return inputs
+
+
+def phase_k7_cases() -> float:
+    log("phase 3f: K7 (the per-tile ablation of the pair tile) against its "
+        "plain version: six modes x TILE_J 32, 64, 128")
+    worst = 0.0
+    for label, small in (("small_b2_n200_ragged", True),
+                         ("probe_b8_n1024", False)):
+        inputs = k7_inputs(small)
+        args = [inputs[k] for k in K7_ARGS]
+        for mode in k7.MODES:
+            want = k7.pair_ablate_reference(*args, mode)
+            empty = want < -1e29             # the mask value, f32 or bf16
+            for tile_j in k7.TILE_JS:
+                got = k7.pair_ablate(*args, mode, tile_j)
+                again = k7.pair_ablate(*args, mode, tile_j)
+                torch.cuda.synchronize()
+                same_rows = torch.equal(got < -1e29, empty)
+                err = ((got - want).abs()[~empty].max().item()
+                       if (~empty).any() else 0.0)
+                equal = (got == want).float().mean().item()
+                if mode == "bf3d":
+                    ok = (torch.allclose(got, want, rtol=BF16_STEP, atol=0.0)
+                          and equal >= 0.99)
+                    tol = "one bf16 step, 99% bit-equal"
+                else:
+                    ok = torch.allclose(got, want, **F32_TOL)
+                    tol = TOL_TEXT["float32"]
+                ok = ok and same_rows and torch.equal(got, again)
+                log(f"  K7 {label:<22} {mode:<7} TJ={tile_j:<4} max_abs_err="
+                    f"{err:.3e} bit-equal {equal:.4f} rows at -1e30 "
+                    f"{int(empty.all(-1).sum())} (same places: {same_rows}) "
+                    f"tol {tol}; two launches bit-identical -> "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(
+                        f"K7 disagrees with its plain version: {label} "
+                        f"{mode} TILE_J={tile_j} max_abs_err={err}")
+                worst = max(worst, err)
+    return worst
+
+
+def k7_bound(inputs: dict, mode: str) -> tuple[float, str, str]:
+    """The least time for K7's work in ``mode`` on these inputs. K7 is
+    dense, so nothing depends on the data: every pair goes through the IoU
+    test (two operations for the stand-in), the features (not ``nofeat``;
+    dead code in ``nogw``), the Wg product (not ``nogw``), the adds, FC2
+    (not ``nofc2``) and the mask; each input is read and the output
+    written once."""
+    cols, a = inputs["cols"], inputs["a"]
+    bsz, _, n = cols.shape
+    p, g = k7.P, k7.G
+    pairs = bsz * n * n
+    per_pair = 4 * p + (0 if mode == "nogw" else 2 * g * p) \
+        + (0 if mode == "nofc2" else 2 * p * p)
+    feature_ops = 0 if mode in ("nofeat", "nogw") else FEATURE_OPS
+    ops_s = pairs * per_pair / PEAK_BF16 + pairs * (
+        (2 if mode == "nofeat" else IOU_OPS) + feature_ops) / PEAK_F32
+    nbytes = sum(inputs[k].numel() * 4 for k in K7_ARGS) + a.numel() * 4
+    bytes_s = nbytes / PEAK_BYTES
+    how = (f"{pairs} pairs x {per_pair} product and "
+           f"{(2 if mode == 'nofeat' else IOU_OPS) + feature_ops} f32 ops, "
+           f"{nbytes / 1e6:.2f} MB")
+    return max(ops_s, bytes_s) * 1e3, \
+        "operations" if ops_s >= bytes_s else "bytes", how
+
+
+def phase_ablate() -> tuple[dict, int]:
+    """The ablation tool on the card, as a user runs it: ``all`` at TILE_J
+    64, then ``full`` at 32 and 128 -> (K7's times in mode ``full`` at
+    TILE_J 64, the launches of the ``all`` run)."""
+    log("phase 12: the ablation tool (python -m gossipnet_tpu_torch.tools."
+        "kernel_ablate all): 40 chained K7 launches per mode at B=8 N=1024 "
+        "P=32 G=8")
+    reset_counts()
+    results = kernel_ablate.main(["all"])
+    launches = counts()
+    per_mode = kernel_ablate.CALLS + 1       # the chain and its warm-up
+    want = want_counts(pair_ablate=per_mode * len(k7.MODES))
+    chained = [r["launches"] for r in results]
+    log(f"  launches {launches['pair_ablate']} = {len(k7.MODES)} modes x "
+        f"({kernel_ablate.CALLS} chained + 1 warm-up); in the timed chains "
+        f"{chained}")
+    if launches != want or chained != [kernel_ablate.CALLS] * len(k7.MODES):
+        raise AssertionError(f"ablation launches {launches} != {want}, or "
+                             f"a chain did not launch {kernel_ablate.CALLS}")
+    for tile_j in ("32", "128"):
+        kernel_ablate.main(["full", tile_j])
+    inputs = k7_inputs(small=False)
+    args = [inputs[k] for k in K7_ARGS]
+    log_lane_use("what K5 would do on the probe's unsorted boxes (K7 itself "
+                 "runs every lane)",
+                 k1.pair_geometry(inputs["cols"], inputs["cols"], 0.2))
+    out = {}
+    for r in results:
+        mode = r["mode"]
+        if not math.isfinite(r["sum"]):
+            raise AssertionError(f"ablation chain of {mode} is not finite")
+        plain_ms, _ = cuda_once(
+            lambda: k7.pair_ablate_reference(*args, mode))
+        bound_ms, by, how = k7_bound(inputs, mode)
+        out[mode] = dict(ms=r["ms"], plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=by)
+        log(f"  K7 {mode:<7} TJ=64: {r['ms']:.4f} ms/call, "
+            f"{r['us_per_tile']:.4f} us/tile; full - mode "
+            f"{r.get('full_minus_ms', 0.0):+.4f} ms; plain {plain_ms:.3f} "
+            f"ms; bound {bound_ms:.5f} ms ({by}: {how})")
+    return out["full"], launches["pair_ablate"]
+
+
+# ---------------------------------------------------------------------------
+# the evaluation path
+# ---------------------------------------------------------------------------
+
+EVAL_IMAGES = 64          # evaluate.load_roidb's synthetic set (seed 123)
+EVAL_TRAIN_STEPS = 4
+# the validation set of the short training run: the step probe's layout,
+# so the periodic evaluation runs at N=1024
+VAL_DATA = dict(TRAIN_DATA, num_images=8, seed=1)
+
+
+def write_eval_yaml(tmp: Path, ckpt: Path) -> Path:
+    """Config 2 with ``data.dataset: synthetic``, as a file the CLI reads."""
+    import yaml
+
+    with open(experiment_path("coco_persons_full")) as f:
+        raw = yaml.safe_load(f)
+    raw["data"]["dataset"] = "synthetic"
+    raw["train"]["checkpoint_dir"] = str(ckpt)
+    path = tmp / "eval.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return path
+
+
+def phase_evaluate(tmp: Path) -> tuple[dict, float]:
+    """This slice's main path: the evaluation CLI's ``main`` on the card at
+    config 2's full width and depth, then a training run that evaluates as
+    it goes and the CLI reading its best checkpoint -> the launches of the
+    counted evaluation, K1's worst error on its launch arguments."""
+    log(f"phase 13: main path - the evaluation of the 16-block config 2 "
+        f"model on the card (evaluate.main, {EVAL_IMAGES} synthetic images)")
+    ckpt = tmp / "eval_ckpt"
+    path = write_eval_yaml(tmp, ckpt)
+    cfg = load_config(str(path))
+    blocks = cfg.model.num_blocks
+    roidb = evaluate.load_roidb(cfg)
+    batches = list(eval_batches(roidb, cfg.train.batch_size,
+                                cfg.data.bucket_sizes))
+    log(f"  data: {len(roidb)} images of "
+        f"{sorted({r.num_dets for r in roidb})} detections -> "
+        f"{len(batches)} batches of B, N = "
+        f"{sorted({(b.batch_size, b.padded_n) for b in batches})}; COCO "
+        f"matching route: {'native C++' if native.available() else 'numpy'}")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = evaluate.main(["-c", str(path), "--random-init", "--nms-sweep"])
+    wall = time.perf_counter() - t0
+    launches = counts()
+    want = want_counts(pair_pool2_fwd=blocks * len(batches))
+    log(f"  evaluate.main: {wall:.2f} s wall (model build and warm-up "
+        f"included); launches {launches}")
+    if launches != want:
+        raise AssertionError(f"evaluation launches {launches} != {want} "
+                             f"({blocks} K1 per batch, nothing else)")
+    for name in ("gossipnet", "raw_scores", "greedy_nms"):
+        stats = out[name]        # printed above by evaluate.main itself
+        if not all(math.isfinite(v) for v in stats.values()) \
+                or not 0.0 <= stats["AP"] <= 1.0:
+            raise AssertionError(f"bad stats for {name}: {stats}")
+    if out["raw_scores"]["AP"] <= 0.0 or out["greedy_nms"]["AP"] <= 0.0 \
+            or not 0.3 <= out["greedy_nms"]["iou_threshold"] <= 0.7:
+        raise AssertionError(f"baselines: {out}")
+
+    # the scores behind that AP, against the serving entry point (both go
+    # through K1: this holds the two entry points together, not the kernel)
+    params = init_params(cfg.model, seed=0)
+    model = training.build_model(cfg, "kernel", DEV)
+    model.load_state_dict(as_state_dict(params))
+    rescored = evaluate.rescore_roidb(None, model, roidb,
+                                      cfg.train.batch_size,
+                                      cfg.data.bucket_sizes)
+    served = Rescorer(cfg, params, device=DEV).rescore_batch(
+        [(r.det_boxes, r.det_scores, None) for r in roidb],
+        batch_size=cfg.train.batch_size)
+    worst = max(float(np.abs(rescored[r.image_id] - s).max())
+                for r, s in zip(roidb, served))
+    again = evaluate._evaluator_for(roidb, scores_by_image=rescored) \
+        .summarize()
+    log(f"  rescore_roidb vs Rescorer.rescore_batch on the same "
+        f"{len(roidb)} images: max |diff| {worst:.3e} (tol 1e-5); the AP of "
+        f"those scores equals evaluate.main's: {again == out['gossipnet']}")
+    if worst > 1e-5 or again != out["gossipnet"]:
+        raise AssertionError("evaluation scores differ from the Rescorer's")
+
+    # K1 against its plain version at the shape this path gives it: the
+    # first block's launch arguments of every evaluation batch, in the
+    # model's own dtype
+    dtype = cfg.model.pair_matmul_dtype
+    k1_err = 0.0
+    for i, batch in enumerate(batches):
+        arrays = [torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
+                  for x in (batch.boxes, batch.scores, batch.valid,
+                            batch.classes)]
+        with torch.inference_mode():
+            args = capture(k1, "launch_kernel", lambda: model(*arrays))
+        got = k1.launch_kernel(*args)
+        want = k1._reference_core(*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        k1_err = max(k1_err, err)
+        if args[-1] != dtype or not within(got, want, dtype):
+            raise AssertionError(
+                f"K1 disagrees with its plain version on evaluation batch "
+                f"{i} ({args[-1]}): max_abs_err={err}")
+    log(f"  K1 on the launch arguments of the {len(batches)} evaluation "
+        f"batches (B={batches[0].batch_size} NR=NC={batches[0].padded_n} "
+        f"P={args[1].shape[-1]}, {int(batches[0].valid[0].sum())} valid "
+        f"detections per image, first block, {dtype}) against its plain "
+        f"version: max_abs_err={k1_err:.3e} tol {TOL_TEXT[dtype]} -> ok")
+
+    # and the whole evaluation forward against the dense plain path, f32
+    f32 = load_config(str(path), {"model": {"pair_matmul_dtype": "float32"}})
+    both = {}
+    for impl in ("kernel", "dense"):
+        net = training.build_model(f32, impl, DEV)
+        net.load_state_dict(as_state_dict(params))
+        reset_counts()
+        both[impl] = evaluate.rescore_roidb(None, net, roidb,
+                                            f32.train.batch_size,
+                                            f32.data.bucket_sizes)
+        got_counts = counts()
+        want_n = blocks * len(batches) if impl == "kernel" else 0
+        if got_counts != want_counts(pair_pool2_fwd=want_n):
+            raise AssertionError(f"f32 {impl} evaluation launched "
+                                 f"{got_counts}")
+    # logits agree at LOGIT_TOL; the sigmoid's slope is at most 1/4
+    score_tol = LOGIT_TOL["atol"] / 4
+    dense_err = max(float(np.abs(both["kernel"][r.image_id]
+                                 - both["dense"][r.image_id]).max())
+                    for r in roidb)
+    aps = {impl: evaluate._evaluator_for(
+        roidb, scores_by_image=both[impl]).summarize()["AP"]
+        for impl in both}
+    log(f"  f32 scores of rescore_roidb, K1 path ({blocks * len(batches)} "
+        f"launches) vs dense plain path (0 launches) on the same "
+        f"{len(roidb)} images: max |diff| {dense_err:.3e} (tol "
+        f"{score_tol:.1e}: the logit tolerance through the sigmoid); AP "
+        f"{aps['kernel']:.6f} vs {aps['dense']:.6f}")
+    if not dense_err <= score_tol or abs(aps["kernel"] - aps["dense"]) > 1e-3:
+        raise AssertionError("the evaluation's K1 path differs from the "
+                             "dense plain path")
+
+    # where the wall time goes, warm
+    t0 = time.perf_counter()
+    evaluate.rescore_roidb(None, model, roidb, cfg.train.batch_size,
+                           cfg.data.bucket_sizes)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    evaluate._evaluator_for(roidb, scores_by_image=rescored).summarize()
+    coco_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    evaluate.evaluate_greedy_nms_sweep(roidb, [0.5])
+    nms_s = time.perf_counter() - t0
+    log(f"  evaluation wall time per {len(roidb)} images, warm: "
+        f"{(fwd_s + coco_s) * 1e3:.1f} ms = forward {fwd_s * 1e3:.1f} ms "
+        f"({len(batches)} batches x {blocks} K1) + COCO matching and AP "
+        f"{coco_s * 1e3:.1f} ms on the host; the GreedyNMS baseline at one "
+        f"threshold {nms_s * 1e3:.1f} ms")
+
+    # a training run that evaluates as it goes, and --best reads its best
+    tcfg = train_config(tmp, "eval_ckpt", eval_every=2, snapshot_every=0)
+    train_db = synthetic_roidb(**TRAIN_DATA)
+    val_db = synthetic_roidb(**VAL_DATA)
+    val_batches = len(list(eval_batches(val_db, tcfg.train.batch_size,
+                                        tcfg.data.bucket_sizes)))
+    metrics = tmp / "eval_metrics.jsonl"
+    reset_counts()
+    t0 = time.perf_counter()
+    training.train(tcfg, train_db, val_roidb=val_db, pool_impl="kernel",
+                   metrics_path=str(metrics), max_steps=EVAL_TRAIN_STEPS,
+                   device=DEV)
+    run_s = time.perf_counter() - t0
+    got = counts()
+    evals = EVAL_TRAIN_STEPS // 2
+    want = want_counts(
+        pair_pool2_fwd=blocks * (EVAL_TRAIN_STEPS + evals * val_batches),
+        pair_pool2_bwd=blocks * EVAL_TRAIN_STEPS,
+        greedy_scan_batched=EVAL_TRAIN_STEPS)
+    recs = [json.loads(x) for x in metrics.read_text().splitlines()]
+    aps = {r["step"]: r["val_AP"] for r in recs if "val_AP" in r}
+    log(f"  train() with a validation set of {len(val_db)} images at "
+        f"N=1024 and eval_every=2: {EVAL_TRAIN_STEPS} steps in {run_s:.1f} "
+        f"s, val_AP by step {aps}; launches {got}")
+    if got != want:
+        raise AssertionError(f"launches {got} != {want}")
+    if sorted(aps) != [2, 4] or not all(0.0 <= v <= 1.0
+                                        for v in aps.values()):
+        raise AssertionError(f"val_AP records: {aps}")
+    best = json.loads((ckpt / "best.json").read_text())["metric"]
+    if best != max(aps.values()) or not (ckpt / "best" / "state.pt").exists():
+        raise AssertionError(f"best checkpoint {best} != max of {aps}")
+    cli = subprocess.run(
+        [sys.executable, "-m", "gossipnet_tpu_torch.evaluate", "-c",
+         str(path), "--best"], capture_output=True, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parent)
+    if cli.returncode != 0:
+        raise AssertionError(f"eval CLI failed:\n{cli.stderr[-2000:]}")
+    head = cli.stdout[:cli.stdout.index("{")].strip()
+    stats = json.loads(cli.stdout[cli.stdout.index("{"):])
+    log(f"  eval CLI --best: {head}; gossipnet AP "
+        f"{stats['gossipnet']['AP']:.4f}, raw_scores AP "
+        f"{stats['raw_scores']['AP']:.4f}, greedy_nms AP "
+        f"{stats['greedy_nms']['AP']:.4f}")
+    if "restored best-AP checkpoint" not in head or \
+            stats["raw_scores"] != out["raw_scores"]:
+        raise AssertionError(f"eval CLI --best: {cli.stdout[:400]}")
+    return launches, k1_err
+
 
 def k5_bound(args, dtype) -> tuple[float, str, str]:
     """The least time for K5's work on these inputs: every neighbour pair
@@ -1225,6 +1625,7 @@ def k5_k6_times(label, fwd_args, bwd_args) -> tuple[dict, dict]:
     bwd_err = max(max(errs.values()),
                   check_backward(f"{label}, last block", "float32", args, dm,
                                  k5))
+    log_lane_use(f"K5 at {label} (Morton-sorted rows)", fwd_args[0])
     k5_b, k5_by, k5_how = k5_bound(fwd_args[:6], dtype)
     k6_b, k6_by, k6_how = k2_bound(args, m, dm, dtype, kern=k5)
     log(f"  {label}: K5 {dtype} {k5_ms:.4f} ms/launch, plain {k5_plain:.3f}"
@@ -1541,13 +1942,13 @@ def phase_multiclass(tmp: Path):
                              f"{err}")
 
 
-def phase_build():
-    log(f"phase 2: build {', '.join(KERNELS)} from ops/cuda/csrc/, one nvcc "
+def phase_build(names=KERNELS):
+    log(f"phase 2: build {', '.join(names)} from ops/cuda/csrc/, one nvcc "
         f"each, all at once")
     t0 = time.perf_counter()
-    build.build(KERNELS)
+    build.build(names)
     log(f"  built in {time.perf_counter() - t0:.1f} s wall")
-    for name in KERNELS:
+    for name in names:
         log(f"  {name}.cu: {build.build_seconds.get(name, 0.0):.1f} s")
         for line in build.build_logs.get(name, "").splitlines():
             if "Used" in line or "spill" in line:
@@ -1568,7 +1969,8 @@ def main() -> int:
              "greedy_scan_batched": 0.0, "greedy_scan": 0.0}   # exact
     phase_scan_cases()
     worst.update(pair_pool_fwd=phase_k5_cases(),
-                 pair_pool_bwd=phase_k6_cases())
+                 pair_pool_bwd=phase_k6_cases(),
+                 pair_ablate=phase_k7_cases())
     cfg = load_config(experiment_path("serving_bucketed"))
     rescorer, serve_launches = phase_serving(cfg)
     times = {"pair_pool2_fwd": phase_times(rescorer,
@@ -1591,10 +1993,15 @@ def main() -> int:
             worst[name] = max(worst[name], bench_worst[name],
                               crowd_worst[name])
         phase_multiclass(Path(tmp))
+        times["pair_ablate"], ablate_launches = phase_ablate()
+        eval_launches, eval_err = phase_evaluate(Path(tmp))
+        worst["pair_pool2_fwd"] = max(worst["pair_pool2_fwd"], eval_err)
     log(f"launches on the main paths: serving K1 {serve_launches}; "
-        f"training {launches}; config 4 training {crowd_launches}")
+        f"training {launches}; config 4 training {crowd_launches}; the "
+        f"ablation tool K7 {ablate_launches}; evaluation {eval_launches}")
     launches = {**launches, "pair_pool_fwd": crowd_launches["pair_pool_fwd"],
-                "pair_pool_bwd": crowd_launches["pair_pool_bwd"]}
+                "pair_pool_bwd": crowd_launches["pair_pool_bwd"],
+                "pair_ablate": ablate_launches}
 
     log(card)
     log(json.dumps({"kernels": [{

@@ -1,6 +1,6 @@
 """Static-shape batch assembly and the resumable training iterator (numpy
 copy of ``gossipnet_tpu.data.bucketing``: ``Batch``, ``bucket_for``,
-``make_batch``, ``IteratorState``, ``BatchIterator``).
+``make_batch``, ``IteratorState``, ``BatchIterator``, ``eval_batches``).
 
 Every image is padded to the smallest bucket of
 ``DataConfig.bucket_sizes`` that fits it; images sharing a bucket stack
@@ -183,3 +183,23 @@ class BatchIterator:
             raise ValueError("iterator seed mismatch on restore")
         self.state = IteratorState(int(s["epoch"]), int(s["cursor"]))
         self._plan = None
+
+
+def eval_batches(
+    roidb: Roidb,
+    batch_size: int,
+    bucket_sizes: Sequence[int],
+) -> Iterator[Batch]:
+    """Single deterministic pass for evaluation (no shuffle, no repeat —
+    the tail batch repeat-pads but keeps duplicate image_ids so the
+    evaluator can deduplicate)."""
+    buckets: dict[int, list[int]] = {}
+    for idx, rec in enumerate(roidb.records):
+        buckets.setdefault(bucket_for(rec.num_dets, bucket_sizes), []).append(idx)
+    for bn in sorted(buckets):
+        idxs = buckets[bn]
+        for s in range(0, len(idxs), batch_size):
+            group = idxs[s : s + batch_size]
+            while len(group) < batch_size:
+                group = group + group[: batch_size - len(group)]
+            yield make_batch([roidb.records[i] for i in group], padded_n=bn)

@@ -11,11 +11,12 @@ cursor are all saved).
 
     python -m gossipnet_tpu_torch.train -c experiments/coco_persons_full.yaml
 
-runs on the card and raises without one. Not ported yet, and raising
-where a run reaches them: the default COCO evaluation when ``eval_every``
-fires with a validation set (ROADMAP.md item 10; ``train(eval_fn=...)``
-takes a custom one), the ``coco``/``pets`` loaders (item 10),
-``parallel.enable: "on"`` (item 14) and ``--profile`` (item 13).
+runs on the card and raises without one. When ``eval_every`` fires with a
+validation set, the COCO AP of the rescored detections
+(``evaluate.evaluate_model``) is logged as ``val_*`` and the best
+checkpoint follows ``val_AP``. Not ported yet, and raising where a run
+reaches them: ``parallel.enable: "on"`` (ROADMAP.md item 14) and
+``--profile`` (item 13).
 """
 
 from __future__ import annotations
@@ -298,8 +299,8 @@ def train(
 
     Resumes from ``cfg.train.checkpoint_dir`` when it holds a checkpoint.
     ``eval_fn(state) -> dict`` runs every ``eval_every`` steps (a ``"AP"``
-    key keeps the best checkpoint); without one, a ``val_roidb`` would need
-    the COCO evaluation, which is not ported (raises, ROADMAP.md item 10).
+    key keeps the best checkpoint); without one, a ``val_roidb`` gets the
+    COCO evaluation of its rescored detections.
     ``stop``: a zero-arg callable polled once per drawn batch; when it
     returns True, queued batches flush as single steps, a checkpoint is
     written and the state returns, and a later ``train()`` on the same
@@ -335,9 +336,12 @@ def train(
     def default_eval(st):
         if val_roidb is None:
             return {}
-        raise NotImplementedError(
-            "periodic COCO evaluation (eval_every with a validation set) is "
-            "not ported yet: ROADMAP.md item 10; pass train(eval_fn=...)")
+        from gossipnet_tpu_torch.evaluate import evaluate_model
+
+        return evaluate_model(
+            None, st.model, val_roidb,
+            batch_size=t.batch_size, bucket_sizes=cfg.data.bucket_sizes,
+        )
 
     eval_fn = eval_fn or default_eval
     spc = max(int(t.steps_per_call), 1)
@@ -410,17 +414,32 @@ def train(
 
 
 def _datasets(cfg: Config) -> tuple[Roidb, Roidb | None]:
-    if cfg.data.dataset != "synthetic":
-        raise NotImplementedError(
-            f"dataset {cfg.data.dataset!r} (the COCO/PETS loaders) is not "
-            "ported yet: ROADMAP.md item 10; use data.dataset: synthetic")
-    from gossipnet_tpu_torch.data.synthetic import synthetic_roidb
+    """The training and validation sets ``cfg.data`` names."""
+    d = cfg.data
+    if d.dataset == "synthetic":
+        from gossipnet_tpu_torch.data.synthetic import synthetic_roidb
 
-    nc = cfg.model.num_classes
-    return (synthetic_roidb(num_images=256, seed=cfg.train.seed,
-                            num_classes=nc),
-            synthetic_roidb(num_images=32, seed=cfg.train.seed + 1,
-                            num_classes=nc))
+        nc = cfg.model.num_classes
+        return (synthetic_roidb(num_images=256, seed=cfg.train.seed,
+                                num_classes=nc),
+                synthetic_roidb(num_images=32, seed=cfg.train.seed + 1,
+                                num_classes=nc))
+    if d.dataset == "pets":
+        from gossipnet_tpu_torch.data.pets import build_pets_roidb
+
+        return (build_pets_roidb(d.ann_file, d.det_file,
+                                 max_dets=d.max_detections),
+                build_pets_roidb(d.val_ann_file, d.val_det_file,
+                                 max_dets=d.max_detections)
+                if d.val_ann_file else None)
+    from gossipnet_tpu_torch.data.roidb import build_roidb
+
+    return (build_roidb(d.ann_file, d.det_file, person_only=d.person_only,
+                        max_dets=d.max_detections),
+            build_roidb(d.val_ann_file, d.val_det_file,
+                        person_only=d.person_only,
+                        max_dets=d.max_detections)
+            if d.val_ann_file else None)
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -102,3 +102,16 @@ class CheckpointManager:
         _atomic_save(state.state_dict(), best_dir / "state.pt")
         self._write_sidecar("best.json", {"metric": metric})
         return True
+
+    def has_best(self) -> bool:
+        return (self.directory / "best" / "state.pt").exists()
+
+    def restore_best(self, state: Any):
+        """Loads the best checkpoint into ``state`` in place -> state."""
+        if not self.has_best():
+            raise FileNotFoundError(
+                f"no best checkpoint in {self.directory}")
+        state.load_state_dict(torch.load(
+            self.directory / "best" / "state.pt", map_location="cpu",
+            weights_only=False))
+        return state

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: K1
 (pair-pool forward), K2 (its backward: f32, bf16, the tie rule, two
 launches bit-identical), K3/K4 (the matching scan, exactly), K5/K6 (the
-unfolded pair pool and its backward, the same checks), one training step
+unfolded pair pool and its backward, the same checks), K7 (the per-tile
+ablation: six modes, three column tiles), one training step
 of config 2 and one of config 3 through K5/K6, with their launch counts.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
@@ -373,3 +374,50 @@ def test_one_config3_train_step_on_card_launches_k5_k6_k3():
     assert tuple(a - b for a, b in zip(after, before)) == (16, 16, 1, 0)
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert float(metrics["grad_norm"]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_j", [32, 64, 128])
+@pytest.mark.parametrize("mode", ["full", "nofeat", "nogw", "nofc2",
+                                  "nomask", "bf3d"])
+def test_k7_matches_plain_on_card(mode, tile_j):
+    """K7 (the per-tile ablation) against its plain version at a ragged
+    shape with invalid detections: the five f32 modes rtol = atol = 1e-5,
+    ``bf3d`` within one bf16 step and bit-equal on 99%; rows without a
+    neighbour at the same places; two launches bit-identical."""
+    from gossipnet_tpu_torch.ops.cuda import ablate as k7
+    from gossipnet_tpu_torch.tools.kernel_ablate import probe_inputs
+
+    dev = _card()
+    inputs = probe_inputs(2, 200, canvas=200.0, seed=1, device=dev)
+    inputs["cols"][:, pf.DetColumns._fields.index("valid"), 150:170] = 0.0
+    args = [inputs[k] for k in ("cols", "a", "b", "wg", "w2", "b2")]
+    before = k7.pair_ablate.launches
+    got = k7.pair_ablate(*args, mode, tile_j)
+    again = k7.pair_ablate(*args, mode, tile_j)
+    want = k7.pair_ablate_reference(*args, mode)
+    torch.cuda.synchronize()
+    assert k7.pair_ablate.launches == before + 2
+    assert torch.equal(got, again)
+    x, y = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(x < -1e29, y < -1e29)
+    if mode != "nomask":
+        assert (y < -1e29).all(-1)[:, 150:170].all()   # invalid rows
+    if mode == "bf3d":
+        np.testing.assert_allclose(x, y, rtol=2.0 ** -7, atol=0)
+        assert np.mean(x == y) >= 0.99
+    else:
+        np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_k7_refuses_what_it_is_not_built_for_on_card():
+    from gossipnet_tpu_torch.ops.cuda import ablate as k7
+    from gossipnet_tpu_torch.tools.kernel_ablate import probe_inputs
+
+    inputs = probe_inputs(1, 64, device=_card())
+    args = [inputs[k] for k in ("cols", "a", "b", "wg", "w2", "b2")]
+    with pytest.raises(ValueError, match="32, 64, 128"):
+        k7.pair_ablate(*args, "full", 48)
+    with pytest.raises(ValueError, match="mode must be one of"):
+        k7.pair_ablate(*args, "nofc1")

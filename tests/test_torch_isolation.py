@@ -41,7 +41,10 @@ def test_port_and_chip_smoke_import_no_jax():
                  "ops.cuda.launch", "ops.ranking",
                  "serve", "ops.geometry", "ops.matching",
                  "ops.cuda.matching_scan", "losses", "train",
-                 "utils.checkpoint", "utils.metrics", "data.bucketing"):
+                 "utils.checkpoint", "utils.metrics", "data.bucketing",
+                 "ops.cuda.ablate", "tools.kernel_ablate", "evaluate",
+                 "eval.cocoeval", "native", "ops.nms", "data.pets",
+                 "data.roidb", "data.synthetic"):
         assert f"gossipnet_tpu_torch.{name}" in result["modules"], name
 
 
@@ -139,7 +142,7 @@ def test_kernel_build_paths_stay_in_the_checkout():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     np.testing.assert_equal(len(path.stem.split("-")[-1]), 16)
     for name in ("pairwise2_bwd", "matching_scan", "pairwise_fwd",
-                 "pairwise_bwd"):
+                 "pairwise_bwd", "pair_ablate"):
         assert (build.CSRC / f"{name}.cu").exists()
 
 
@@ -156,20 +159,22 @@ def test_kernel_library_hash_covers_shared_headers(tmp_path):
     shutil.copytree(build.CSRC, csrc)
     before = {n: build.library_path(n, csrc)
               for n in ("pairwise2_fwd", "pairwise2_bwd", "matching_scan",
-                        "pairwise_fwd", "pairwise_bwd")}
+                        "pairwise_fwd", "pairwise_bwd", "pair_ablate")}
     assert before["pairwise2_fwd"] == build.library_path("pairwise2_fwd")
     header = csrc / "pairwise2_pair.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: build.library_path(n, csrc) for n in before}
     assert after["pairwise2_fwd"] != before["pairwise2_fwd"]
     assert after["pairwise2_bwd"] != before["pairwise2_bwd"]
-    # K5 and K6 share csrc/pairwise_pair.cuh, which includes K1's header
+    # K5, K6 and K7 share csrc/pairwise_pair.cuh, which includes K1's header
     assert after["pairwise_fwd"] != before["pairwise_fwd"]
+    assert after["pair_ablate"] != before["pair_ablate"]
     header = csrc / "pairwise_pair.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     again = {n: build.library_path(n, csrc) for n in before}
     assert again["pairwise_fwd"] != after["pairwise_fwd"]
     assert again["pairwise_bwd"] != after["pairwise_bwd"]
+    assert again["pair_ablate"] != after["pair_ablate"]
     (csrc / "new_helper.cuh").write_text("#pragma once\n")
     assert build.library_path("pairwise2_fwd", csrc) != \
         after["pairwise2_fwd"]
