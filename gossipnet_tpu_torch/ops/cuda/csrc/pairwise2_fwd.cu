@@ -1,4 +1,4 @@
-// K1: GossipNet pair-pool forward for Hopper (sm_90a), CUDA cores.
+// K1: GossipNet pair-pool forward for Hopper (sm_90a).
 //
 // Replaces the TPU kernel gossipnet_tpu/ops/pallas/pairwise2.py::_fwd_kernel
 // (launched by _forward, wrapped by pallas_pair_pool_rect_v2 / _v2).
@@ -9,33 +9,51 @@
 //   g_ij = [iou, cx_j * inv_w_i, cy_j * inv_h_i (, cls_i == cls_j)]
 // a' and b' already carry the separable pair features (fold_separable in
 // ops/cuda/pairwise2.py), so only 3 (or 4) features are pairwise here.
-// The [N, N, P] pair tensor never exists: each thread streams its row over
-// the columns and keeps a running max.
+// The [N, N, P] pair tensor never exists.
 //
-// Bound at the serving shapes: compute. The JAX cost model
-// (pairwise2.py:643-647) counts 2P^2 + (K+6)P = 2.3 kFLOP per pair at
-// P=32, K=3: 19.6 GFLOP for a dense B=8 N=1024 launch, against about
-// 4.7 MB of input. This first version runs both products on CUDA cores
-// (FMA, no tensor cores): a neighbour pair costs ~P^2 + (K+2)P FMAs. It
-// does less than the dense count says, because it skips (a) whole tiles
-// whose row and column bounding boxes do not meet (flags from
-// tile_activity) and (b) per thread, every pair that is not a neighbour.
-// mma/wgmma on the FC2 product is later work.
+// Bound: operations. A neighbour pair costs 2P^2 + (K+6)P = 2.3 kFLOP at
+// P=32, K=3, against a few MB of input, but only about one tested pair in
+// twenty is a neighbour, so what limits a kernel on this card is how the
+// sparse work is laid on warps, not the arithmetic rate. What the design
+// does about it:
+// - Test densely, compute compactly. Stage A: lane l owns row row0 + l,
+//   the four warps split each tile of 64 columns, every lane tests one
+//   (row, column) pair per step, two steps in flight, the column read
+//   through L1 as a broadcast (no staging, no barrier in the loop), the
+//   division of the IoU skipped where the pair is clearly below the
+//   threshold, and the pairs that pass go through a ballot into the warp's
+//   queue (pair_group.cuh). Stage B pops groups of 16 (bf16) or 32 (f32)
+//   pairs, so FC1 and FC2 run with every lane on a real neighbour pair;
+//   whole tiles whose bounding boxes do not meet are skipped through the
+//   flags of tile_activity. a' and b' are read from device memory (L1/L2)
+//   per queued pair: 5% of the pairs need them.
+// - FC2 on the tensor cores in bf16 mode: mma.sync.m16n8k16 per warp on the
+//   group's h1 (made directly in the A-fragment layout) and W2 packed in
+//   shared memory, f32 accumulator starting at b2 (fc2_mma). mma.sync, not
+//   wgmma: a P=32 product needs no 64-row tile, and a queue per warp needs
+//   no synchronisation across a warpgroup. f32 mode stays on CUDA cores,
+//   IEEE f32, one pair per lane, in the fmaf order of the plain version.
+// - The running max by order-free merge: m >= 0, so a positive float's bits
+//   order like the float, and a group's pre2 merges into the row's max in
+//   shared memory with an integer atomicMax; the result is the same bits
+//   in any order.
+// - So the work on a row tile is also split over gridDim.z blocks, which
+//   take its steps round robin and merge into the output, zero-filled by
+//   the entry function, the same way. On clustered detections one tile pair can hold a thousand
+//   neighbour pairs, and a warp's groups are a serial chain of loads,
+//   products and merges: what the kernel's time follows is the longest
+//   chain, and the fine interleave is what shortens it (measured: 2.4x at
+//   B=8 N=1024, 4x at B=8 N=256 over one block per row tile). The grid then
+//   fills the card at B=8 N=256 and B=2 N=4096 as at B=8 N=1024.
 //
-// Layout: one block per (row tile of TILE_I = 32 rows, image). Lane l of
-// every warp owns row row0 + l; the NWARPS warps split each staged column
-// tile of TILE_J columns, so the lanes of a warp read the same column (a
-// shared-memory broadcast) and differ only in their row. Per thread: the
-// running max[P] and the FC2 accumulators in registers; a' of the tile,
-// the weights and the column tile in shared memory. At the end the
-// per-warp maxima meet through shared memory.
+// Numerics: pairwise2_pair.cuh and pair_group.cuh, shared with K2, which
+// must recompute pre2 bit for bit.
 //
-// Numerics: the per-pair arithmetic (IoU, features, FC1, FC2) lives in
-// pairwise2_pair.cuh, shared with K2, which must recompute pre2 bit for bit.
-// The IoU and the neighbour predicate are explicitly rounded, so the plain
-// PyTorch version makes the same neighbour decisions bit for bit. BF16 mode
-// rounds what the TPU kernel feeds its bf16 dots (features g, b', Wg_k, h1,
-// W2) and accumulates in f32; a' and b2 stay f32. Non-BF16 mode is IEEE f32.
+// Build switches, for timing what a stage costs only (the output is wrong
+// with any of them; `chip_smoke.py --k1-stages` builds and times them):
+// GNET_ABLATE_STAGE_B, stage B does nothing; GNET_ABLATE_MERGE, a group's
+// pre2 is not merged into the running max; GNET_ABLATE_LOADS (bf16), every
+// queued pair reads a' and b' of detection 0.
 
 #include "pairwise2_pair.cuh"
 
@@ -43,11 +61,16 @@ namespace {
 
 using namespace gnet;
 
+// Row stride of the running max: rows of one group sit in different banks.
 template <int P>
-constexpr size_t smem_floats() {
-  constexpr size_t stage = TILE_J * P + CMAX * TILE_J;
-  constexpr size_t red = NWARPS * TILE_I * (P + 1);
-  return P * P + KMAX * P + P + P * (TILE_I + 1) + (stage > red ? stage : red);
+constexpr int MXLD = P + 1;
+
+template <int P, bool BF16>
+constexpr size_t smem_words() {
+  return (BF16 ? Frag<P>::W2P_WORDS : P * P)  // W2
+         + KMAX * P + P                                   // wgs, b2s
+         + TILE_I * MXLD<P>                               // running max
+         + NWARPS * QCAP * QWORDS;                        // queues
 }
 
 template <int P, bool BF16>
@@ -60,16 +83,18 @@ pair_pool2_fwd_kernel(const float* __restrict__ row_cols,  // [B, C, NR]
                       const float* __restrict__ w2,        // [P, P] (in, out)
                       const float* __restrict__ b2,        // [P]
                       const int* __restrict__ flags,       // [B, NI, NJ]
-                      float* __restrict__ out,             // [B, NR, P]
+                      float* __restrict__ out,  // [B, NR, P], 0 if split
                       int NR, int NC, int K, float thr) {
+  constexpr int GROUP = group_size<BF16>();
+  constexpr int LD = MXLD<P>;
   extern __shared__ __align__(16) float smem[];
-  float* w2s = smem;                        // [P][P]
-  float* wgs = w2s + P * P;                 // [KMAX][P], rows >= K zero
-  float* b2s = wgs + KMAX * P;              // [P]
-  float* as = b2s + P;                      // [P][TILE_I + 1]
-  float* bs = as + P * (TILE_I + 1);        // [TILE_J][P]   column tile
-  float* cs = bs + TILE_J * P;              // [CMAX][TILE_J] column tile
-  float* red = bs;                          // [NWARPS][TILE_I][P + 1], after the loop
+  float* w2s = smem;                                   // f32 [P][P]
+  uint32_t* w2p = reinterpret_cast<uint32_t*>(smem);   // or packed bf16
+  float* wgs = smem + (BF16 ? Frag<P>::W2P_WORDS : P * P);  // [KMAX][P]
+  float* b2s = wgs + KMAX * P;                         // [P]
+  int* mx = reinterpret_cast<int*>(b2s + P);           // [TILE_I][LD] bits
+  int* q_ij_all = mx + TILE_I * LD;                    // [NWARPS][QCAP]
+  float* q_g_all = reinterpret_cast<float*>(q_ij_all + NWARPS * QCAP);
 
   const int C = K == 4 ? 9 : 8;
   const int tid = threadIdx.x;
@@ -80,87 +105,96 @@ pair_pool2_fwd_kernel(const float* __restrict__ row_cols,  // [B, C, NR]
   const int NI = (NR + TILE_I - 1) / TILE_I;
   const int NJ = (NC + TILE_J - 1) / TILE_J;
   const int row0 = tile_i * TILE_I;
+  int* q_ij = q_ij_all + warp * QCAP;
+  float* q_g = q_g_all + warp * QFEAT * QCAP;
 
-  for (int x = tid; x < P * P; x += NTHREADS)
-    w2s[x] = BF16 ? round_bf16(w2[x]) : w2[x];
-  for (int x = tid; x < KMAX * P; x += NTHREADS) {
-    const float v = x < K * P ? wg[x] : 0.f;
-    wgs[x] = BF16 ? round_bf16(v) : v;
+  if (BF16) {
+    stage_w2_frags<P>(w2, w2p, tid, NTHREADS);
+  } else {
+    for (int x = tid; x < P * P; x += NTHREADS)
+      w2s[x] = w2[x];
   }
-  for (int x = tid; x < P; x += NTHREADS) b2s[x] = b2[x];
-  const float* a_img = a + (size_t)img * NR * P;
-  for (int x = tid; x < TILE_I * P; x += NTHREADS) {
-    const int r = x / P, p = x - r * P;
-    as[p * (TILE_I + 1) + r] =
-        row0 + r < NR ? a_img[(size_t)(row0 + r) * P + p] : 0.f;
-  }
+  stage_small_weights<P, BF16>(wg, b2, K, wgs, b2s, tid);
+  for (int x = tid; x < TILE_I * LD; x += NTHREADS) mx[x] = 0;
+  __syncthreads();
 
-  // This thread's row.
-  const int i = row0 + lane;
   float ri[CMAX];
-#pragma unroll
-  for (int c = 0; c < CMAX; ++c) ri[c] = 0.f;
-  if (i < NR) {
-    const float* rc = row_cols + (size_t)img * C * NR + i;
-#pragma unroll
-    for (int c = 0; c < CMAX; ++c)  // unrolled: ri stays in registers
-      if (c < C) ri[c] = rc[(size_t)c * NR];
-  }
-  const bool live = i < NR && ri[7] > 0.f;
-
-  float mx[P];
-#pragma unroll
-  for (int q = 0; q < P; ++q) mx[q] = 0.f;
+  const int i = row0 + lane;
+  const bool live =
+      load_det(row_cols + (size_t)img * C * NR, C, NR, i, ri);
 
   const float* cc = col_cols + (size_t)img * C * NC;
+  const float* a_img = a + (size_t)img * NR * P;
   const float* b_img = b + (size_t)img * NC * P;
   const int* fl = flags + ((size_t)img * NI + tile_i) * NJ;
 
-  for (int tj = 0; tj < NJ; ++tj) {
-    if (fl[tj] == 0) continue;  // the same for the whole block
-    const int col0 = tj * TILE_J;
-    const int ncol = min(TILE_J, NC - col0);
-    __syncthreads();  // the previous tile's readers are done
-    for (int x = tid; x < TILE_J * P; x += NTHREADS) {
-      const float v = x < ncol * P ? b_img[(size_t)col0 * P + x] : 0.f;
-      bs[x] = BF16 ? round_bf16(v) : v;
-    }
-    for (int x = tid; x < CMAX * TILE_J; x += NTHREADS) {
-      const int c = x / TILE_J, j = x - c * TILE_J;
-      cs[x] = c < C && j < ncol ? cc[(size_t)c * NC + col0 + j] : 0.f;
-    }
-    __syncthreads();
-    if (!live) continue;
-
-    for (int j = warp; j < ncol; j += NWARPS) {
-      const float jvalid = cs[7 * TILE_J + j];
-      const float iou = pair_iou(ri, cs, j);
-      if (!(jvalid > 0.f && iou >= thr)) continue;
-
+  // Stage B: one group of `n` queued pairs from ring slot `head`.
+  auto consume = [&](int head, int n) {
+#ifdef GNET_ABLATE_STAGE_B
+    return;
+#endif
+    if constexpr (BF16) {
+      uint32_t afr[Frag<P>::KB][4];
+      int ij2[2];
+      group_h1_frags<P>(a_img, b_img, wgs, q_ij, q_g, head, n, lane, afr,
+                        ij2);
+      float acc[Frag<P>::NB][4];
+      fc2_mma<P>(afr, w2p, b2s, acc, lane);
+      const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (gid + 8 * h >= n) continue;
+        int* mrow = mx + ((ij2[h] >> 16) - row0) * LD;
+#pragma unroll
+        for (int nb = 0; nb < Frag<P>::NB; ++nb) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = acc[nb][2 * h + e];
+            const int q = nb * 8 + tig * 2 + e;
+#ifdef GNET_ABLATE_MERGE
+            if (v == 1234.5f) mrow[q] = 1;  // keeps the product alive
+#else
+            if (v > 0.f && __float_as_int(v) > mrow[q])
+              atomicMax(mrow + q, __float_as_int(v));
+#endif
+          }
+        }
+      }
+    } else {
       float g[KMAX];
-      pair_features<BF16>(ri, cs, j, K, iou, g);
+      const int ij = lane_pair(q_ij, q_g, head, n, lane, g);
       float pre[P];
-      pair_pre2<P, BF16, false>(as + lane, bs + j * P, wgs, w2s, b2s, g, pre,
-                                pre);
+      pair_pre2<P>(a_img + (size_t)(ij >> 16) * P,
+                         b_img + (size_t)(ij & 0xffff) * P, wgs, w2s, b2s, g,
+                         pre);
+      if (lane < n) {
+        int* mrow = mx + ((ij >> 16) - row0) * LD;
 #pragma unroll
-      for (int q = 0; q < P; ++q) mx[q] = fmaxf(mx[q], pre[q]);
+        for (int q = 0; q < P; ++q) {
+          if (pre[q] > 0.f && __float_as_int(pre[q]) > mrow[q])
+            atomicMax(mrow + q, __float_as_int(pre[q]));
+        }
+      }
     }
-  }
+    __syncwarp();
+  };
 
-  // Max over the warps: each writes its rows' maxima, then the block
-  // writes out[b, row0:row0+TILE_I, :] coalesced.
-  __syncthreads();
-  float* mine = red + (size_t)(warp * TILE_I + lane) * (P + 1);
-#pragma unroll
-  for (int q = 0; q < P; ++q) mine[q] = mx[q];
+  auto active = [&](int tj) { return fl[tj] != 0; };
+  run_stages<BF16, GROUP>(ri, live, cc, C, NC, blockIdx.z, gridDim.z, active, K, thr,
+                          i << 16, 0, q_ij, q_g, lane, warp, consume);
+
+  // The block's maxima leave: stored where it saw every column, merged
+  // where the columns are split over blocks (out is zero there).
   __syncthreads();
   for (int x = tid; x < TILE_I * P; x += NTHREADS) {
-    const int r = x / P, p = x - r * P;
+    const int r = x / P;
     if (row0 + r >= NR) continue;
-    float v = red[(size_t)r * (P + 1) + p];
-    for (int w = 1; w < NWARPS; ++w)
-      v = fmaxf(v, red[(size_t)(w * TILE_I + r) * (P + 1) + p]);
-    out[((size_t)img * NR + row0 + r) * P + p] = v;
+    const size_t idx = ((size_t)img * NR + row0) * P + x;
+    const int v = mx[r * LD + x - r * P];
+    if (gridDim.z == 1)
+      out[idx] = __int_as_float(v);
+    else if (v > 0)
+      atomicMax(reinterpret_cast<int*>(out) + idx, v);
   }
 }
 
@@ -168,15 +202,15 @@ template <int P, bool BF16>
 int launch(const float* row_cols, const float* col_cols, const float* a,
            const float* b, const float* wg, const float* w2, const float* b2,
            const int* flags, float* out, int B, int NR, int NC, int K,
-           float thr, cudaStream_t stream) {
-  const size_t smem = smem_floats<P>() * sizeof(float);
+           int splits, float thr, cudaStream_t stream) {
+  const size_t smem = smem_words<P, BF16>() * sizeof(float);
   auto kernel = pair_pool2_fwd_kernel<P, BF16>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((NR + TILE_I - 1) / TILE_I, B);
+  const dim3 grid((NR + TILE_I - 1) / TILE_I, B, splits);
   kernel<<<grid, NTHREADS, smem, stream>>>(row_cols, col_cols, a, b, wg, w2,
                                            b2, flags, out, NR, NC, K, thr);
   return (int)cudaGetLastError();
@@ -186,20 +220,21 @@ template <bool BF16>
 int dispatch_p(int P, const float* row_cols, const float* col_cols,
                const float* a, const float* b, const float* wg,
                const float* w2, const float* b2, const int* flags, float* out,
-               int B, int NR, int NC, int K, float thr, cudaStream_t s) {
+               int B, int NR, int NC, int K, int splits, float thr,
+               cudaStream_t s) {
   switch (P) {
     case 8:
       return launch<8, BF16>(row_cols, col_cols, a, b, wg, w2, b2, flags, out,
-                             B, NR, NC, K, thr, s);
+                             B, NR, NC, K, splits, thr, s);
     case 16:
       return launch<16, BF16>(row_cols, col_cols, a, b, wg, w2, b2, flags,
-                              out, B, NR, NC, K, thr, s);
+                              out, B, NR, NC, K, splits, thr, s);
     case 32:
       return launch<32, BF16>(row_cols, col_cols, a, b, wg, w2, b2, flags,
-                              out, B, NR, NC, K, thr, s);
+                              out, B, NR, NC, K, splits, thr, s);
     case 64:
       return launch<64, BF16>(row_cols, col_cols, a, b, wg, w2, b2, flags,
-                              out, B, NR, NC, K, thr, s);
+                              out, B, NR, NC, K, splits, thr, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -213,18 +248,27 @@ extern "C" {
 int gnet_pair_pool2_tiles() { return TILE_I * 1000 + TILE_J; }
 
 // Launches K1 on `stream`; returns cudaGetLastError() (0 = launched).
+// `splits` blocks share the work on a row tile; with splits > 1 they merge
+// into `out`, which is zero-filled here first, on the same stream.
 int gnet_pair_pool2_fwd(const float* row_cols, const float* col_cols,
                         const float* a, const float* b, const float* wg,
                         const float* w2, const float* b2, const int* flags,
                         float* out, int B, int NR, int NC, int P, int K,
-                        float thr, int bf16, void* stream) {
+                        int splits, float thr, int bf16, void* stream) {
   if (B <= 0 || NR <= 0) return 0;
-  if ((K != 3 && K != 4) || NC < 0) return (int)cudaErrorInvalidValue;
+  if ((K != 3 && K != 4) || NC < 0 || NR > MAX_DETS || NC > MAX_DETS ||
+      splits < 1 || splits > 65535)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (splits > 1) {
+    const cudaError_t e =
+        cudaMemsetAsync(out, 0, (size_t)B * NR * P * sizeof(float), s);
+    if (e != cudaSuccess) return (int)e;
+  }
   return bf16 ? dispatch_p<true>(P, row_cols, col_cols, a, b, wg, w2, b2,
-                                 flags, out, B, NR, NC, K, thr, s)
+                                 flags, out, B, NR, NC, K, splits, thr, s)
               : dispatch_p<false>(P, row_cols, col_cols, a, b, wg, w2, b2,
-                                  flags, out, B, NR, NC, K, thr, s);
+                                  flags, out, B, NR, NC, K, splits, thr, s);
 }
 
 }  // extern "C"

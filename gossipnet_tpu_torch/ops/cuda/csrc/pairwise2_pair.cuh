@@ -1,36 +1,46 @@
 // Per-pair arithmetic of the GossipNet pair stage, shared by K1
-// (pairwise2_fwd.cu) and K2 (pairwise2_bwd.cu).
+// (pairwise2_fwd.cu) and K2 (pairwise2_bwd.cu): the IoU test and the pair
+// features (stage A of both kernels), FC1 in the layouts stage B wants, and
+// FC2 of f32 mode. The queue between the stages and FC2 of bf16 mode (the
+// tensor-core product of a group) live in pair_group.cuh.
 //
 // K2 finds the max winners of K1 by exact float equality (pre2 == m), so
 // both kernels must compute every pair's IoU, features, h1 and pre2 with
-// the same operations in the same order and the same rounding points.
-// Keeping that code here, once, is what makes the equality hold: a change
-// to it changes both kernels together (and the library hash of both, see
-// ops/cuda/build.py).
+// the same operations in the same order and the same rounding points, and
+// a pair's pre2 must not depend on where it sits in a group. Keeping that
+// code here and in pair_group.cuh, once, is what makes the equality hold:
+// a change changes both kernels together (and the library hash of both,
+// see ops/cuda/build.py).
 //
 // Numerics: the IoU and the neighbour predicate use explicitly rounded
 // operations (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn), so no FMA
-// contraction can move a pair across the threshold; the two products are
-// explicit fmaf chains in a fixed order. BF16 mode rounds what the TPU
-// kernel feeds its bf16 dots (features g, b', Wg_k, h1, W2) and
-// accumulates in f32; a' and b2 stay f32.
+// contraction can move a pair across the threshold, and every one of them
+// is commutative in the two detections, so the test gives the same bits
+// whichever detection the lane owns (K2's second pass owns the column).
+// FC1 is an explicit fmaf chain in a fixed order. BF16 mode rounds what
+// the TPU kernel feeds its bf16 dots (features g, b', Wg_k, h1, W2) and
+// accumulates in f32 (on the tensor cores); a' and b2 stay f32. f32 mode
+// is IEEE f32 on CUDA cores, FC2 an fmaf chain over p ascending: no TF32.
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "pair_group.cuh"
 
 #include <cstddef>
 
 namespace gnet {
 
-constexpr int TILE_I = 32;  // rows per block: one per lane
-constexpr int TILE_J = 64;  // columns staged per step
-constexpr int NWARPS = 4;   // warps sharing one column tile
+constexpr int TILE_I = 32;  // detections a block owns: one per lane
+constexpr int TILE_J = 64;  // detections of the other side per tile (flags)
+constexpr int NWARPS = 4;   // warps sharing a tile of the other side
 constexpr int NTHREADS = 32 * NWARPS;
-constexpr int KMAX = 4;     // pair features kept in the kernel
-constexpr int CMAX = 9;     // fields per detection column (8, +1 class)
+constexpr int KMAX = QFEAT; // pair features kept in the kernel
+constexpr int CMAX = 9;     // fields per detection (8, +1 class)
 constexpr float EPS = 1e-6f;
+
+// Pairs stage B takes at once: the 16 rows of an mma tile, or one per lane.
+template <bool BF16>
+__host__ __device__ constexpr int group_size() { return BF16 ? 16 : 32; }
 
 // Row fields: x1 y1 x2 y2 area inv_w inv_h valid [cls]
 // Col fields: x1 y1 x2 y2 area cx   cy    valid [cls]
@@ -39,28 +49,43 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// IoU of row detection `ri` and staged column j (cs is [CMAX][TILE_J]).
-__device__ __forceinline__ float pair_iou(const float (&ri)[CMAX],
-                                          const float* cs, int j) {
-  const float iw = fmaxf(__fsub_rn(fminf(ri[2], cs[2 * TILE_J + j]),
-                                   fmaxf(ri[0], cs[0 * TILE_J + j])), 0.f);
-  const float ih = fmaxf(__fsub_rn(fminf(ri[3], cs[3 * TILE_J + j]),
-                                   fmaxf(ri[1], cs[1 * TILE_J + j])), 0.f);
+// The neighbour test of the lane's own detection `ri` and detection `cj`
+// of the other side: whether IoU >= thr, and the IoU where it is. The
+// test is the correctly rounded quotient against thr, as the plain version
+// makes it; the division is only run where the pair is not clearly below:
+// inter < thr (1 - 1e-6) uni puts the exact quotient more than 30 half-ulps
+// under thr, so its rounding cannot reach thr, and the product's own
+// rounding (6e-8 relative, twice) cannot close that gap. Most tested pairs
+// do not overlap at all and skip the division.
+__device__ __forceinline__ bool pair_test(const float (&ri)[CMAX],
+                                          const float (&cj)[CMAX], float thr,
+                                          float thr_lo, float& iou) {
+  const float iw =
+      fmaxf(__fsub_rn(fminf(ri[2], cj[2]), fmaxf(ri[0], cj[0])), 0.f);
+  const float ih =
+      fmaxf(__fsub_rn(fminf(ri[3], cj[3]), fmaxf(ri[1], cj[1])), 0.f);
   const float inter = __fmul_rn(iw, ih);
-  const float uni = __fsub_rn(__fadd_rn(ri[4], cs[4 * TILE_J + j]), inter);
-  return __fdiv_rn(inter, fmaxf(uni, EPS));
+  const float uni =
+      fmaxf(__fsub_rn(__fadd_rn(ri[4], cj[4]), inter), EPS);
+  iou = 0.f;
+  if (!(inter >= __fmul_rn(thr_lo, uni))) return false;
+  iou = __fdiv_rn(inter, uni);
+  return iou >= thr;
 }
 
 // The in-kernel pair features g = [iou, cx_j * inv_w_i, cy_j * inv_h_i,
 // cls_i == cls_j], rounded to bf16 in BF16 mode (the class match is 0/1).
+// Fields 5 and 6 hold inv_w, inv_h on the row side and cx, cy on the
+// column side, so the same two products serve a lane that owns the row
+// and one that owns the column.
 template <bool BF16>
 __device__ __forceinline__ void pair_features(const float (&ri)[CMAX],
-                                              const float* cs, int j, int K,
+                                              const float (&cj)[CMAX], int K,
                                               float iou, float (&g)[KMAX]) {
   g[0] = iou;
-  g[1] = __fmul_rn(cs[5 * TILE_J + j], ri[5]);
-  g[2] = __fmul_rn(cs[6 * TILE_J + j], ri[6]);
-  g[3] = (K == 4 && ri[8] == cs[8 * TILE_J + j]) ? 1.f : 0.f;
+  g[1] = __fmul_rn(cj[5], ri[5]);
+  g[2] = __fmul_rn(cj[6], ri[6]);
+  g[3] = (K == 4 && ri[8] == cj[8]) ? 1.f : 0.f;
   if (BF16) {
     g[0] = round_bf16(g[0]);
     g[1] = round_bf16(g[1]);
@@ -68,13 +93,108 @@ __device__ __forceinline__ void pair_features(const float (&ri)[CMAX],
   }
 }
 
-// h1_p = relu(a'_p + b'_p + Wg_k[:, p] . g), rounded to bf16 in BF16 mode.
-// wgs is [KMAX][P] with zero rows beyond K; bj is the staged b'_j row.
+// Detection idx (fields [C, N] of one image) into registers, zeros beyond
+// N; returns whether it exists and is valid.
+__device__ __forceinline__ bool load_det(const float* __restrict__ fields,
+                                         int C, int N, int idx,
+                                         float (&ri)[CMAX]) {
+#pragma unroll
+  for (int c = 0; c < CMAX; ++c) ri[c] = 0.f;
+  if (idx < N) {
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c)  // unrolled: ri stays in registers
+      if (c < C) ri[c] = __ldg(fields + (size_t)c * N + idx);
+  }
+  return idx < N && ri[7] > 0.f;
+}
+
+// The two stages for one warp. Lane l owns detection `ri`. Stage A tests
+// it against the warp's TILE_J / NWARPS detections of every active tile of
+// the other side, STEP at a time so that their loads and IoU chains
+// overlap (the whole warp reads the same detection: a broadcast from L1,
+// no staging and no block-wide barrier), and pushes the neighbours in
+// detection order. After every STEP pushes, and once more at the end for
+// the short last group, `consume(head, n)` (stage B) pops the queue in
+// groups of GROUP. Stage B is instantiated at this one place: its code is
+// long, and a warp that met it at several places would wait for
+// instructions more than for data.
+// `active(t)`: whether tile t can hold a neighbour; `split` of `splits`:
+// this block's share of the work on its own detections; `ij_own`: the own
+// index already shifted to its half of the packed entry; `other_shift`:
+// the other half's shift.
+constexpr int STEP = 2;
+static_assert(32 + STEP * 32 <= QCAP, "a group and STEP pushes fit the ring");
+
+template <bool BF16, int GROUP, class Active, class Consume>
+__device__ __forceinline__ void run_stages(
+    const float (&ri)[CMAX], bool live, const float* __restrict__ fields,
+    int C, int N, int split, int splits, Active& active, int K, float thr,
+    int ij_own, int other_shift, int* q_ij, float* q_g, int lane, int warp,
+    Consume& consume) {
+  if (!__any_sync(ALL_LANES, live)) return;
+  constexpr int STEPS = TILE_J / NWARPS / STEP;  // steps of a warp per tile
+  const float thr_lo = __fmul_rn(thr, 1.f - 1e-6f);
+  const int n_items = (N + TILE_J - 1) / TILE_J * STEPS;
+  int head = 0, count = 0;
+  // Item w is step w % STEPS of tile w / STEPS; the blocks that share the
+  // own detections take the items round robin, so a crowded tile is
+  // spread over all of them.
+  for (int w = split;; w += splits) {
+    const bool flush = w >= n_items;
+    if (!flush && active(w / STEPS)) {
+      const int d0 = w / STEPS * TILE_J + warp * (TILE_J / NWARPS) +
+                     w % STEPS * STEP;
+      bool pass[STEP];
+      float g[STEP][KMAX];
+#pragma unroll
+      for (int v = 0; v < STEP; ++v) {
+        float cj[CMAX];
+        const bool valid = load_det(fields, C, N, d0 + v, cj);
+        pass[v] = false;
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k) g[v][k] = 0.f;
+        float iou;
+        if (live && valid && pair_test(ri, cj, thr, thr_lo, iou)) {
+          pass[v] = true;
+          pair_features<BF16>(ri, cj, K, iou, g[v]);
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < STEP; ++v)
+        queue_push(q_ij, q_g, head, count, pass[v],
+                   ij_own | ((d0 + v) << other_shift), g[v], lane);
+    }
+    while (count >= GROUP || (flush && count > 0)) {
+      const int n = min(count, GROUP);
+      consume(head, n);
+      head = (head + n) & (QCAP - 1);
+      count -= n;
+    }
+    if (flush) break;
+  }
+}
+
+// Weights into shared memory: wgs [KMAX][P] (rows >= K zero, bf16-rounded
+// in BF16 mode) and b2s [P]. Whole block.
 template <int P, bool BF16>
-__device__ __forceinline__ float pair_h1(float a_p, const float* bj,
-                                         const float* wgs,
-                                         const float (&g)[KMAX], int p) {
-  float h = bj[p];
+__device__ __forceinline__ void stage_small_weights(
+    const float* __restrict__ wg, const float* __restrict__ b2, int K,
+    float* wgs, float* b2s, int tid) {
+  for (int x = tid; x < KMAX * P; x += NTHREADS) {
+    const float v = x < K * P ? wg[x] : 0.f;
+    wgs[x] = BF16 ? round_bf16(v) : v;
+  }
+  for (int x = tid; x < P; x += NTHREADS) b2s[x] = b2[x];
+}
+
+// h1_p = relu(a'_p + b'_p + Wg_k[:, p] . g), rounded to bf16 in BF16 mode.
+// wgs is [KMAX][P] with zero rows beyond K; b_p is already rounded in BF16
+// mode.
+template <int P, bool BF16>
+__device__ __forceinline__ float h1_value(float a_p, float b_p,
+                                          const float* wgs,
+                                          const float (&g)[KMAX], int p) {
+  float h = b_p;
   h = fmaf(wgs[0 * P + p], g[0], h);
   h = fmaf(wgs[1 * P + p], g[1], h);
   h = fmaf(wgs[2 * P + p], g[2], h);
@@ -82,6 +202,51 @@ __device__ __forceinline__ float pair_h1(float a_p, const float* bj,
   h = fmaxf(a_p + h, 0.f);
   if (BF16) h = round_bf16(h);
   return h;
+}
+
+// FC1 of a group of up to 16 queued pairs (ring slots head ..), straight
+// into the A fragments of fc2_mma. Slots beyond nvalid compute on
+// detection 0 and are ignored by the caller. ij2 receives the packed
+// (row, column) of the lane's two slots, gid and gid + 8.
+template <int P>
+__device__ __forceinline__ void group_h1_frags(
+    const float* __restrict__ a_img, const float* __restrict__ b_img,
+    const float* wgs, const int* q_ij, const float* q_g, int head, int nvalid,
+    int lane, uint32_t (&afr)[Frag<P>::KB][4], int (&ij2)[2]) {
+  using F = Frag<P>;
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int slot = gid + 8 * h;
+    const int qi = (head + slot) & (QCAP - 1);
+    const int ij = slot < nvalid ? q_ij[qi] : 0;
+    ij2[h] = ij;
+    float g[KMAX];
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) g[k] = q_g[k * QCAP + qi];
+#ifdef GNET_ABLATE_LOADS  // a timing switch of pairwise2_fwd.cu
+    const float* ar = a_img + (size_t)(ij >> 30) * P;
+    const float* br = b_img + (size_t)(ij >> 30) * P;
+#else
+    const float* ar = a_img + (size_t)(ij >> 16) * P;
+    const float* br = b_img + (size_t)(ij & 0xffff) * P;
+#endif
+#pragma unroll
+    for (int kb = 0; kb < F::KB; ++kb) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int p = kb * 16 + tig * 2 + 8 * c;
+        float lo = 0.f, hi = 0.f;
+        if (p < P) {  // compile-time after unrolling, but for tig
+          const float2 av = __ldg(reinterpret_cast<const float2*>(ar + p));
+          const float2 bv = __ldg(reinterpret_cast<const float2*>(br + p));
+          lo = h1_value<P, true>(av.x, round_bf16(bv.x), wgs, g, p);
+          hi = h1_value<P, true>(av.y, round_bf16(bv.y), wgs, g, p + 1);
+        }
+        afr[kb][h + 2 * c] = pack_bf16(lo, hi);
+      }
+    }
+  }
 }
 
 // pre2 += h1_p * W2[p, :] (w2s is [P][P], (in, out), 16-byte aligned).
@@ -99,25 +264,43 @@ __device__ __forceinline__ void fc2_accumulate(float h, const float* w2s,
   }
 }
 
-// pre2 = W2^T h1 + b2 for one pair, h1 computed on the fly (K1's order:
-// p ascending, each h1_p consumed as soon as it is made). `as_col` points
-// at a'[p = 0] of this lane's row in the [P][TILE_I + 1] tile; h1_out, when
-// given, receives every h1_p (K2 needs them).
-template <int P, bool BF16, bool KEEP_H1>
-__device__ __forceinline__ void pair_pre2(const float* as_col,
-                                          const float* bj, const float* wgs,
-                                          const float* w2s, const float* b2s,
+// f32 mode: pre2 = W2^T h1 + b2 for this lane's pair on CUDA cores, h1
+// computed on the fly: p ascending, each h1_p consumed as soon as it is
+// made. ar / br point at a'_i and b'_j in device memory (16-byte aligned
+// rows).
+template <int P>
+__device__ __forceinline__ void pair_pre2(const float* __restrict__ ar,
+                                          const float* __restrict__ br,
+                                          const float* wgs, const float* w2s,
+                                          const float* b2s,
                                           const float (&g)[KMAX],
-                                          float (&pre)[P], float (&h1)[P]) {
+                                          float (&pre)[P]) {
 #pragma unroll
   for (int q = 0; q < P; ++q) pre[q] = b2s[q];
 #pragma unroll
-  for (int p = 0; p < P; ++p) {
-    const float h =
-        pair_h1<P, BF16>(as_col[p * (TILE_I + 1)], bj, wgs, g, p);
-    if (KEEP_H1) h1[p] = h;
-    fc2_accumulate<P>(h, w2s, p, pre);
+  for (int p4 = 0; p4 < P / 4; ++p4) {
+    const float4 av = __ldg(reinterpret_cast<const float4*>(ar) + p4);
+    const float4 bv = __ldg(reinterpret_cast<const float4*>(br) + p4);
+    const float a4[4] = {av.x, av.y, av.z, av.w};
+    const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = 4 * p4 + e;
+      const float h = h1_value<P, false>(a4[e], b4[e], wgs, g, p);
+      fc2_accumulate<P>(h, w2s, p, pre);
+    }
   }
+}
+
+// This lane's queued pair (ring slot head + lane) for the CUDA-core path:
+// its packed (row, column), 0 beyond nvalid, and its features.
+__device__ __forceinline__ int lane_pair(const int* q_ij, const float* q_g,
+                                         int head, int nvalid, int lane,
+                                         float (&g)[KMAX]) {
+  const int qi = (head + lane) & (QCAP - 1);
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) g[k] = q_g[k * QCAP + qi];
+  return lane < nvalid ? q_ij[qi] : 0;
 }
 
 }  // namespace gnet

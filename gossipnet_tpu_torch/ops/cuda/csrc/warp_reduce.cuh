@@ -1,5 +1,5 @@
-// Deterministic warp reductions shared by the pair-pool backward kernels,
-// K2 (pairwise2_bwd.cu) and K6 (pairwise_bwd.cu).
+// Deterministic warp reductions of the unfolded pair-pool backward, K6
+// (pairwise_bwd.cu).
 
 #pragma once
 

@@ -9,23 +9,32 @@ over the neighbour set E(i) = {j : IoU(i, j) >= neighbor_iou, both valid}.
 As on the TPU, five of the eight pair features are additively separable,
 so their Wg rows fold into a and b before the kernel
 (:func:`fold_separable`, O(N) torch matmuls). The kernel then computes
-three features per pair (four with the class match), streams its row over
-the columns with a running max, and skips whole tiles whose row and column
-bounding boxes do not meet (:func:`tile_activity`; exact for
-neighbor_iou > 0). Nothing of the TPU's layout (sublane packing, kron
-weights, quadrant splits) carries over.
+three features per pair (four with the class match) and skips whole tiles
+whose row and column bounding boxes do not meet (:func:`tile_activity`;
+exact for neighbor_iou > 0). It tests every pair of an active tile, one
+per lane, queues the neighbours, and runs the two products on full groups
+of queued pairs, FC2 on the tensor cores in bf16 mode; the running max is
+an order-free integer merge, so several blocks share a row tile
+(``csrc/pairwise2_fwd.cu``, ``csrc/pair_group.cuh``). Nothing of the
+TPU's layout (sublane packing, kron weights, quadrant splits) carries
+over.
 
 K2 is its backward (``csrc/pairwise2_bwd.cu``): it recomputes every
-neighbour pair from the saved output m and routes dm to the max winners,
-each exact tie getting the full gradient as the TPU kernel's VJP does.
-:class:`PairPool2` joins the two as one ``torch.autograd.Function``.
+neighbour pair from the saved output m through the same queue and product
+and routes dm to the max winners, each exact tie getting the full
+gradient as the TPU kernel's VJP does; a pass over the rows sums d_a' and
+the weight gradients, a pass over the columns d_b', each in a fixed
+order. :class:`PairPool2` joins the two as one
+``torch.autograd.Function``.
 
 :func:`pair_pool` routes by device: CPU tensors run the plain forward and
 the plain backward (:func:`_reference_core`,
 :func:`pair_pool_backward_reference`) through the same Function, CUDA
 tensors launch K1 and K2 or raise. The plain versions repeat the kernels'
-arithmetic, their fused multiply-adds included (:func:`_fma`), so they
-find the same winners.
+CUDA-core arithmetic, their fused multiply-adds included (:func:`_fma`):
+in float32 they equal the kernels bit for bit and find the same winners;
+in bfloat16 the kernels' FC2 sums in the tensor cores' order, so m agrees
+to the stated tolerance and each side finds the winners of its own m.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from gossipnet_tpu_torch.ops.cuda.launch import (
     backward_launch,
     check_dtype,
     check_inputs,
+    check_packable,
     forward_launch,
 )
 
@@ -194,8 +204,9 @@ def _pair_chunks(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
     (rows, nb [B, rc, NC], g [B, rc, NC, K], h1 [B, rc, NC, P],
     pre2 [B, rc, NC, P]). FC1 and FC2 run as the kernels' fmaf chains in
     their order (csrc/pairwise2_pair.cuh), rounding in bf16 mode where they
-    round, so pre2 equals the kernels' bit for bit and the backward finds
-    K1's winners."""
+    round, so in float32 pre2 equals the kernels' bit for bit and the
+    backward finds K1's winners (bf16: the kernels' FC2 runs on the tensor
+    cores, equal to tolerance)."""
     rnd = _rounder(compute_dtype)
     row, col = geom.row, geom.col
     bsz, _, nr = row.shape
@@ -313,9 +324,10 @@ def launch_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
     """
     check_inputs("K1", geom, a2, b2, wg_k, w2, b2bias, compute_dtype,
                   _LAYOUTS)
+    check_packable("K1", geom)
     out = forward_launch("pairwise2_fwd", "K1", "gnet_pair_pool2_fwd",
                           "gnet_pair_pool2_tiles", geom, a2, b2, wg_k, w2,
-                          b2bias, compute_dtype)
+                          b2bias, compute_dtype, split=True)
     pair_pool.launches += 1
     return out
 
@@ -327,9 +339,11 @@ def launch_backward_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor,
     float32, as :func:`pair_pool_backward_reference` returns them."""
     check_inputs("K2", geom, a2, b2, wg_k, w2, b2bias, compute_dtype,
                   _LAYOUTS, m=m, dm=dm)
+    check_packable("K2", geom)
     grads = backward_launch("pairwise2_bwd", "K2", "gnet_pair_pool2_bwd",
                              "gnet_pair_pool2_bwd_tiles", geom, a2, b2, wg_k,
-                             w2, b2bias, m, dm, compute_dtype)
+                             w2, b2bias, m, dm, compute_dtype,
+                             split=True)
     pair_pool_backward.launches += 1
     return grads
 

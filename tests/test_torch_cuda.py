@@ -421,3 +421,126 @@ def test_k7_refuses_what_it_is_not_built_for_on_card():
         k7.pair_ablate(*args, "full", 48)
     with pytest.raises(ValueError, match="mode must be one of"):
         k7.pair_ablate(*args, "nofc1")
+
+
+# ---------------------------------------------------------------------------
+# the redesigned K1 / K2: queue, grouped FC2, winner queue, two passes
+# ---------------------------------------------------------------------------
+
+REDESIGN_CASES = {
+    "square": dict(b=2, n=301),
+    "ragged_rect": dict(b=2, n=203, rows=slice(7, 130)),
+    "all_padding": dict(b=2, n=128, all_invalid=1),
+    "dense_tiles": dict(b=1, n=300, block_sparse=False),
+}
+
+
+def _redesign_args(rng, dev, p, k, b, n, rows=slice(None), all_invalid=None,
+                   block_sparse=True, perm=None):
+    """K1/K2 launch arguments on random weights with K = 3 or 4 in-kernel
+    features, rows a slice of the columns, optionally with the columns (and
+    b') permuted, and a cotangent."""
+    boxes, scores, valid, classes = _clustered(rng, b, n, num_classes=4)
+    if all_invalid is not None:
+        valid[all_invalid] = False
+    cs = pf.stack_columns(pf.det_columns(
+        torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev),
+        torch.from_numpy(valid).to(dev)))
+    cls = torch.from_numpy(classes).to(dev) if k == 4 else None
+
+    def t(*shape, scale=0.5):
+        return torch.from_numpy(
+            rng.normal(0, scale, shape).astype(np.float32)).to(dev)
+
+    nr = cs[:, :, rows].shape[2]
+    a2, b2 = t(b, nr, p, scale=1.0), t(b, n, p, scale=1.0)
+    weights = (t(k, p), t(p, p), t(p))
+    dm = t(b, nr, p, scale=1.0)
+    col, col_cls = cs, cls
+    if perm is not None:
+        col, b2 = cs[:, :, perm].contiguous(), b2[:, perm].contiguous()
+        col_cls = None if cls is None else cls[:, perm].contiguous()
+    geom = k1.pair_geometry(
+        cs[:, :, rows].contiguous(), col, THR,
+        None if cls is None else cls[:, rows].contiguous(), col_cls,
+        block_sparse)
+    return (geom, a2, b2, *weights), dm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [3, 4])
+@pytest.mark.parametrize("p", [8, 16, 32, 64])
+@pytest.mark.parametrize("name", sorted(REDESIGN_CASES))
+def test_redesigned_k1_k2_on_card(name, p, k, dtype):
+    """K1 and K2 against their plain versions (f32: m and the winners bit
+    for bit), every maximum finds a winner, and two launches of each give
+    the same bits, over pairwise_dim 8-64, both feature counts, a ragged
+    rectangle, an all-padding image and block-sparse off."""
+    dev = _card()
+    case = REDESIGN_CASES[name]
+    args, dm = _redesign_args(np.random.default_rng(p + k), dev, p, k, **case)
+    m = k1.launch_kernel(*args, dtype)
+    m_plain = k1._reference_core(*args, dtype)
+    got = k1.launch_backward_kernel(*args, m, dm, dtype)
+    want = k1.pair_pool_backward_reference(*args, m_plain, dm, dtype)
+    ones = k1.launch_backward_kernel(*args, m, torch.ones_like(dm), dtype)
+    again = (k1.launch_kernel(*args, dtype),
+             *k1.launch_backward_kernel(*args, m, dm, dtype))
+    torch.cuda.synchronize()
+    x, y = m.cpu().numpy(), m_plain.cpu().numpy()
+    if "all_invalid" in case:
+        assert (x[case["all_invalid"]] == 0).all()
+    if dtype == "float32":
+        assert torch.equal(m, m_plain)
+    else:
+        np.testing.assert_allclose(x, y, rtol=2e-2, atol=2e-2)
+        assert np.mean(np.abs(x - y) > 1e-4) < 0.01
+    _assert_grads(got, want, dtype)
+    # dm = 1: db2[q] counts the winners of q, one per maximum or more
+    assert bool((ones[4] >= (m > 0).sum(dim=(0, 1)).float()).all())
+    if dtype == "float32":
+        plain_ones = k1.pair_pool_backward_reference(
+            *args, m_plain, torch.ones_like(dm), dtype)
+        assert torch.equal(ones[4], plain_ones[4])
+    assert all(torch.equal(u, v) for u, v in zip((m, *got), again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [3, 4])
+@pytest.mark.parametrize("p", [8, 16, 32, 64])
+def test_column_permutation_probe_on_card(p, k, dtype):
+    """The same problem with its columns (and b') permuted: m bit-equal (a
+    pair's pre2 depends on nothing but the pair; the max is order-free),
+    d_b' the permutation of the other bit for bit (a column adds its rows
+    in an order the row indices fix), d_a' and the weight gradients within
+    the tolerances of the plain comparison."""
+    dev = _card()
+    n = 260
+    perm = torch.from_numpy(np.random.default_rng(1).permutation(n)).to(dev)
+    args, dm = _redesign_args(np.random.default_rng(p * k), dev, p, k, 2, n)
+    args_p, _ = _redesign_args(np.random.default_rng(p * k), dev, p, k, 2, n,
+                               perm=perm)
+    m, m_p = k1.launch_kernel(*args, dtype), k1.launch_kernel(*args_p, dtype)
+    got = k1.launch_backward_kernel(*args, m, dm, dtype)
+    got_p = k1.launch_backward_kernel(*args_p, m_p, dm, dtype)
+    torch.cuda.synchronize()
+    assert (m > 0).any()
+    assert torch.equal(m, m_p)
+    assert torch.equal(got_p[1], got[1][:, perm])
+    _assert_grads(got_p, (got[0], got[1][:, perm], *got[2:]), dtype)
+
+
+@pytest.mark.cuda
+def test_k1_k2_refuse_more_detections_than_an_entry_packs_on_card():
+    from gossipnet_tpu_torch.ops.cuda.launch import MAX_DETS
+
+    dev = _card()
+    n = MAX_DETS + 1
+    cs = torch.zeros(1, pf.NUM_COLUMNS, n, device=dev)
+    geom = k1.pair_geometry(cs, cs[:, :, :8].contiguous(), THR)
+    z = lambda *s: torch.zeros(*s, device=dev)
+    with pytest.raises(ValueError, match="at most"):
+        k1.launch_kernel(geom, z(1, n, 8), z(1, 8, 8), z(3, 8), z(8, 8), z(8),
+                         "float32")

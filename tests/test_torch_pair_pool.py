@@ -385,3 +385,122 @@ def test_backward_wrapper_never_falls_back_off_cpu(rng):
     with pytest.raises(RuntimeError, match="K2 kernel needs CUDA"):
         k1.launch_backward_kernel(geom, *t, m, m, "float32")
     assert k1.pair_pool_backward.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the launch plumbing of the redesigned K1 / K2
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("blocks, nj, sms, want", [
+    (256, 16, 132, 5),     # B=8 N=1024: 1280 blocks for 132 SMs
+    (64, 4, 132, 17),      # B=8 N=256: the small evaluation batch still fills
+    (256, 64, 132, 5),     # B=2 N=4096
+    (4096, 16, 132, 1),    # more tiles than the card needs: no split
+    (1, 1, 132, 8),        # one tile of the other side is eight steps
+    (0, 0, 132, 1),        # an empty launch
+])
+def test_col_splits_fill_the_card(blocks, nj, sms, want):
+    from gossipnet_tpu_torch.ops.cuda.launch import col_splits
+
+    got = col_splits(blocks, nj, sms)
+    assert got == want
+    assert 1 <= got <= max(8 * nj, 1)
+    # about eight blocks per multiprocessor, never a split without a step
+    if got > 1:
+        assert blocks * (got - 1) < 8 * sms
+
+
+def test_pair_entries_refuse_more_detections_than_they_pack(rng):
+    from gossipnet_tpu_torch.ops.cuda.launch import MAX_DETS, check_packable
+
+    ok = _fake_geom(MAX_DETS, 17)
+    check_packable("K1", ok)
+    with pytest.raises(ValueError, match="at most"):
+        check_packable("K1", _fake_geom(MAX_DETS + 1, 17))
+    with pytest.raises(ValueError, match="at most"):
+        check_packable("K2", _fake_geom(8, MAX_DETS + 1))
+
+
+def _fake_geom(nr, nc):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(row=torch.empty(1, 8, nr, device="meta"),
+                           col=torch.empty(1, 8, nc, device="meta"))
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+def test_backward_launch_scratch_and_sums(rng, monkeypatch, splits):
+    """What the wrapper hands K2 and what it makes of its outputs, with the
+    launch replaced: d_a and d_b come back as the kernel wrote them (the
+    kernel adds its slices itself), the scratch has one slice per split
+    and none for one split, and the weight partials, one per block and
+    split, are summed. No [B, NI, NC, P] tensor is made."""
+    from gossipnet_tpu_torch.ops.cuda import launch
+
+    b, nr, nc, p, k = 2, 70, 100, 16, 3
+    geom = _fake_geom(nr, nc)
+    ni, nj = -(-nr // launch.TILE_I), -(-nc // launch.TILE_J)
+    geom.flags = torch.ones(b, ni, nj, dtype=torch.int32)
+    geom.neighbor_iou = THR
+    seen = {}
+
+    def fake_launch(name, label, entry, tiles, geom_, tensors, p_, k_, dtype,
+                    extra=()):
+        seen["shapes"] = [tuple(t.shape) for t in tensors]
+        seen["extra"] = extra
+        da, db = tensors[10], tensors[11]
+        da.fill_(1.0)
+        db.fill_(2.0)
+        for t in tensors[-3:]:
+            t.fill_(0.5)
+
+    monkeypatch.setattr(launch, "_launch", fake_launch)
+    monkeypatch.setattr(launch, "_splits", lambda geom_, device: splits)
+    t = lambda *s: torch.zeros(*s)
+    da, db, dwg, dw2, db2 = launch.backward_launch(
+        "pairwise2_bwd", "K2", "e", "t", geom, t(b, nr, p), t(b, nc, p),
+        t(k, p), t(p, p), t(p), t(b, nr, p), t(b, nr, p), "float32",
+        split=True)
+    assert seen["extra"] == (splits,)
+    shapes = seen["shapes"]
+    assert shapes[10] == (b, nr, p) and shapes[11] == (b, nc, p)
+    s0 = splits if splits > 1 else 0
+    assert shapes[12] == (s0, b, nr, p) and shapes[13] == (s0, b, nc, p)
+    assert shapes[14:] == [(splits * b * ni, k, p), (splits * b * ni, p, p),
+                           (splits * b * ni, p)]
+    assert (b, ni, nc, p) not in shapes
+    assert da.shape == (b, nr, p) and bool((da == 1.0).all())
+    assert db.shape == (b, nc, p) and bool((db == 2.0).all())
+    blocks = splits * b * ni
+    for g, shape in ((dwg, (k, p)), (dw2, (p, p)), (db2, (p,))):
+        assert g.shape == shape and bool((g == 0.5 * blocks).all())
+
+
+def test_k6_launch_keeps_its_row_tile_partial(rng, monkeypatch):
+    """K5/K6 share the launch helper: without ``split`` it still hands the
+    kernel a zero-filled [B, NI, NC, P] partial of d_b, no extra int and
+    no scratch, and sums the partial over the row tiles."""
+    from gossipnet_tpu_torch.ops.cuda import launch
+
+    b, nr, nc, p, k = 1, 40, 70, 8, 9
+    geom = _fake_geom(nr, nc)
+    ni = -(-nr // launch.TILE_I)
+    geom.flags = torch.ones(b, ni, -(-nc // launch.TILE_J), dtype=torch.int32)
+    seen = {}
+
+    def fake_launch(name, label, entry, tiles, geom_, tensors, p_, k_, dtype,
+                    extra=()):
+        seen["n"], seen["extra"] = len(tensors), extra
+        assert bool((tensors[11] == 0).all())
+        tensors[11].fill_(1.0)
+        for t in (tensors[10], *tensors[-3:]):
+            t.fill_(0.0)
+
+    monkeypatch.setattr(launch, "_launch", fake_launch)
+    t = lambda *s: torch.zeros(*s)
+    _, db, *_ = launch.backward_launch(
+        "pairwise_bwd", "K6", "e", "t", geom, t(b, nr, p), t(b, nc, p),
+        t(k, p), t(p, p), t(p), t(b, nr, p), t(b, nr, p), "float32")
+    assert seen == {"n": 15, "extra": ()}
+    assert db.shape == (b, nc, p) and bool((db == float(ni)).all())
