@@ -46,7 +46,9 @@ Phases (each raises on failure; the script then exits non-zero):
    B=8 N=256): against their plain versions in bf16 and f32, the fill of
    stage B's groups and the length of the winner queue beside the old lane
    use, ms/launch of both in bf16 and f32 beside their bounds
-   (``python3 chip_smoke.py --pair-times`` runs only these timings;
+   (``python3 chip_smoke.py --pair-times`` runs only these timings, and
+   K5's and K6's at the serving bench batch and config 4 through
+   ``pair_kernel: 1``;
    ``python3 chip_smoke.py --k1-stages`` rebuilds K1 with one stage taken
    out at a time and times what is left);
 3d. (run after phase 3c) K5, the unfolded pair kernel of
@@ -55,7 +57,9 @@ Phases (each raises on failure; the script then exits non-zero):
    padded tail and an all-padding image, block-sparse on and off,
    pairwise_dim 16, 32 and 64, and the mask probe;
 3e. K6, its backward (pairwise_bwd.cu), against the plain backward on the
-   same cases, with the winner count, the tie probe and two launches
+   same cases (in bf16 with dm zero at the near-tied maxima, as for K2),
+   with the winner count, the tie probe, the column-permutation probe (m
+   bit-equal, d_b the permutation bit for bit) and two launches
    bit-identical;
 10. config 4 (crowded_4096.yaml, N=4096, batch 2) with pair_kernel 1: the
    Rescorer serves a B=2 N=4096 batch with 16 K5 launches, padding inert;
@@ -64,9 +68,10 @@ Phases (each raises on failure; the script then exits non-zero):
    16 K6 + 1 K3 launches each and a falling loss; f32 gradients of the
    K5/K6 path against the K1/K2 path, leaf by leaf; K5 and K6 on the
    launch arguments of the model (config 4's B=2 N=4096 and the serving
-   bench batch) against their plain versions, in bf16 and f32; K5/K6
-   ms/launch beside K1/K2's on the same batch, the forward and the step,
-   with CUDA events and the host clock;
+   bench batch) against their plain versions, in bf16 and f32, with the
+   fill of stage B's groups and the length of K6's winner queue; K5/K6
+   ms/launch (CUDA events and the profiler) beside K1/K2's on the same
+   batch, the forward and the step, with CUDA events and the host clock;
 11. config 3 (coco_multiclass.yaml, 80 classes) on 80-class synthetic
    data: 5 training steps through K1/K2 with the class-match feature and 5
    through K5/K6 with nine features, launches counted; one served batch
@@ -158,6 +163,8 @@ LEAF_GRAD_REL = 1e-3
 WEIGHT_GRAD_REL = 1e-4   # sums over ~1e5 pairs in another order, of max|x|
 KERNELS = ("pairwise2_fwd", "pairwise2_bwd", "matching_scan",
            "pairwise_fwd", "pairwise_bwd", "pair_ablate")
+PAIR_KERNELS = ("pairwise2_fwd", "pairwise2_bwd", "pairwise_fwd",
+                "pairwise_bwd")
 COCO_THRESHOLDS = tuple(np.round(np.arange(0.5, 0.951, 0.05), 2).tolist())
 # The reference's step probe (scripts/probe.py:70): buckets to B=8 N=1024
 # G=112 at config 2's batch size.
@@ -555,17 +562,18 @@ def compare_k2(name, dtype, cols, kern=k1, **kw):
 NEAR_TIE_REL = 1e-5
 
 
-def near_ties(args, dtype) -> torch.Tensor:
+def near_ties(args, dtype, kern=k1) -> torch.Tensor:
     """[B, NR, P] bool: the maxima whose best two candidates lie within
-    NEAR_TIE_REL of each other (relative), in the plain version. K1's bf16
-    FC2 sums on the tensor cores, in another order than the plain version's
-    fmaf chain, so the two agree on m to ~1e-7 relative and no closer: where
-    two candidates are nearer than that, each side may crown another
-    column, and the whole dm of that (row, q) moves between two columns.
-    That is a property of the max at such inputs, not an error of either
-    side (measured: one such flip among config 2's 203,115 maxima)."""
+    NEAR_TIE_REL of each other (relative), in the plain version. K1's and
+    K5's bf16 FC2 sums on the tensor cores, in another order than the plain
+    version's fmaf chain, so the two agree on m to ~1e-7 relative and no
+    closer: where two candidates are nearer than that, each side may crown
+    another column, and the whole dm of that (row, q) moves between two
+    columns. That is a property of the max at such inputs, not an error of
+    either side (measured: one such flip among config 2's 203,115
+    maxima)."""
     ties = []
-    for _, nb, _, _, pre2 in k1._pair_chunks(*args, dtype):
+    for _, nb, _, _, pre2 in kern._pair_chunks(*args, dtype):
         v = torch.where(nb[..., None], pre2, torch.full_like(pre2, -1e30))
         if v.shape[2] < 2:
             ties.append(torch.zeros_like(v[:, :, 0], dtype=torch.bool))
@@ -579,11 +587,12 @@ def near_ties(args, dtype) -> torch.Tensor:
 def check_backward(name, dtype, args, dm, kern=k1):
     """The backward kernel on the forward kernel's m against the plain
     backward on the plain forward's m, on the launch arguments ``args``.
-    K2 in bf16: with dm zero at the near ties (:func:`near_ties`), where
-    the two sides may rightly differ; the tolerances stay as they are."""
+    In bf16 (K2 and K6): with dm zero at the near ties (:func:`near_ties`),
+    where the two sides may rightly differ; the tolerances stay as they
+    are."""
     masked = ""
-    if kern is k1 and dtype == "bfloat16":
-        tie = near_ties(args, dtype)
+    if dtype == "bfloat16":
+        tie = near_ties(args, dtype, kern)
         dm = torch.where(tie, torch.zeros_like(dm), dm)
         masked = f" ({int(tie.sum().item())} near-tied maxima left out)"
     m_k = kern.launch_kernel(*args, dtype)
@@ -657,28 +666,32 @@ def k2_tie_probe(cols, dtype, kern=k1, classes=None):
     return max(max(errs.values()), max(errs_p.values()))
 
 
-def permutation_probe(cols, dtype, backward=True, seed=7):
-    """The same problem with its columns (and b') permuted. K1's max is an
-    order-free merge and a pair's pre2 depends on nothing but the pair, so m
-    must be bit-equal. K2's d_b'_j adds its rows in an order the row indices
-    fix, so d_b' must be the permutation of the other bit for bit; d_a'
-    and the weight gradients add the columns in another order and are held
-    to the tolerances of the plain comparison."""
-    args, dm = pair_args(cols)
+def permutation_probe(cols, dtype, backward=True, seed=7, kern=k1):
+    """The same problem with its columns (and b') permuted. K1's (K5's)
+    max is an order-free merge and a pair's pre2 depends on nothing but the
+    pair, so m must be bit-equal. K2's (K6's) d_b'_j adds its rows in an
+    order the row indices fix, so d_b' must be the permutation of the other
+    bit for bit; d_a' and the weight gradients add the columns in another
+    order and are held to the tolerances of the plain comparison. For K6
+    the probe also catches a column pass that hands the features its own
+    column as the row: they are not symmetric."""
+    args, dm = pair_args(cols, kern=kern)
     geom, a2, b2, wg_k, w2, b2bias = args
     nc = cols.shape[2]
     perm = torch.randperm(nc, generator=torch.Generator().manual_seed(seed)
                           ).to(cols.device)
-    geom_p = k1.pair_geometry(cols, cols[:, :, perm].contiguous(), 0.2)
+    build_cols = k5.pair_columns if kern is k5 else k1.pair_geometry
+    geom_p = build_cols(cols, cols[:, :, perm].contiguous(), 0.2)
     args_p = (geom_p, a2, b2[:, perm].contiguous(), wg_k, w2, b2bias)
-    m, m_p = k1.launch_kernel(*args, dtype), k1.launch_kernel(*args_p, dtype)
+    m = kern.launch_kernel(*args, dtype)
+    m_p = kern.launch_kernel(*args_p, dtype)
     torch.cuda.synchronize()
     same_m = torch.equal(m, m_p)
     text = f"m bit-equal {same_m}"
     ok, worst = same_m, 0.0
     if backward:
-        got = k1.launch_backward_kernel(*args, m, dm, dtype)
-        got_p = k1.launch_backward_kernel(*args_p, m_p, dm, dtype)
+        got = kern.launch_backward_kernel(*args, m, dm, dtype)
+        got_p = kern.launch_backward_kernel(*args_p, m_p, dm, dtype)
         torch.cuda.synchronize()
         same_db = torch.equal(got_p[1], got[1][:, perm])
         want = (got[0], got[1][:, perm], *got[2:])
@@ -687,11 +700,12 @@ def permutation_probe(cols, dtype, backward=True, seed=7):
         ok = ok and same_db and close
         text += (f"; d_b' the permutation of the other bit for bit "
                  f"{same_db}; d_a' and weight gradients max {worst:.2e}")
-    log(f"  {'K2' if backward else 'K1'} column-permutation probe "
-        f"{dtype:<8} NC={nc}: {text} -> {'ok' if ok else 'FAIL'}")
+    label = LABELS[kern][1 if backward else 0]
+    log(f"  {label} column-permutation probe {dtype:<8} NC={nc}: {text} -> "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"column-permutation probe fails in {dtype}: "
-                             f"{text}")
+        raise AssertionError(f"{label} column-permutation probe fails in "
+                             f"{dtype}: {text}")
     return worst
 
 
@@ -1047,15 +1061,22 @@ def log_kernels(by_name: dict, busy_ms: float, per: str):
         log(f"    {ms / busy_ms:6.3f}  {ms:8.4f} ms/{per}  {key[:70]}")
 
 
+def k1_geometry(geom):
+    """K1's geometry, or K5's columns read through a K1 geometry of the
+    same detections with K5's own flags (the counters below read K1's
+    fields)."""
+    if isinstance(geom, k5.PairColumns):
+        n = pf.NUM_COLUMNS
+        return k1.pair_geometry(geom.row[:, :n], geom.col[:, :n],
+                                geom.neighbor_iou)._replace(flags=geom.flags)
+    return geom
+
+
 def pair_counts(geom) -> tuple[int, int]:
     """(neighbour pairs, IoU tests) of one pair stage on this run's data:
     the valid pairs with IoU >= the threshold, and the valid pairs of the
-    active tiles. ``geom`` is K1's geometry, or K5's columns (read through
-    a K1 geometry of the same detections and K5's own flags)."""
-    if isinstance(geom, k5.PairColumns):
-        n = pf.NUM_COLUMNS
-        geom = k1.pair_geometry(geom.row[:, :n], geom.col[:, :n],
-                                geom.neighbor_iou)._replace(flags=geom.flags)
+    active tiles. ``geom`` is K1's geometry or K5's columns."""
+    geom = k1_geometry(geom)
     rv, cv = geom.row[:, 7] > 0, geom.col[:, 7] > 0
     pair_valid = rv[:, :, None] & cv[:, None, :]
     nb = neighbour_mask(geom).sum().item()
@@ -1066,16 +1087,13 @@ def pair_counts(geom) -> tuple[int, int]:
 
 
 def lane_use(geom) -> tuple[int, int]:
-    """(neighbour pairs, warp steps) of K5's or K1's inner loop on this
-    run's data: a warp holds 32 consecutive rows and runs the products for
-    a column when any of them has it as neighbour, so the share of lanes
-    that do useful work there is pairs / (32 x steps). Counted from the
-    masks, not timed. ``geom`` as for :func:`pair_counts`."""
-    if isinstance(geom, k5.PairColumns):
-        n = pf.NUM_COLUMNS
-        geom = k1.pair_geometry(geom.row[:, :n], geom.col[:, :n],
-                                geom.neighbor_iou)
-    nb = neighbour_mask(geom)
+    """(neighbour pairs, warp steps) of a pair-kernel loop without the
+    neighbour queue (K7's layout): a warp holds 32 consecutive rows and
+    runs the products for a column when any of them has it as neighbour,
+    so the share of lanes that do useful work there is pairs / (32 x
+    steps). Counted from the masks, not timed; the yardstick of the group
+    fill. ``geom`` as for :func:`pair_counts`."""
+    nb = neighbour_mask(k1_geometry(geom))
     bsz, nr, nc = nb.shape
     pad = -nr % k1.TILE_I
     rows = torch.nn.functional.pad(nb, (0, 0, 0, pad))
@@ -1100,15 +1118,16 @@ def neighbour_mask(geom):
 
 
 def group_fill(geom, group: int, side: str = "rows", splits: int = 1):
-    """(neighbour pairs, group slots) of K1's and K2's stage B on this
-    run's data, counted from the masks as the kernels queue them: a block
-    owns 32 rows (``side="rows"``; K2's column pass owns 32 columns), warp
+    """(neighbour pairs, group slots) of stage B of K1 and K2 (or K5 and
+    K6: ``geom`` as for :func:`pair_counts`) on this run's data, counted
+    from the masks as the kernels queue them: a block owns 32 rows
+    (``side="rows"``; the backward's column pass owns 32 columns), warp
     w of its four takes 16 of each 64 detections of the other side in steps
     of two, the ``splits`` blocks that share the own detections take the
     steps round robin, and a warp pops groups of ``group`` pairs; only its
     last group can be short.
     pairs / slots is the share of stage B's lanes on a real pair."""
-    nb = neighbour_mask(geom)
+    nb = neighbour_mask(k1_geometry(geom))
     if side == "cols":
         nb = nb.transpose(1, 2)
     bsz, nown, noth = nb.shape
@@ -1124,13 +1143,41 @@ def group_fill(geom, group: int, side: str = "rows", splits: int = 1):
     return int(nb.sum().item()), int(slots)
 
 
-def winner_pairs(args, dtype) -> tuple[int, int]:
+def log_queues(label, args, m, dtype, kern=k1) -> None:
+    """The fill of stage B's groups (bf16: groups of 16, f32: 32) with the
+    kernels' splits, in the forward or the backward's row pass and in its
+    column pass, and unsplit; and the length of the backward's winner
+    queue. ``args``: the launch arguments, ``m`` the forward's output."""
+    from gossipnet_tpu_torch.ops.cuda.launch import col_splits
+
+    geom = args[0]
+    fwd, bwd = LABELS[kern]
+    splits = col_splits(
+        geom.flags.shape[0] * geom.flags.shape[1], geom.flags.shape[2],
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    for dt, group in (("bfloat16", 16), ("float32", 32)):
+        fills = [group_fill(geom, group, "rows", splits),
+                 group_fill(geom, group, "cols", splits),
+                 group_fill(geom, group, "rows")]
+        log(f"  group fill of stage B, {label}, {dt} (groups of {group}): "
+            f"{fills[0][0]} neighbour pairs; with {splits} splits, {fwd} and "
+            f"{bwd}'s row pass {fills[0][0] / max(fills[0][1], 1):.4f}, "
+            f"{bwd}'s column pass {fills[1][0] / max(fills[1][1], 1):.4f} of "
+            f"the group slots; unsplit {fills[2][0] / max(fills[2][1], 1):.4f}"
+            f" (counted from the masks)")
+    wp, wq = winner_pairs(args, dtype, kern)
+    log(f"  {bwd} winner queue, {label}, {dtype}: {wp} pairs win {wq} "
+        f"(pair, q) for {int((m > 0).sum().item())} (row, q) maxima > 0, of "
+        f"{fills[0][0]} neighbour pairs (plain version), per pass")
+
+
+def winner_pairs(args, dtype, kern=k1) -> tuple[int, int]:
     """(pairs that win at least one q, winning (pair, q)) of one pair
     stage, counted with the plain version on its own m: the length of K2's
-    winner queue over the whole launch."""
-    m = k1._reference_core(*args, dtype)
+    (K6's) winner queue over the whole launch, per pass."""
+    m = kern._reference_core(*args, dtype)
     pairs = wins = 0
-    for rows, nb, _, _, pre2 in k1._pair_chunks(*args, dtype):
+    for rows, nb, _, _, pre2 in kern._pair_chunks(*args, dtype):
         win = nb[..., None] & (pre2 == m[:, rows, None, :]) \
             & (m[:, rows, None, :] > 0)
         pairs += win.any(dim=-1).sum().item()
@@ -1317,7 +1364,9 @@ def phase_k6_cases() -> float:
                     compare_k2("p64_multiclass", dtype, cols_mc, classes=cls,
                                p=64, kern=k5),
                     k2_tie_probe(small, dtype, kern=k5),
-                    k2_tie_probe(cols_mc, dtype, kern=k5, classes=cls))
+                    k2_tie_probe(cols_mc, dtype, kern=k5, classes=cls),
+                    permutation_probe(cols_1024[:2].contiguous(), dtype,
+                                      kern=k5))
         k2_winners(cols_1024, dtype, kern=k5)
     args, dm = pair_args(cols_1024, kern=k5)
     for dtype in ("float32", "bfloat16"):
@@ -1439,8 +1488,8 @@ def phase_ablate() -> tuple[dict, int]:
         kernel_ablate.main(["full", tile_j])
     inputs = k7_inputs(small=False)
     args = [inputs[k] for k in K7_ARGS]
-    log_lane_use("what K5 would do on the probe's unsorted boxes (K7 itself "
-                 "runs every lane)",
+    log_lane_use("one row per lane without the queue, on the probe's "
+                 "unsorted boxes (K7 itself runs every lane)",
                  k1.pair_geometry(inputs["cols"], inputs["cols"], 0.2))
     out = {}
     for r in results:
@@ -1725,6 +1774,8 @@ def k5_k6_times(label, fwd_args, bwd_args) -> tuple[dict, dict]:
     args, m, dm = bwd_args[:6], bwd_args[6], bwd_args[7]
     k5_ms = cuda_time(lambda: k5.launch_kernel(*fwd_args), iters=20)
     k6_ms = cuda_time(lambda: k5.launch_backward_kernel(*bwd_args), iters=10)
+    k5_dev = device_ms(lambda: k5.launch_kernel(*fwd_args))
+    k6_dev = device_ms(lambda: k5.launch_backward_kernel(*bwd_args))
     k5_plain, m_first = cuda_once(lambda: k5._reference_core(*fwd_args))
     m_plain = k5._reference_core(*args, dtype)
     k6_plain, want = cuda_once(lambda: k5.pair_pool_backward_reference(
@@ -1745,13 +1796,15 @@ def k5_k6_times(label, fwd_args, bwd_args) -> tuple[dict, dict]:
     bwd_err = max(max(errs.values()),
                   check_backward(f"{label}, last block", "float32", args, dm,
                                  k5))
-    log_lane_use(f"K5 at {label} (Morton-sorted rows)", fwd_args[0])
+    log_queues(label, args, m, dtype, kern=k5)
     k5_b, k5_by, k5_how = k5_bound(fwd_args[:6], dtype)
     k6_b, k6_by, k6_how = k2_bound(args, m, dm, dtype, kern=k5)
-    log(f"  {label}: K5 {dtype} {k5_ms:.4f} ms/launch, plain {k5_plain:.3f}"
-        f" ms, bound {k5_b:.5f} ms ({k5_by}: {k5_how})")
-    log(f"  {label}: K6 {dtype} {k6_ms:.4f} ms/launch, plain {k6_plain:.3f}"
-        f" ms, bound {k6_b:.5f} ms ({k6_by}: {k6_how})")
+    log(f"  {label}: K5 {dtype} {k5_ms:.4f} ms/launch (events), "
+        f"{k5_dev:.4f} ms on the device (profiler; 0: not measured), plain "
+        f"{k5_plain:.3f} ms, bound {k5_b:.5f} ms ({k5_by}: {k5_how})")
+    log(f"  {label}: K6 {dtype} {k6_ms:.4f} ms/launch (events), "
+        f"{k6_dev:.4f} ms on the device (profiler; 0: not measured), plain "
+        f"{k6_plain:.3f} ms, bound {k6_b:.5f} ms ({k6_by}: {k6_how})")
     times = {"pair_pool_fwd": dict(ms=k5_ms, plain_ms=k5_plain,
                                    bound_ms=k5_b, bound_by=k5_by),
              "pair_pool_bwd": dict(ms=k6_ms, plain_ms=k6_plain,
@@ -2147,28 +2200,9 @@ def phase_pair_shapes(check: bool = True) -> tuple[dict, float, float]:
             for dt in (dtype, "float32"):
                 k2_err = max(k2_err, check_backward(f"{label}, last block",
                                                     dt, args, dm))
-            from gossipnet_tpu_torch.ops.cuda.launch import col_splits
-            splits = col_splits(
-                geom.flags.shape[0] * geom.flags.shape[1], geom.flags.shape[2],
-                torch.cuda.get_device_properties(0).multi_processor_count)
             log_lane_use(f"a warp of 32 rows against one column, {label}",
                          geom)
-            for dt, group in (("bfloat16", 16), ("float32", 32)):
-                fills = [group_fill(geom, group, "rows", splits),
-                         group_fill(geom, group, "cols", splits),
-                         group_fill(geom, group, "rows")]
-                log(f"  group fill of stage B, {label}, {dt} (groups of "
-                    f"{group}): {fills[0][0]} neighbour pairs; with "
-                    f"{splits} splits, K1 and K2's row pass "
-                    f"{fills[0][0] / max(fills[0][1], 1):.4f}, K2's column "
-                    f"pass {fills[1][0] / max(fills[1][1], 1):.4f} of the "
-                    f"group slots; unsplit "
-                    f"{fills[2][0] / max(fills[2][1], 1):.4f} (counted from "
-                    f"the masks)")
-            wp, wq = winner_pairs(args, dtype)
-            log(f"  winner queue, {label}, {dtype}: {wp} pairs win {wq} "
-                f"(pair, q) for {int((m > 0).sum().item())} (row, q) maxima "
-                f"> 0, of {fills[0][0]} neighbour pairs (plain version)")
+            log_queues(label, args, m, dtype)
         row = {}
         for dt in (dtype, "float32"):
             m_dt = k1.launch_kernel(*args, dt)
@@ -2197,6 +2231,63 @@ def phase_pair_shapes(check: bool = True) -> tuple[dict, float, float]:
         log(f"  {label} bounds, {dtype}: K1 {bound1[0]:.5f} ms ({bound1[1]}); "
             f"K2 {bound2[0]:.5f} ms ({bound2[1]}: {bound2[2]})")
     return times, k1_err, k2_err
+
+
+K5_SHAPES = ("bench B=8 N=1024", "config 4 B=2 N=4096")
+
+
+def k5_shape_args() -> dict:
+    """K5's and K6's launch arguments as the 16-block models give them
+    through ``pair_kernel: 1`` (first block's forward, last block's
+    backward; seeded weights; the models' dtype, bf16): the serving bench
+    batch and config 4's training batch. It calls nothing the package has
+    not had since K5/K6 exist, so a copy of this script beside an earlier
+    tree builds that tree's arguments."""
+    dev = torch.device(DEV)
+    bench = seeded_model(load_config(experiment_path("serving_bucketed"),
+                                     {"model": {"pair_kernel": 1}}))
+    cfg4 = crowd_config()
+    crowd = training.batch_to_device(next(BatchIterator(
+        synthetic_roidb(**CROWD_DATA), 2, cfg4.data.bucket_sizes)), dev)
+    return {K5_SHAPES[0]: capture_pair(k5, bench,
+                                       *sorted_bench_batch(8, 1024)),
+            K5_SHAPES[1]: capture_pair(k5, seeded_model(cfg4),
+                                       crowd["boxes"], crowd["scores"],
+                                       crowd["valid"])}
+
+
+def phase_k5_k6_shapes() -> None:
+    """K5 and K6 ms/launch on the models' launch arguments, in the models'
+    dtype and in f32: CUDA events around a chain of launches, and the
+    device time of one launch's kernels from the profiler, beside the
+    bounds. Only ``launch_kernel`` and ``launch_backward_kernel`` of the
+    package are called."""
+    log("K5 and K6 on the models' launch arguments at "
+        + "; ".join(K5_SHAPES))
+    for label, (fwd, bwd) in k5_shape_args().items():
+        dtype = fwd[-1]
+        args, m, dm = bwd[:6], bwd[6], bwd[7]
+        bsz, nr, p = args[1].shape
+        for dt in (dtype, "float32"):
+            m_dt = k5.launch_kernel(*args, dt)
+
+            def fwd_call():
+                return k5.launch_kernel(*fwd[:6], dt)
+
+            def bwd_call():
+                return k5.launch_backward_kernel(*args, m_dt, dm, dt)
+
+            e5, e6 = cuda_time(fwd_call, iters=20), cuda_time(bwd_call,
+                                                              iters=10)
+            d5, d6 = (f"{d:.4f} ms" if d else "not measured"
+                      for d in (device_ms(fwd_call), device_ms(bwd_call)))
+            log(f"  {label} (B={bsz} NR={nr} P={p}) {dt}: K5 {e5:.4f} "
+                f"ms/launch (events), {d5} on the device (profiler); K6 "
+                f"{e6:.4f} ms/launch (events), {d6} on the device")
+        b5 = k5_bound(fwd[:6], dtype)
+        b6 = k2_bound(args, m, dm, dtype, kern=k5)
+        log(f"  {label} bounds, {dtype}: K5 {b5[0]:.5f} ms ({b5[1]}); K6 "
+            f"{b6[0]:.5f} ms ({b6[1]}: {b6[2]})")
 
 
 # K1 with one stage taken out by a build switch (csrc/pairwise2_fwd.cu), or
@@ -2277,9 +2368,34 @@ def phase_build(names=KERNELS):
     log(f"  built in {time.perf_counter() - t0:.1f} s wall")
     for name in names:
         log(f"  {name}.cu: {build.build_seconds.get(name, 0.0):.1f} s")
+        entry, spills = "?", ""
         for line in build.build_logs.get(name, "").splitlines():
-            if "Used" in line or "spill" in line:
-                log("    ptxas:", line.strip())
+            if "Compiling entry function" in line:
+                entry, spills = kernel_instance(line), ""
+            elif "spill" in line:
+                spills = line.strip()
+            elif "Used" in line:
+                log(f"    ptxas: {entry}: {line.split(':', 1)[1].strip()}; "
+                    f"{spills}")
+
+
+def kernel_instance(line: str) -> str:
+    """``name<args>`` of the kernel a ptxas "Compiling entry function"
+    line names: its mangled name's ``<length><name>_kernel`` and the
+    template ints and bools after it."""
+    import re
+
+    for m in re.finditer(r"\d+", line):
+        digits = m.group()
+        for i in range(len(digits)):   # "_N_1" + "20pair_pool_fwd_kernel"
+            end = m.end() + int(digits[i:])
+            name = line[m.end():end]
+            if name.endswith("_kernel") and line[end:end + 1] == "I":
+                args = re.match(r"I((?:L[ib]\d+E)+)E", line[end:])
+                vals = re.findall(r"L[ib](\d+)E", args.group(1)) if args \
+                    else []
+                return f"{name}<{','.join(vals)}>"
+    return line.split("'")[1] if "'" in line else line.strip()
 
 
 def main() -> int:
@@ -2290,12 +2406,13 @@ def main() -> int:
     log(f"phase 1: card {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
     if sys.argv[1:] == ["--pair-times"]:
-        # K1 and K2 alone, timed at the four shapes: no check, no result
-        # line. It uses only what the package has had since K2 exists, so a
-        # copy of this script beside an earlier tree times that tree's
-        # kernels on the same card.
-        phase_build(KERNELS[:2])
+        # The pair kernels alone, timed: K1/K2 at the four shapes, K5/K6 at
+        # two; no check, no result line. It uses only what the package has
+        # had since K5/K6 exist, so a copy of this script beside an earlier
+        # tree times that tree's kernels on the same card.
+        phase_build(PAIR_KERNELS)
         phase_pair_shapes(check=False)
+        phase_k5_k6_shapes()
         log(card)
         return 0
     if sys.argv[1:] == ["--k1-stages"]:

@@ -16,6 +16,7 @@ or K5); there is no CPU fallback —
 
 from __future__ import annotations
 
+import threading
 from typing import Sequence
 
 import numpy as np
@@ -59,6 +60,9 @@ class Rescorer:
         if pool_impl is None:
             pool_impl = "kernel" if self.device.type == "cuda" else "dense"
         self.model = build_model(cfg, pool_impl, self.device).eval()
+        # held while a batch's forward is enqueued and while reload copies:
+        # a batch never runs on a mix of old and new weights
+        self._lock = threading.Lock()
         self.reload(params=params)
 
     # --- internals ---
@@ -72,7 +76,7 @@ class Rescorer:
 
         classes = (dev(classes_a) if self.cfg.model.num_classes > 1
                    else None)
-        with torch.inference_mode():
+        with self._lock, torch.inference_mode():
             logits = self.model(dev(boxes_a), dev(scores_a), dev(valid_a),
                                 classes)
             return torch.sigmoid(logits), scores_a.shape[0]
@@ -85,10 +89,14 @@ class Rescorer:
     def reload(self, params) -> None:
         """Swap serving weights in place (a ``state_dict`` or a JAX tree).
 
-        The copy is ordered on the device's stream after every batch
-        already dispatched, so those finish on the old weights and every
-        later dispatch uses the new ones. Loading a checkpoint directory
-        comes with the checkpoint slice (ROADMAP.md item 13).
+        Safe to call from an admin thread while other threads serve. The
+        copy takes the lock that ``_dispatch`` holds while it enqueues a
+        batch's forward, so it waits for a batch being enqueued and no
+        batch runs on a mix of old and new weights. It is ordered on the
+        device's stream after every batch already dispatched, so those
+        finish on the old weights, and every later dispatch uses the new
+        ones. Loading a checkpoint directory comes with the checkpoint
+        slice (ROADMAP.md item 13).
         """
         sd = as_state_dict(params)
         want = self.model.state_dict()
@@ -102,7 +110,7 @@ class Rescorer:
             raise ValueError(
                 f"new params do not match the serving model: missing "
                 f"{missing[:5]}, unexpected {extra[:5]}, shape {bad[:5]}")
-        with torch.no_grad():
+        with self._lock, torch.no_grad():
             self.model.load_state_dict(sd)
 
     def warmup(self, batch_size: int = 8) -> None:

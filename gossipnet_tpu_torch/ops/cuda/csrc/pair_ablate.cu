@@ -2,9 +2,10 @@
 // CUDA cores.
 //
 // Replaces the TPU kernel scripts/kernel_ablate.py::kernel (:19; launcher
-// pool:77, pl.pallas_call at :78), a measuring probe: the pair tile of K5
-// (pairwise_fwd.cu) with one stage switched off per mode, so that the
-// difference of two modes' times is what a stage costs.
+// pool:77, pl.pallas_call at :78), a measuring probe: the TPU's unfolded
+// pair tile (K5's function, every pair of the tile through every stage)
+// with one stage switched off per mode, so that the difference of two
+// modes' times is what a stage costs.
 //
 // Function, for every image b and row detection i (P = 32, G = 8, all dots
 // with bf16 operands and f32 accumulation, as the probe's BF = True):
@@ -35,7 +36,7 @@
 // the probe. So two modes differ in the switched-off stage's work and in
 // nothing else, whatever share of the pairs passes the mask.
 //
-// Layout: K5's. One block per (row tile of 32 rows, image); lane l of every
+// Layout: one block per (row tile of 32 rows, image); lane l of every
 // warp owns row row0 + l; the 4 warps split each staged column tile of TJ
 // columns (TJ = 32, 64 or 128, a template parameter: the probe's TJ is a
 // TPU block shape, this is the card's); running max[P] in registers. MODE

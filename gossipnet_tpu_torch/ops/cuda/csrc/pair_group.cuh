@@ -1,13 +1,16 @@
 // The neighbour-pair queue and the grouped FC2 product of the pair-pool
-// kernels: K1 (pairwise2_fwd.cu) and K2 (pairwise2_bwd.cu) today, written
-// so that K5/K6 can take them too (nothing here knows how h1 is made).
+// kernels: K1 (pairwise2_fwd.cu), K2 (pairwise2_bwd.cu), K5
+// (pairwise_fwd.cu) and K6 (pairwise_bwd.cu). Nothing here knows how h1 is
+// made; an entry holds as many features as its kernel keeps per pair (K1/K2
+// QFEAT = 4, K5/K6 nine).
 //
 // Why a queue: only ~5% of the (row, column) pairs a tile tests are
 // neighbours, and a warp that runs the products for "its 32 rows against
 // one column" keeps a quarter to a third of its lanes busy. So the tile
 // loop is split. Stage A tests one pair per lane and pushes the pairs that
 // pass, compacted by ballot and prefix count, into a per-warp ring in
-// shared memory (the pair's global row and column and its features).
+// shared memory (the pair's global row and column and its features, NF
+// words of them in a layout [NF][QCAP]).
 // Stage B pops full groups, so the products run with every lane on a real
 // neighbour pair. The ring outlives the column tile (an entry names its
 // detections by global index), so a group is short only once, at the end.
@@ -34,8 +37,8 @@ namespace gnet {
 
 constexpr unsigned ALL_LANES = 0xffffffffu;
 constexpr int QCAP = 128;   // ring entries per warp: a group (<= 32) + 2 pushes
-constexpr int QFEAT = 4;    // features kept per entry
-constexpr int QWORDS = 1 + QFEAT;  // shared-memory words per entry
+constexpr int QFEAT = 4;    // features K1/K2 keep per entry
+constexpr int QWORDS = 1 + QFEAT;  // K1/K2's shared-memory words per entry
 constexpr int MAX_DETS = 1 << 15;  // an entry packs (row << 16) | column
 
 // ---------------------------------------------------------------------------
@@ -44,17 +47,17 @@ constexpr int MAX_DETS = 1 << 15;  // an entry packs (row << 16) | column
 
 // Pushes this lane's pair if `pass`; `count` (warp-uniform) grows by the
 // number pushed. Lanes enter in lane order, so the ring's order is fixed.
+template <int NF>
 __device__ __forceinline__ void queue_push(int* q_ij, float* q_g, int head,
                                            int& count, bool pass, int ij,
-                                           const float (&g)[QFEAT],
-                                           int lane) {
+                                           const float (&g)[NF], int lane) {
   const unsigned mask = __ballot_sync(ALL_LANES, pass);
   if (pass) {
     const int slot =
         (head + count + __popc(mask & ((1u << lane) - 1u))) & (QCAP - 1);
     q_ij[slot] = ij;
 #pragma unroll
-    for (int k = 0; k < QFEAT; ++k) q_g[k * QCAP + slot] = g[k];
+    for (int k = 0; k < NF; ++k) q_g[k * QCAP + slot] = g[k];
   }
   count += __popc(mask);
   __syncwarp();
@@ -113,7 +116,7 @@ __device__ __forceinline__ void mma_m16n8k16_bf16(float (&c)[4],
 }
 
 // pre2 of the group: acc starts at b2 and takes the k blocks in ascending
-// order. The one place FC2 of bf16 mode is computed, for K1 and K2 alike.
+// order. The one place FC2 of bf16 mode is computed, for K1, K2, K5, K6.
 template <int P>
 __device__ __forceinline__ void fc2_mma(
     const uint32_t (&a)[Frag<P>::KB][4], const uint32_t* w2p,

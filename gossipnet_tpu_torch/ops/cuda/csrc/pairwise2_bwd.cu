@@ -440,41 +440,16 @@ int launch(const Args& x, cudaStream_t stream) {
   constexpr size_t col_words = smem_words<P, BF16, false>();
   const int ni = (x.NR + TILE_I - 1) / TILE_I;
   const int nc_tiles = (x.NC + TILE_I - 1) / TILE_I;
-  if (BF16)
+  if constexpr (BF16) {  // only the grids a mode launches are compiled
     return launch_grid(pair_pool2_bwd_kernel<P, BF16>, x, ni + nc_tiles,
                        row_words > col_words ? row_words : col_words, stream);
-  const int e = launch_grid(pair_pool2_bwd_pass_kernel<P, BF16, true>, x, ni,
-                            row_words, stream);
-  return e != 0 ? e
-                : launch_grid(pair_pool2_bwd_pass_kernel<P, BF16, false>, x,
-                              nc_tiles, col_words, stream);
-}
-
-// out[i] = part[0][i] + part[1][i] + ... in that order, for d_a' (the
-// first na elements of the index space) and d_b' (the next nb) at once.
-__global__ void sum_slices_kernel(const float* __restrict__ da_part,
-                                  const float* __restrict__ db_part,
-                                  float* __restrict__ da,
-                                  float* __restrict__ db, int splits,
-                                  size_t na, size_t nb) {
-  size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool first = i < na;
-  if (!first) i -= na;
-  const size_t n = first ? na : nb;
-  if (i >= n) return;
-  const float* part = first ? da_part : db_part;
-  float v = part[i];
-  for (int s = 1; s < splits; ++s) v += part[(size_t)s * n + i];
-  (first ? da : db)[i] = v;
-}
-
-int sum_slices(const float* da_part, const float* db_part, float* da,
-               float* db, int splits, size_t na, size_t nb,
-               cudaStream_t stream) {
-  if (na + nb == 0) return 0;
-  sum_slices_kernel<<<(unsigned)((na + nb + 255) / 256), 256, 0, stream>>>(
-      da_part, db_part, da, db, splits, na, nb);
-  return (int)cudaGetLastError();
+  } else {
+    const int e = launch_grid(pair_pool2_bwd_pass_kernel<P, BF16, true>, x, ni,
+                              row_words, stream);
+    return e != 0 ? e
+                  : launch_grid(pair_pool2_bwd_pass_kernel<P, BF16, false>, x,
+                                nc_tiles, col_words, stream);
+  }
 }
 
 template <bool BF16>

@@ -2,7 +2,10 @@
 // (pairwise2_fwd.cu) and K2 (pairwise2_bwd.cu): the IoU test and the pair
 // features (stage A of both kernels), FC1 in the layouts stage B wants, and
 // FC2 of f32 mode. The queue between the stages and FC2 of bf16 mode (the
-// tensor-core product of a group) live in pair_group.cuh.
+// tensor-core product of a group) live in pair_group.cuh. The stage loop,
+// FC1 and FC2 take the number of features per pair as a template argument,
+// so K5 and K6 (pairwise_fwd.cu, pairwise_bwd.cu) run on them too with
+// their own fields, test and nine features (pairwise_pair.cuh).
 //
 // K2 finds the max winners of K1 by exact float equality (pre2 == m), so
 // both kernels must compute every pair's IoU, features, h1 and pre2 with
@@ -108,7 +111,7 @@ __device__ __forceinline__ bool load_det(const float* __restrict__ fields,
   return idx < N && ri[7] > 0.f;
 }
 
-// The two stages for one warp. Lane l owns detection `ri`. Stage A tests
+// The two stages for one warp. Lane l owns one detection. Stage A tests
 // it against the warp's TILE_J / NWARPS detections of every active tile of
 // the other side, STEP at a time so that their loads and IoU chains
 // overlap (the whole warp reads the same detection: a broadcast from L1,
@@ -118,6 +121,8 @@ __device__ __forceinline__ bool load_det(const float* __restrict__ fields,
 // groups of GROUP. Stage B is instantiated at this one place: its code is
 // long, and a warp that met it at several places would wait for
 // instructions more than for data.
+// `test(d, g)`: whether the own detection and detection d of the other
+// side are neighbours, and then their NF features in g (zero on entry);
 // `active(t)`: whether tile t can hold a neighbour; `split` of `splits`:
 // this block's share of the work on its own detections; `ij_own`: the own
 // index already shifted to its half of the packed entry; `other_shift`:
@@ -125,15 +130,13 @@ __device__ __forceinline__ bool load_det(const float* __restrict__ fields,
 constexpr int STEP = 2;
 static_assert(32 + STEP * 32 <= QCAP, "a group and STEP pushes fit the ring");
 
-template <bool BF16, int GROUP, class Active, class Consume>
-__device__ __forceinline__ void run_stages(
-    const float (&ri)[CMAX], bool live, const float* __restrict__ fields,
-    int C, int N, int split, int splits, Active& active, int K, float thr,
-    int ij_own, int other_shift, int* q_ij, float* q_g, int lane, int warp,
+template <int GROUP, int NF, class Active, class Test, class Consume>
+__device__ __forceinline__ void stage_loop(
+    bool live, int N, int split, int splits, Active& active, int ij_own,
+    int other_shift, int* q_ij, float* q_g, int lane, int warp, Test& test,
     Consume& consume) {
   if (!__any_sync(ALL_LANES, live)) return;
   constexpr int STEPS = TILE_J / NWARPS / STEP;  // steps of a warp per tile
-  const float thr_lo = __fmul_rn(thr, 1.f - 1e-6f);
   const int n_items = (N + TILE_J - 1) / TILE_J * STEPS;
   int head = 0, count = 0;
   // Item w is step w % STEPS of tile w / STEPS; the blocks that share the
@@ -145,19 +148,12 @@ __device__ __forceinline__ void run_stages(
       const int d0 = w / STEPS * TILE_J + warp * (TILE_J / NWARPS) +
                      w % STEPS * STEP;
       bool pass[STEP];
-      float g[STEP][KMAX];
+      float g[STEP][NF];
 #pragma unroll
       for (int v = 0; v < STEP; ++v) {
-        float cj[CMAX];
-        const bool valid = load_det(fields, C, N, d0 + v, cj);
-        pass[v] = false;
 #pragma unroll
-        for (int k = 0; k < KMAX; ++k) g[v][k] = 0.f;
-        float iou;
-        if (live && valid && pair_test(ri, cj, thr, thr_lo, iou)) {
-          pass[v] = true;
-          pair_features<BF16>(ri, cj, K, iou, g[v]);
-        }
+        for (int k = 0; k < NF; ++k) g[v][k] = 0.f;
+        pass[v] = test(d0 + v, g[v]);
       }
 #pragma unroll
       for (int v = 0; v < STEP; ++v)
@@ -174,31 +170,53 @@ __device__ __forceinline__ void run_stages(
   }
 }
 
-// Weights into shared memory: wgs [KMAX][P] (rows >= K zero, bf16-rounded
+// K1's and K2's stages: lane l owns detection `ri` (fields [C, N] of the
+// other side in `fields`), K1's test and its 3-4 features.
+template <bool BF16, int GROUP, class Active, class Consume>
+__device__ __forceinline__ void run_stages(
+    const float (&ri)[CMAX], bool live, const float* __restrict__ fields,
+    int C, int N, int split, int splits, Active& active, int K, float thr,
+    int ij_own, int other_shift, int* q_ij, float* q_g, int lane, int warp,
+    Consume& consume) {
+  const float thr_lo = __fmul_rn(thr, 1.f - 1e-6f);
+  auto test = [&](int d, float (&g)[KMAX]) {
+    float cj[CMAX];
+    const bool valid = load_det(fields, C, N, d, cj);
+    float iou;
+    if (live && valid && pair_test(ri, cj, thr, thr_lo, iou)) {
+      pair_features<BF16>(ri, cj, K, iou, g);
+      return true;
+    }
+    return false;
+  };
+  stage_loop<GROUP, KMAX>(live, N, split, splits, active, ij_own,
+                          other_shift, q_ij, q_g, lane, warp, test, consume);
+}
+
+// Weights into shared memory: wgs [NF][P] (rows >= K zero, bf16-rounded
 // in BF16 mode) and b2s [P]. Whole block.
-template <int P, bool BF16>
+template <int P, bool BF16, int NF = KMAX>
 __device__ __forceinline__ void stage_small_weights(
     const float* __restrict__ wg, const float* __restrict__ b2, int K,
     float* wgs, float* b2s, int tid) {
-  for (int x = tid; x < KMAX * P; x += NTHREADS) {
+  for (int x = tid; x < NF * P; x += NTHREADS) {
     const float v = x < K * P ? wg[x] : 0.f;
     wgs[x] = BF16 ? round_bf16(v) : v;
   }
   for (int x = tid; x < P; x += NTHREADS) b2s[x] = b2[x];
 }
 
-// h1_p = relu(a'_p + b'_p + Wg_k[:, p] . g), rounded to bf16 in BF16 mode.
-// wgs is [KMAX][P] with zero rows beyond K; b_p is already rounded in BF16
-// mode.
-template <int P, bool BF16>
+// h1_p = relu(a'_p + (b'_p + Wg_k[:, p] . g)), the dot an fmaf chain in
+// feature order, rounded to bf16 in BF16 mode. wgs is [NF][P] with zero
+// rows beyond the kernel's feature count (K1's row 3 when K == 3, K5's row
+// 8 when G == 8); K1's b_p is already rounded in BF16 mode, K5's is not.
+template <int P, bool BF16, int NF>
 __device__ __forceinline__ float h1_value(float a_p, float b_p,
                                           const float* wgs,
-                                          const float (&g)[KMAX], int p) {
+                                          const float (&g)[NF], int p) {
   float h = b_p;
-  h = fmaf(wgs[0 * P + p], g[0], h);
-  h = fmaf(wgs[1 * P + p], g[1], h);
-  h = fmaf(wgs[2 * P + p], g[2], h);
-  h = fmaf(wgs[3 * P + p], g[3], h);  // row 3 is zero when K == 3
+#pragma unroll
+  for (int k = 0; k < NF; ++k) h = fmaf(wgs[k * P + p], g[k], h);
   h = fmaxf(a_p + h, 0.f);
   if (BF16) h = round_bf16(h);
   return h;
@@ -207,8 +225,10 @@ __device__ __forceinline__ float h1_value(float a_p, float b_p,
 // FC1 of a group of up to 16 queued pairs (ring slots head ..), straight
 // into the A fragments of fc2_mma. Slots beyond nvalid compute on
 // detection 0 and are ignored by the caller. ij2 receives the packed
-// (row, column) of the lane's two slots, gid and gid + 8.
-template <int P>
+// (row, column) of the lane's two slots, gid and gid + 8. NF features per
+// entry; ROUND_B: b_p goes into the bf16 dot rounded (K1's b'), or stays
+// f32 (K5's b).
+template <int P, int NF = KMAX, bool ROUND_B = true>
 __device__ __forceinline__ void group_h1_frags(
     const float* __restrict__ a_img, const float* __restrict__ b_img,
     const float* wgs, const int* q_ij, const float* q_g, int head, int nvalid,
@@ -221,9 +241,9 @@ __device__ __forceinline__ void group_h1_frags(
     const int qi = (head + slot) & (QCAP - 1);
     const int ij = slot < nvalid ? q_ij[qi] : 0;
     ij2[h] = ij;
-    float g[KMAX];
+    float g[NF];
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k) g[k] = q_g[k * QCAP + qi];
+    for (int k = 0; k < NF; ++k) g[k] = q_g[k * QCAP + qi];
 #ifdef GNET_ABLATE_LOADS  // a timing switch of pairwise2_fwd.cu
     const float* ar = a_img + (size_t)(ij >> 30) * P;
     const float* br = b_img + (size_t)(ij >> 30) * P;
@@ -240,8 +260,10 @@ __device__ __forceinline__ void group_h1_frags(
         if (p < P) {  // compile-time after unrolling, but for tig
           const float2 av = __ldg(reinterpret_cast<const float2*>(ar + p));
           const float2 bv = __ldg(reinterpret_cast<const float2*>(br + p));
-          lo = h1_value<P, true>(av.x, round_bf16(bv.x), wgs, g, p);
-          hi = h1_value<P, true>(av.y, round_bf16(bv.y), wgs, g, p + 1);
+          lo = h1_value<P, true>(av.x, ROUND_B ? round_bf16(bv.x) : bv.x,
+                                 wgs, g, p);
+          hi = h1_value<P, true>(av.y, ROUND_B ? round_bf16(bv.y) : bv.y,
+                                 wgs, g, p + 1);
         }
         afr[kb][h + 2 * c] = pack_bf16(lo, hi);
       }
@@ -268,12 +290,12 @@ __device__ __forceinline__ void fc2_accumulate(float h, const float* w2s,
 // computed on the fly: p ascending, each h1_p consumed as soon as it is
 // made. ar / br point at a'_i and b'_j in device memory (16-byte aligned
 // rows).
-template <int P>
+template <int P, int NF>
 __device__ __forceinline__ void pair_pre2(const float* __restrict__ ar,
                                           const float* __restrict__ br,
                                           const float* wgs, const float* w2s,
                                           const float* b2s,
-                                          const float (&g)[KMAX],
+                                          const float (&g)[NF],
                                           float (&pre)[P]) {
 #pragma unroll
   for (int q = 0; q < P; ++q) pre[q] = b2s[q];
@@ -294,13 +316,44 @@ __device__ __forceinline__ void pair_pre2(const float* __restrict__ ar,
 
 // This lane's queued pair (ring slot head + lane) for the CUDA-core path:
 // its packed (row, column), 0 beyond nvalid, and its features.
+template <int NF>
 __device__ __forceinline__ int lane_pair(const int* q_ij, const float* q_g,
                                          int head, int nvalid, int lane,
-                                         float (&g)[KMAX]) {
+                                         float (&g)[NF]) {
   const int qi = (head + lane) & (QCAP - 1);
 #pragma unroll
-  for (int k = 0; k < KMAX; ++k) g[k] = q_g[k * QCAP + qi];
+  for (int k = 0; k < NF; ++k) g[k] = q_g[k * QCAP + qi];
   return lane < nvalid ? q_ij[qi] : 0;
+}
+
+// out[i] = part[0][i] + part[1][i] + ... in that order, for d_a (the
+// first na elements of the index space) and d_b (the next nb) at once: the
+// last step of K2 and K6, whose splits each sum into a slice of their own.
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS)
+sum_slices_kernel(const float* __restrict__ da_part,
+                  const float* __restrict__ db_part, float* __restrict__ da,
+                  float* __restrict__ db, int splits, size_t na, size_t nb) {
+  size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  const bool first = i < na;
+  if (!first) i -= na;
+  const size_t n = first ? na : nb;
+  if (i >= n) return;
+  const float* part = first ? da_part : db_part;
+  float v = part[i];
+  for (int s = 1; s < splits; ++s) v += part[(size_t)s * n + i];
+  (first ? da : db)[i] = v;
+}
+
+template <int THREADS = 256>
+int sum_slices(const float* da_part, const float* db_part, float* da,
+               float* db, int splits, size_t na, size_t nb,
+               cudaStream_t stream) {
+  if (na + nb == 0) return 0;
+  sum_slices_kernel<THREADS>
+      <<<(unsigned)((na + nb + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+          da_part, db_part, da, db, splits, na, nb);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace gnet

@@ -1,19 +1,24 @@
-// Per-pair arithmetic of the unfolded GossipNet pair stage, shared by K5
-// (pairwise_fwd.cu) and K6 (pairwise_bwd.cu).
+// Per-pair arithmetic of the unfolded GossipNet pair stage: the fields,
+// the neighbour test and the features of K5 (pairwise_fwd.cu) and K6
+// (pairwise_bwd.cu) on detections held in registers, and the same on
+// fields staged in shared memory for K7 (pair_ablate.cu).
 //
 // K6 finds the max winners of K5 by exact float equality (pre2 == m), so
-// both kernels compute every pair's IoU, features, h1 and pre2 here, once,
-// with the same operations in the same order and the same rounding
-// points.
+// both kernels compute every pair's IoU and features here, once, with the
+// same operations in the same order and the same rounding points; FC1 and
+// FC2 are K1's (h1_value, fc2_mma, pair_pre2 over nine features).
 //
 // Unlike K1 (pairwise2_pair.cuh), nothing is folded: a = r Wa + b1 and
 // b = r Wb arrive as they are, and all 8 pair features of
 // ops/pair_features.py (9 with the class match) are computed per pair, in
 // its order: iou, (cx_j - cx_i) / w_i, (cy_j - cy_i) / h_i, the
 // differences of log_w, log_h and log_aspect, s_i, s_j [, cls_i == cls_j].
-// The IoU, the feature subtractions and divisions are explicitly rounded
-// IEEE operations (__fsub_rn, __fdiv_rn, ...), so no FMA contraction moves
-// a pair across the threshold or a feature off the plain version's bits.
+// They are not symmetric in the two detections: a kernel whose lane owns a
+// column (K6's column pass) passes the row detection as the row all the
+// same. The IoU, the feature subtractions and divisions are explicitly
+// rounded IEEE operations (__fsub_rn, __fdiv_rn, ...), so no FMA
+// contraction moves a pair across the threshold or a feature off the plain
+// version's bits.
 //
 // BF16 mode rounds what gossipnet_tpu/ops/pallas/pairwise.py feeds its bf16
 // dots (:194-213): the features g, Wg, h1 and W2. a, b and b2 stay f32, as
@@ -22,7 +27,7 @@
 
 #pragma once
 
-#include "pairwise2_pair.cuh"  // TILE_I, TILE_J, NWARPS, round_bf16, fc2_accumulate
+#include "pairwise2_pair.cuh"  // tiles, queue stages, FC1, FC2, round_bf16
 
 namespace gnet::unfolded {
 
@@ -34,6 +39,74 @@ enum Field {
   X1, Y1, X2, Y2, CX, CY, W, H, LOG_W, LOG_H, LOG_ASPECT, AREA, SCORE, VALID,
   CLS
 };
+
+// ---------------------------------------------------------------------------
+// K5 and K6: one detection's fields in registers
+// ---------------------------------------------------------------------------
+
+// Detection idx (stacked fields [C, N] of one image) into registers, zeros
+// beyond N and beyond C; whether it exists and is valid. Fields a kernel
+// never reads are never loaded (the compiler drops the loads).
+__device__ __forceinline__ bool load_fields(const float* __restrict__ fields,
+                                            int C, int N, int idx,
+                                            float (&f)[FMAX]) {
+#pragma unroll
+  for (int c = 0; c < FMAX; ++c) f[c] = 0.f;
+  if (idx < N) {
+#pragma unroll
+    for (int c = 0; c < FMAX; ++c)  // unrolled: f stays in registers
+      if (c < C) f[c] = __ldg(fields + (size_t)c * N + idx);
+  }
+  return idx < N && f[VALID] > 0.f;
+}
+
+// Whether row detection ri and column detection cj are neighbours (IoU >=
+// thr), and the IoU where the division ran: K1's pair_test
+// (pairwise2_pair.cuh) on the DetColumns fields. A pair that passes has the
+// IoU of pair_iou below, bit for bit (the same operations); the division
+// is skipped only where inter < thr_lo * uni puts the pair clearly below
+// thr, as K1 skips it.
+__device__ __forceinline__ bool neighbour_test(const float (&ri)[FMAX],
+                                               const float (&cj)[FMAX],
+                                               float thr, float thr_lo,
+                                               float& iou) {
+  const float iw =
+      fmaxf(__fsub_rn(fminf(ri[X2], cj[X2]), fmaxf(ri[X1], cj[X1])), 0.f);
+  const float ih =
+      fmaxf(__fsub_rn(fminf(ri[Y2], cj[Y2]), fmaxf(ri[Y1], cj[Y1])), 0.f);
+  const float inter = __fmul_rn(iw, ih);
+  const float uni =
+      fmaxf(__fsub_rn(__fadd_rn(ri[AREA], cj[AREA]), inter), EPS);
+  iou = 0.f;
+  if (!(inter >= __fmul_rn(thr_lo, uni))) return false;
+  iou = __fdiv_rn(inter, uni);
+  return iou >= thr;
+}
+
+// The G pair features of row ri and column cj (g[8] = 0 when G = 8), the
+// operations of pair_features below, rounded to bf16 in BF16 mode.
+template <bool BF16>
+__device__ __forceinline__ void det_features(const float (&ri)[FMAX],
+                                             const float (&cj)[FMAX], int G,
+                                             float iou, float (&g)[GMAX]) {
+  g[0] = iou;
+  g[1] = __fdiv_rn(__fsub_rn(cj[CX], ri[CX]), ri[W]);
+  g[2] = __fdiv_rn(__fsub_rn(cj[CY], ri[CY]), ri[H]);
+  g[3] = __fsub_rn(cj[LOG_W], ri[LOG_W]);
+  g[4] = __fsub_rn(cj[LOG_H], ri[LOG_H]);
+  g[5] = __fsub_rn(cj[LOG_ASPECT], ri[LOG_ASPECT]);
+  g[6] = ri[SCORE];
+  g[7] = cj[SCORE];
+  g[8] = (G == GMAX && ri[CLS] == cj[CLS]) ? 1.f : 0.f;
+  if (BF16) {
+#pragma unroll
+    for (int k = 0; k < GMAX - 1; ++k) g[k] = round_bf16(g[k]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K7: fields staged in shared memory
+// ---------------------------------------------------------------------------
 
 // What det_columns gives a zero box (w, h clamped to 1e-3, invalid): the
 // pad of a ragged tile edge, as gossipnet_tpu's _safe_pad_cols pads, so no
@@ -89,42 +162,6 @@ __device__ __forceinline__ void pair_features(const float* rs, int i,
   if (BF16) {
 #pragma unroll
     for (int k = 0; k < GMAX - 1; ++k) g[k] = round_bf16(g[k]);
-  }
-}
-
-// h1_p = relu(a_p + (b_p + Wg[:, p] . g)), the dot an fmaf chain in
-// feature order; rounded to bf16 in BF16 mode (the FC2 operand). wgs is
-// [GMAX][P] with a zero row 8 when G = 8.
-template <int P, bool BF16>
-__device__ __forceinline__ float pair_h1(float a_p, float b_p,
-                                         const float* wgs,
-                                         const float (&g)[GMAX], int p) {
-  float h = b_p;
-#pragma unroll
-  for (int k = 0; k < GMAX; ++k) h = fmaf(wgs[k * P + p], g[k], h);
-  h = fmaxf(a_p + h, 0.f);
-  if (BF16) h = round_bf16(h);
-  return h;
-}
-
-// pre2 = W2^T h1 + b2 for one pair, h1 made on the fly (p ascending).
-// `as_col` points at a[p = 0] of this lane's row in the [P][TILE_I + 1]
-// tile, `bj` at the staged b row of column j; h1_out, when kept, receives
-// every h1_p (K6 needs them).
-template <int P, bool BF16, bool KEEP_H1>
-__device__ __forceinline__ void pair_pre2(const float* as_col,
-                                          const float* bj, const float* wgs,
-                                          const float* w2s, const float* b2s,
-                                          const float (&g)[GMAX],
-                                          float (&pre)[P], float (&h1)[P]) {
-#pragma unroll
-  for (int q = 0; q < P; ++q) pre[q] = b2s[q];
-#pragma unroll
-  for (int p = 0; p < P; ++p) {
-    const float h =
-        pair_h1<P, BF16>(as_col[p * (TILE_I + 1)], bj[p], wgs, g, p);
-    if (KEEP_H1) h1[p] = h;
-    fc2_accumulate<P>(h, w2s, p, pre);
   }
 }
 

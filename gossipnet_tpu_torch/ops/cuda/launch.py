@@ -2,12 +2,12 @@
 and K5/K6 (``pairwise.py``) take the same argument list, so one input
 check, one ctypes binding and one partial-sum step serve all four.
 
-A pair kernel's C entry takes the pointers of its tensors, five ints
-(B, NR, NC, P, K) and any further ints of its own (K1: the column
-splits), the neighbour threshold, a bf16 flag and the CUDA stream, and
-returns a CUDA error code. Its ``*_tiles`` function reports
-the tile shape it was built with, checked against :data:`TILE_I` x
-:data:`TILE_J` once per library.
+A pair kernel's C entry takes the pointers of its tensors, six ints
+(B, NR, NC, P, the features K or G, the splits S of :func:`col_splits`),
+the neighbour threshold, a bf16 flag and the CUDA stream, and returns a
+CUDA error code. Its ``*_tiles`` function reports the tile shape it was
+built with, checked against :data:`TILE_I` x :data:`TILE_J` once per
+library.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch
 from torch import Tensor
 
 TILE_I, TILE_J = 32, 64   # the kernels' row / column tile (csrc constants)
-MAX_DETS = 1 << 15        # K1/K2 pack (row << 16) | column (pair_group.cuh)
+MAX_DETS = 1 << 15        # an entry packs (row << 16) | column (pair_group.cuh)
 COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
@@ -29,10 +29,9 @@ def check_dtype(compute_dtype: str) -> None:
                          f"got {compute_dtype!r}")
 
 
-def _library(name: str, entry: str, tiles: str, n_ptr: int,
-             n_int: int = 5) -> ctypes.CDLL:
+def _library(name: str, entry: str, tiles: str, n_ptr: int) -> ctypes.CDLL:
     """Kernel library ``name`` with its launch function ``entry`` bound
-    (``n_ptr`` pointers, ``n_int`` ints, the threshold, the bf16 flag, the
+    (``n_ptr`` pointers, six ints, the threshold, the bf16 flag, the
     stream) and the tile shape its ``tiles`` function reports checked."""
     from gossipnet_tpu_torch.ops.cuda import build
 
@@ -41,7 +40,7 @@ def _library(name: str, entry: str, tiles: str, n_ptr: int,
         fn, tiles_fn = getattr(lib, entry), getattr(lib, tiles)
         tiles_fn.argtypes = []
         tiles_fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         got = tiles_fn()
@@ -98,20 +97,20 @@ def check_inputs(label: str, geom, a: Tensor, b: Tensor, wg: Tensor,
 
 
 def _launch(name: str, label: str, entry: str, tiles: str, geom,
-            tensors: tuple, p: int, k: int, compute_dtype: str,
-            extra: tuple = ()) -> None:
+            tensors: tuple, p: int, k: int, splits: int,
+            compute_dtype: str) -> None:
     """One launch of ``entry`` of library ``name`` on the current stream
     with the pointers of ``tensors``, the sizes (B, NR, NC, P, K), the
-    kernel's ``extra`` ints, geom's threshold and the bf16 flag; raises if
-    the launch is refused."""
-    lib = _library(name, entry, tiles, len(tensors), 5 + len(extra))
+    splits, geom's threshold and the bf16 flag; raises if the launch is
+    refused."""
+    lib = _library(name, entry, tiles, len(tensors))
     bsz, _, nr = geom.row.shape
     device = geom.row.device
 
     def call():
         return getattr(lib, entry)(
             *(t.data_ptr() for t in tensors), bsz, nr, geom.col.shape[2], p,
-            k, *extra, geom.neighbor_iou, int(compute_dtype == "bfloat16"),
+            k, splits, geom.neighbor_iou, int(compute_dtype == "bfloat16"),
             torch.cuda.current_stream().cuda_stream)
 
     if torch.cuda.current_device() == device.index:
@@ -131,13 +130,14 @@ def _sm_count(device_index: int) -> int:
 
 def col_splits(blocks: int, nj: int, sms: int) -> int:
     """How many blocks share the work on one tile of 32 own detections in
-    K1 and K2: enough that ``blocks`` (tiles x images) times the splits
+    a pair kernel: enough that ``blocks`` (tiles x images) times the splits
     give every one of the card's ``sms`` multiprocessors about eight
     blocks, and at most one split per step of two tests (a tile of the
     other side, of which there are ``nj``, is eight steps to a warp). The
     splits take the steps round robin, so a crowded tile is spread over
-    all of them. K1 merges their maxima with an order-free integer max;
-    K2's sum into slices of their own that its last step adds in order."""
+    all of them. The forwards (K1, K5) merge their maxima with an
+    order-free integer max; the backwards (K2, K6) sum into slices of
+    their own that their last step adds in order."""
     want = -(-8 * sms // max(blocks, 1))
     return max(1, min(want, 8 * nj))
 
@@ -149,67 +149,58 @@ def _splits(geom, device) -> int:
 
 def forward_launch(name: str, label: str, entry: str, tiles: str, geom,
                    a: Tensor, b: Tensor, wg: Tensor, w2: Tensor,
-                   b2bias: Tensor, compute_dtype: str,
-                   split: bool = False) -> Tensor:
+                   b2bias: Tensor, compute_dtype: str) -> Tensor:
     """A pair-pool forward kernel (K1 or K5) -> m [B, NR, P] float32;
-    inputs already checked. ``split`` (K1): the kernel takes the number of
-    splits (:func:`col_splits`) as a sixth int (where it splits, its entry
-    zero-fills the output the splits merge into)."""
+    inputs already checked. Where the kernel splits a row tile over
+    several blocks (:func:`col_splits`), its entry zero-fills the output
+    the splits merge into."""
     p = a.shape[-1]
-    extra = (_splits(geom, a.device),) if split else ()
     out = torch.empty((a.shape[0], a.shape[1], p), dtype=torch.float32,
                       device=a.device)
     _launch(name, label, entry, tiles, geom,
             (geom.row, geom.col, a, b, wg, w2, b2bias, geom.flags, out),
-            p, wg.shape[0], compute_dtype, extra)
+            p, wg.shape[0], _splits(geom, a.device), compute_dtype)
     return out
 
 
 def backward_launch(name: str, label: str, entry: str, tiles: str, geom,
                     a: Tensor, b: Tensor, wg: Tensor, w2: Tensor,
                     b2bias: Tensor, m: Tensor, dm: Tensor,
-                    compute_dtype: str, split: bool = False):
+                    compute_dtype: str):
     """A pair-pool backward kernel (K2 or K6) -> (d_a, d_b, dWg, dW2,
     db2) float32; inputs already checked.
 
     Every gradient is summed from partial sums in a fixed order (no float
     atomics), in the kernel or here, so two launches on the same inputs
-    give identical bits. K6 (``split`` False) writes d_a in full,
-    d_b as a per-row-tile partial [B, NI, NC, P] where a column won (zero
-    elsewhere) and the weight gradients per block. K2 (``split``) takes
-    the number of splits S (:func:`col_splits`) as a sixth int and two
-    scratch tensors [S, B, NR, P] and [S, B, NC, P], one slice per split,
-    which it adds in order into d_a and d_b itself; its weight gradients
-    leave per block and split.
+    give identical bits. The kernel takes the number of splits S
+    (:func:`col_splits`) and two scratch tensors [S, B, NR, P] and
+    [S, B, NC, P], one slice per split, which it adds in order into d_a
+    and d_b itself; its weight gradients leave per block and split and are
+    summed here.
     """
     bsz, nr, p = a.shape
     nc, k, ni = b.shape[1], wg.shape[0], geom.flags.shape[1]
     f32 = dict(dtype=torch.float32, device=a.device)
+    s = _splits(geom, a.device)
     da = torch.empty((bsz, nr, p), **f32)
-    if split:
-        s = _splits(geom, a.device)
-        extra = (s,)
-        db = torch.empty((bsz, nc, p), **f32)
-        # scratch: one slice per split, added in order by the kernel's last
-        # step (not touched when there is one split)
-        scratch = (torch.empty((s if s > 1 else 0, bsz, nr, p), **f32),
-                   torch.empty((s if s > 1 else 0, bsz, nc, p), **f32))
-    else:
-        s, extra, scratch = 1, (), ()
-        db = torch.zeros((bsz, ni, nc, p), **f32)   # written where won
+    db = torch.empty((bsz, nc, p), **f32)
+    # scratch: one slice per split, added in order by the kernel's last
+    # step (not touched when there is one split)
+    scratch = (torch.empty((s if s > 1 else 0, bsz, nr, p), **f32),
+               torch.empty((s if s > 1 else 0, bsz, nc, p), **f32))
     dwg_part = torch.empty((s * bsz * ni, k, p), **f32)
     dw2_part = torch.empty((s * bsz * ni, p, p), **f32)
     db2_part = torch.empty((s * bsz * ni, p), **f32)
     _launch(name, label, entry, tiles, geom,
             (geom.row, geom.col, a, b, wg, w2, b2bias, geom.flags, m, dm, da,
-             db, *scratch, dwg_part, dw2_part, db2_part), p, k, compute_dtype,
-            extra)
-    return (da, db if split else db.sum(dim=1), dwg_part.sum(dim=0),
-            dw2_part.sum(dim=0), db2_part.sum(dim=0))
+             db, *scratch, dwg_part, dw2_part, db2_part), p, k, s,
+            compute_dtype)
+    return (da, db, dwg_part.sum(dim=0), dw2_part.sum(dim=0),
+            db2_part.sum(dim=0))
 
 
 def check_packable(label: str, geom) -> None:
-    """K1 and K2 name a queued pair by (row << 16) | column."""
+    """The pair kernels name a queued pair by (row << 16) | column."""
     nr, nc = geom.row.shape[2], geom.col.shape[2]
     if max(nr, nc) > MAX_DETS:
         raise ValueError(f"{label} takes at most {MAX_DETS} detections per "

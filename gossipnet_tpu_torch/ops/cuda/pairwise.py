@@ -17,6 +17,17 @@ backward; the gradient of every row of Wg leaves it directly. Both skip
 whole tiles whose row and column bounding boxes do not meet, with K1's
 rule (:func:`pairwise2.tile_activity`) at the same tile shape.
 
+Both run on K1's and K2's design and code (``csrc/pair_group.cuh``,
+``csrc/pairwise2_pair.cuh``): stage A tests every pair of an active tile,
+one per lane, and queues the neighbours with their nine features; stage B
+runs FC1 and FC2 on full groups of queued pairs, FC2 on the tensor cores
+in bf16 mode; K5's running max is an order-free integer merge, so several
+blocks share a row tile (:func:`launch.col_splits`); K6 sums d_a and the
+weight gradients in a pass over the rows and d_b in a pass over the
+columns, each in a fixed order, with no dense partial. Only the fields,
+the neighbour test and the features are K5's own
+(``csrc/pairwise_pair.cuh``): they are what keeps K5 an oracle for K1.
+
 bf16 mode rounds where the TPU kernel rounds: the features, Wg, h1 and W2;
 a, b and b2 stay f32 (K1 rounds its b' as well, so bf16 K5 and bf16 K1
 differ; in f32 they agree). The TPU kernel's ``packed`` kron weights are a
@@ -26,8 +37,11 @@ TPU-only MXU option with no counterpart here.
 the plain backward (:func:`_reference_core`,
 :func:`pair_pool_backward_reference`) through :class:`PairPool1`, CUDA
 tensors launch K5 and K6 or raise. The plain versions repeat the kernels'
-arithmetic, their fused multiply-adds included (``pairwise2._fma``), so
-they find the same winners.
+CUDA-core arithmetic, their fused multiply-adds included
+(``pairwise2._fma``): in float32 they equal the kernels bit for bit and
+find the same winners; in bfloat16 the kernels' FC2 sums in the tensor
+cores' order, so m agrees to the stated tolerance and each side finds the
+winners of its own m.
 """
 
 from __future__ import annotations
@@ -45,6 +59,7 @@ from gossipnet_tpu_torch.ops.cuda.launch import (
     backward_launch,
     check_dtype,
     check_inputs,
+    check_packable,
     forward_launch,
 )
 from gossipnet_tpu_torch.ops.cuda.pairwise2 import _fma, _rounder
@@ -104,8 +119,9 @@ def _pair_chunks(cols: PairColumns, a: Tensor, b: Tensor, wg: Tensor,
     pre2 [B, rc, NC, P]). The features are :func:`pf.pair_feature_list`
     (one IEEE op each, as csrc/pairwise_pair.cuh computes them); FC1 and
     FC2 run as the kernels' fmaf chains in their order, rounding in bf16
-    mode where they round, so pre2 equals the kernels' bit for bit and the
-    backward finds K5's winners."""
+    mode where they round, so in float32 pre2 equals the kernels' bit for
+    bit and the backward finds K5's winners (bf16: the kernels' FC2 runs on
+    the tensor cores, equal to tolerance)."""
     rnd = _rounder(compute_dtype)
     row, col = cols.row, cols.col
     bsz, _, nr = row.shape
@@ -218,6 +234,7 @@ def launch_kernel(cols: PairColumns, a: Tensor, b: Tensor, wg: Tensor,
     kernel does not take; raises if the launch is refused.
     """
     check_inputs("K5", cols, a, b, wg, w2, b2bias, compute_dtype, _LAYOUTS)
+    check_packable("K5", cols)
     out = forward_launch("pairwise_fwd", "K5", "gnet_pair_pool_fwd",
                           "gnet_pair_pool_tiles", cols, a, b, wg, w2, b2bias,
                           compute_dtype)
@@ -234,6 +251,7 @@ def launch_backward_kernel(cols: PairColumns, a: Tensor, b: Tensor,
     same bits)."""
     check_inputs("K6", cols, a, b, wg, w2, b2bias, compute_dtype, _LAYOUTS,
                   m=m, dm=dm)
+    check_packable("K6", cols)
     grads = backward_launch("pairwise_bwd", "K6", "gnet_pair_pool_bwd",
                              "gnet_pair_pool_bwd_tiles", cols, a, b, wg, w2,
                              b2bias, m, dm, compute_dtype)

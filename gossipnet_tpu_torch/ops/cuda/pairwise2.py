@@ -327,7 +327,7 @@ def launch_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
     check_packable("K1", geom)
     out = forward_launch("pairwise2_fwd", "K1", "gnet_pair_pool2_fwd",
                           "gnet_pair_pool2_tiles", geom, a2, b2, wg_k, w2,
-                          b2bias, compute_dtype, split=True)
+                          b2bias, compute_dtype)
     pair_pool.launches += 1
     return out
 
@@ -342,8 +342,7 @@ def launch_backward_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor,
     check_packable("K2", geom)
     grads = backward_launch("pairwise2_bwd", "K2", "gnet_pair_pool2_bwd",
                              "gnet_pair_pool2_bwd_tiles", geom, a2, b2, wg_k,
-                             w2, b2bias, m, dm, compute_dtype,
-                             split=True)
+                             w2, b2bias, m, dm, compute_dtype)
     pair_pool_backward.launches += 1
     return grads
 

@@ -3,7 +3,10 @@
 launches bit-identical), K3/K4 (the matching scan, exactly), K5/K6 (the
 unfolded pair pool and its backward, the same checks), K7 (the per-tile
 ablation: six modes, three column tiles), one training step
-of config 2 and one of config 3 through K5/K6, with their launch counts.
+of config 2 and one of config 3 through K5/K6, with their launch counts;
+K5/K6 on the launch arguments of config 4's model (f32 bit-equal m and
+winners, bf16 with dm zero at the near-tied maxima), two K6 launches
+bit-identical there, and K6's column-permutation probe.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
 without one. The file imports no JAX, so it runs where JAX is not
@@ -544,3 +547,146 @@ def test_k1_k2_refuse_more_detections_than_an_entry_packs_on_card():
     with pytest.raises(ValueError, match="at most"):
         k1.launch_kernel(geom, z(1, n, 8), z(1, 8, 8), z(3, 8), z(8, 8), z(8),
                          "float32")
+
+
+# ---------------------------------------------------------------------------
+# K5/K6 on config 4's launch arguments; the K6 permutation probe
+# ---------------------------------------------------------------------------
+
+
+def _near_ties(kern, args, dtype, rel=1e-5):
+    """[B, NR, P] bool: the maxima whose best two candidates lie within
+    ``rel`` of each other in the plain version. In bf16 the kernels' FC2
+    sums on the tensor cores, the plain version in fmaf order: m agrees to
+    ~1e-7 relative, and at such a maximum each side may crown another
+    column (chip_smoke.near_ties)."""
+    ties = []
+    for _, nb, _, _, pre2 in kern._pair_chunks(*args, dtype):
+        v = torch.where(nb[..., None], pre2, torch.full_like(pre2, -1e30))
+        top = v.topk(2, dim=2).values
+        best, second = top[:, :, 0], top[:, :, 1]
+        ties.append((best > 0) & (best - second < rel * best))
+    return torch.cat(ties, dim=1)
+
+
+@pytest.fixture(scope="module")
+def config4_args():
+    """K5's last launch of one forward and backward of config 4
+    (crowded_4096.yaml with pair_kernel 1: 16 blocks, 128/32/32, B=2
+    N=4096, seeded weights) on its synthetic training batch: the pair
+    stage's (columns, a, b, Wg, W2, b2) and the cotangent K6 got."""
+    from gossipnet_tpu_torch import train as training
+    from gossipnet_tpu_torch.config import experiment_path, load_config
+    from gossipnet_tpu_torch.data.bucketing import BatchIterator
+    from gossipnet_tpu_torch.data.synthetic import synthetic_roidb
+    from gossipnet_tpu_torch.ops.cuda import pairwise as k5
+    from gossipnet_tpu_torch.params import as_state_dict, init_params
+
+    dev = _card()
+    cfg = load_config(experiment_path("crowded_4096"),
+                      {"model": {"pair_kernel": 1}})
+    model = training.build_model(cfg, "kernel", dev)
+    model.load_state_dict(as_state_dict(init_params(cfg.model, seed=0)))
+    roidb = synthetic_roidb(num_images=2, seed=0, num_gt=400, dets_per_gt=8,
+                            num_clutter=600, num_classes=1)
+    batch = training.batch_to_device(
+        next(BatchIterator(roidb, 2, cfg.data.bucket_sizes)), dev)
+    seen = []
+    launch_bwd = k5.launch_backward_kernel
+
+    def record(*args):
+        seen.append([x.clone() if torch.is_tensor(x) else x for x in args])
+        return launch_bwd(*args)
+
+    k5.launch_backward_kernel = record
+    try:
+        logits = model(batch["boxes"], batch["scores"], batch["valid"])
+        cot = torch.randn(logits.shape, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        (logits * cot).sum().backward()
+    finally:
+        k5.launch_backward_kernel = launch_bwd
+    torch.cuda.synchronize()
+    args = seen[0]          # the last block's: the backward runs in reverse
+    assert tuple(args[1].shape) == (2, 4096, 32)
+    return tuple(args[:6]), args[7]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k5_k6_on_config4_launch_arguments_on_card(config4_args, dtype):
+    """K5 and K6 at config 4's own shapes and data against their plain
+    versions: in f32 m bit-equal and the same winners (dm = 1: db2 counts
+    them, bit-equal); in bf16 m within tolerance and the gradients with dm
+    zero at the near-tied maxima."""
+    from gossipnet_tpu_torch.ops.cuda import pairwise as k5
+
+    args, dm = config4_args
+    m = k5.launch_kernel(*args, dtype)
+    m_plain = k5._reference_core(*args, dtype)
+    torch.cuda.synchronize()
+    assert (m > 0).any()
+    if dtype == "float32":
+        assert torch.equal(m, m_plain)
+        ones = torch.ones_like(dm)
+        wins = k5.launch_backward_kernel(*args, m, ones, dtype)[4]
+        plain_wins = k5.pair_pool_backward_reference(*args, m_plain, ones,
+                                                     dtype)[4]
+        assert torch.equal(wins, plain_wins)
+    else:
+        x, y = m.cpu().numpy(), m_plain.cpu().numpy()
+        np.testing.assert_allclose(x, y, rtol=2e-2, atol=2e-2)
+        assert np.mean(np.abs(x - y) > 1e-4) < 0.01
+        dm = torch.where(_near_ties(k5, args, dtype), torch.zeros_like(dm),
+                         dm)
+    got = k5.launch_backward_kernel(*args, m, dm, dtype)
+    want = k5.pair_pool_backward_reference(*args, m_plain, dm, dtype)
+    torch.cuda.synchronize()
+    _assert_grads(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k6_is_deterministic_on_card(config4_args, dtype):
+    """Two K6 launches on config 4's arguments give the same bits: every
+    sum is taken in an order the inputs fix (no float atomics; the splits'
+    slices are added in order)."""
+    from gossipnet_tpu_torch.ops.cuda import pairwise as k5
+
+    args, dm = config4_args
+    m = k5.launch_kernel(*args, dtype)
+    one = k5.launch_backward_kernel(*args, m, dm, dtype)
+    two = k5.launch_backward_kernel(*args, m, dm, dtype)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("num_classes", [0, 4])
+@pytest.mark.parametrize("p", [8, 16, 32, 64])
+def test_k6_column_permutation_probe_on_card(p, num_classes, dtype):
+    """The same problem with its columns (and b) permuted: K5's m
+    bit-equal, K6's d_b the permutation of the other bit for bit, d_a and
+    the weight gradients within the plain comparison's tolerances. The
+    features are not symmetric in the two detections, so a column pass
+    that took its own column as the row would fail here."""
+    from gossipnet_tpu_torch.ops.cuda import pairwise as k5
+
+    dev = _card()
+    n = 260
+    args, dm = _k5_args(np.random.default_rng(p + num_classes), 2, n, dev,
+                        p=p, num_classes=num_classes)
+    cols, a, b, wg, w2, b2b = args
+    perm = torch.from_numpy(np.random.default_rng(1).permutation(n)).to(dev)
+    cols_p = k5.pair_columns(cols.row, cols.col[:, :, perm].contiguous(),
+                             THR)
+    args_p = (cols_p, a, b[:, perm].contiguous(), wg, w2, b2b)
+    m, m_p = k5.launch_kernel(*args, dtype), k5.launch_kernel(*args_p, dtype)
+    got = k5.launch_backward_kernel(*args, m, dm, dtype)
+    got_p = k5.launch_backward_kernel(*args_p, m_p, dm, dtype)
+    torch.cuda.synchronize()
+    assert (m > 0).any()
+    assert torch.equal(m, m_p)
+    assert torch.equal(got_p[1], got[1][:, perm])
+    _assert_grads(got_p, (got[0], got[1][:, perm], *got[2:]), dtype)

@@ -445,10 +445,10 @@ def test_backward_launch_scratch_and_sums(rng, monkeypatch, splits):
     geom.neighbor_iou = THR
     seen = {}
 
-    def fake_launch(name, label, entry, tiles, geom_, tensors, p_, k_, dtype,
-                    extra=()):
+    def fake_launch(name, label, entry, tiles, geom_, tensors, p_, k_,
+                    splits_, dtype):
         seen["shapes"] = [tuple(t.shape) for t in tensors]
-        seen["extra"] = extra
+        seen["splits"] = splits_
         da, db = tensors[10], tensors[11]
         da.fill_(1.0)
         db.fill_(2.0)
@@ -460,9 +460,8 @@ def test_backward_launch_scratch_and_sums(rng, monkeypatch, splits):
     t = lambda *s: torch.zeros(*s)
     da, db, dwg, dw2, db2 = launch.backward_launch(
         "pairwise2_bwd", "K2", "e", "t", geom, t(b, nr, p), t(b, nc, p),
-        t(k, p), t(p, p), t(p), t(b, nr, p), t(b, nr, p), "float32",
-        split=True)
-    assert seen["extra"] == (splits,)
+        t(k, p), t(p, p), t(p), t(b, nr, p), t(b, nr, p), "float32")
+    assert seen["splits"] == splits
     shapes = seen["shapes"]
     assert shapes[10] == (b, nr, p) and shapes[11] == (b, nc, p)
     s0 = splits if splits > 1 else 0
@@ -477,10 +476,13 @@ def test_backward_launch_scratch_and_sums(rng, monkeypatch, splits):
         assert g.shape == shape and bool((g == 0.5 * blocks).all())
 
 
-def test_k6_launch_keeps_its_row_tile_partial(rng, monkeypatch):
-    """K5/K6 share the launch helper: without ``split`` it still hands the
-    kernel a zero-filled [B, NI, NC, P] partial of d_b, no extra int and
-    no scratch, and sums the partial over the row tiles."""
+@pytest.mark.parametrize("splits", [1, 4])
+def test_k6_launch_keeps_its_row_tile_partial(rng, monkeypatch, splits):
+    """K6 no longer keeps a row-tile partial: it takes K2's launch, the
+    splits and one scratch slice of d_a and d_b per split (none for one
+    split), with d_b [B, NC, P] written by the kernel as it is; no
+    [B, NI, NC, P] tensor is made, zero-filled or summed. Its nine
+    feature rows of dWg come back summed over the blocks and splits."""
     from gossipnet_tpu_torch.ops.cuda import launch
 
     b, nr, nc, p, k = 1, 40, 70, 8, 9
@@ -489,18 +491,56 @@ def test_k6_launch_keeps_its_row_tile_partial(rng, monkeypatch):
     geom.flags = torch.ones(b, ni, -(-nc // launch.TILE_J), dtype=torch.int32)
     seen = {}
 
-    def fake_launch(name, label, entry, tiles, geom_, tensors, p_, k_, dtype,
-                    extra=()):
-        seen["n"], seen["extra"] = len(tensors), extra
-        assert bool((tensors[11] == 0).all())
+    def fake_launch(name, label, entry, tiles, geom_, tensors, p_, k_,
+                    splits_, dtype):
+        seen["n"], seen["splits"] = len(tensors), splits_
+        seen["shapes"] = [tuple(t.shape) for t in tensors]
         tensors[11].fill_(1.0)
         for t in (tensors[10], *tensors[-3:]):
-            t.fill_(0.0)
+            t.fill_(0.25)
 
     monkeypatch.setattr(launch, "_launch", fake_launch)
+    monkeypatch.setattr(launch, "_splits", lambda geom_, device: splits)
     t = lambda *s: torch.zeros(*s)
-    _, db, *_ = launch.backward_launch(
+    _, db, dwg, *_ = launch.backward_launch(
         "pairwise_bwd", "K6", "e", "t", geom, t(b, nr, p), t(b, nc, p),
         t(k, p), t(p, p), t(p), t(b, nr, p), t(b, nr, p), "float32")
-    assert seen == {"n": 15, "extra": ()}
-    assert db.shape == (b, nc, p) and bool((db == float(ni)).all())
+    assert seen["n"] == 17 and seen["splits"] == splits
+    s0 = splits if splits > 1 else 0
+    assert seen["shapes"][11:14] == [(b, nc, p), (s0, b, nr, p),
+                                     (s0, b, nc, p)]
+    assert (b, ni, nc, p) not in seen["shapes"]
+    assert db.shape == (b, nc, p) and bool((db == 1.0).all())
+    assert dwg.shape == (k, p)
+    assert bool((dwg == 0.25 * splits * b * ni).all())
+
+
+@pytest.mark.parametrize("label,k,c", [("K1", 3, 8), ("K5", 9, 15)])
+@pytest.mark.parametrize("splits", [1, 6])
+def test_forward_launch_hands_the_kernel_its_splits(monkeypatch, label, k,
+                                                    c, splits):
+    """K1 and K5 take one launch: the tensors, then (B, NR, NC, P, K) and
+    the splits of :func:`col_splits`; the output is a fresh [B, NR, P]
+    (the C entry zero-fills it when the splits merge into it)."""
+    from gossipnet_tpu_torch.ops.cuda import launch
+
+    b, nr, nc, p = 2, 45, 100, 16
+    geom = _fake_geom(nr, nc)
+    geom.flags = torch.ones(b, -(-nr // launch.TILE_I),
+                            -(-nc // launch.TILE_J), dtype=torch.int32)
+    seen = {}
+
+    def fake_launch(name, label_, entry, tiles, geom_, tensors, p_, k_,
+                    splits_, dtype):
+        seen.update(n=len(tensors), p=p_, k=k_, splits=splits_,
+                    label=label_, out=tuple(tensors[-1].shape))
+
+    monkeypatch.setattr(launch, "_launch", fake_launch)
+    monkeypatch.setattr(launch, "_splits", lambda geom_, device: splits)
+    t = lambda *s: torch.zeros(*s)
+    out = launch.forward_launch("lib", label, "e", "t", geom, t(b, nr, p),
+                                t(b, nc, p), t(k, p), t(p, p), t(p),
+                                "bfloat16")
+    assert seen == dict(n=9, p=p, k=k, splits=splits, label=label,
+                        out=(b, nr, p))
+    assert out.shape == (b, nr, p)

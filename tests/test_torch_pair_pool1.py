@@ -227,6 +227,94 @@ def test_launch_wrappers_refuse_cpu_tensors(rng):
     assert (k5.pair_pool.launches, k5.pair_pool_backward.launches) == before
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("which", ["launch_kernel", "launch_backward_kernel"])
+def test_launchers_refuse_cpu_tensors_in_either_dtype(rng, which, dtype):
+    """K5 and K6 launch on CUDA tensors or raise: on CPU tensors neither
+    launcher computes anything (no plain-version result, no launch
+    counted), whatever the compute dtype and feature count."""
+    boxes, scores, valid, cls, a, bb, w = _case(rng, b=1, n=24,
+                                                num_classes=3)
+    cs = _torch_cols(boxes, scores, valid)
+    c = torch.from_numpy(cls)
+    cols = k5.pair_columns(cs, cs, THR, c, c)
+    t = [torch.from_numpy(x) for x in (a, bb, w["wg"], w["w2"], w["b2"])]
+    m = torch.zeros_like(t[0])
+    extra = (m, m) if which == "launch_backward_kernel" else ()
+    before = (k5.pair_pool.launches, k5.pair_pool_backward.launches)
+    with pytest.raises(RuntimeError, match="kernel needs CUDA"):
+        getattr(k5, which)(cols, *t, *extra, dtype)
+    assert (k5.pair_pool.launches, k5.pair_pool_backward.launches) == before
+
+
+@pytest.mark.parametrize("which,label", [("launch_kernel", "K5"),
+                                         ("launch_backward_kernel", "K6")])
+def test_launchers_check_that_pairs_pack(rng, monkeypatch, which, label):
+    """K5 and K6 queue a pair as (row << 16) | column, as K1 and K2 do, so
+    each launcher checks the detection counts (``check_packable``) under
+    its own label before it launches."""
+    boxes, scores, valid, cls, a, bb, w = _case(rng, b=1, n=16)
+    cs = _torch_cols(boxes, scores, valid)
+    cols = k5.pair_columns(cs, cs, THR)
+    t = [torch.from_numpy(x) for x in (a, bb, w["wg"], w["w2"], w["b2"])]
+    seen = []
+
+    class Reached(Exception):
+        pass
+
+    def fake_packable(lbl, geom):
+        seen.append((lbl, geom))
+        raise Reached
+
+    monkeypatch.setattr(k5, "check_inputs", lambda *a_, **k_: None)
+    monkeypatch.setattr(k5, "check_packable", fake_packable)
+    extra = (t[0], t[0]) if label == "K6" else ()
+    before = (k5.pair_pool.launches, k5.pair_pool_backward.launches)
+    with pytest.raises(Reached):
+        getattr(k5, which)(cols, *t, *extra, "float32")
+    assert seen == [(label, cols)]
+    assert (k5.pair_pool.launches, k5.pair_pool_backward.launches) == before
+
+
+@pytest.mark.parametrize("label", ["K5", "K6"])
+@pytest.mark.parametrize("side", ["rows", "cols"])
+def test_k5_k6_refuse_more_detections_than_an_entry_packs(label, side):
+    from gossipnet_tpu_torch.ops.cuda.launch import MAX_DETS, check_packable
+
+    big, small = MAX_DETS + 1, 8
+    nr, nc = (big, small) if side == "rows" else (small, big)
+    cols = k5.PairColumns(torch.empty(1, 14, nr, device="meta"),
+                          torch.empty(1, 14, nc, device="meta"), None, THR)
+    with pytest.raises(ValueError, match=f"{label} takes at most"):
+        check_packable(label, cols)
+    check_packable(label, cols._replace(
+        row=torch.empty(1, 14, MAX_DETS, device="meta"),
+        col=torch.empty(1, 14, MAX_DETS, device="meta")))
+
+
+@pytest.mark.parametrize("b,n,splits", [
+    (2, 4096, 5),    # config 4: 256 row tiles of 64 column tiles
+    (8, 1024, 5),    # the serving bench batch
+    (8, 256, 17),    # an evaluation batch
+    (1, 40, 8),      # one column tile: at most 8 steps to share
+])
+def test_col_splits_on_the_k5_k6_grid(rng, monkeypatch, b, n, splits):
+    """The blocks that share a row tile in K5 and K6, from the flags of
+    the columns as the model builds them, on a card of 132 SMs (H100
+    SXM): enough for about eight blocks per SM, at most one split per
+    step of two tests."""
+    from gossipnet_tpu_torch.ops.cuda import launch
+
+    boxes, scores, valid, *_ = _case(rng, b=b, n=n)
+    cs = _torch_cols(boxes, scores, valid)
+    cols = k5.pair_columns(cs, cs, THR)
+    ni, nj = -(-n // launch.TILE_I), -(-n // launch.TILE_J)
+    assert tuple(cols.flags.shape) == (b, ni, nj)
+    monkeypatch.setattr(launch, "_sm_count", lambda index: 132)
+    assert launch.col_splits(b * ni, nj, 132) == splits
+    assert launch._splits(cols, torch.device("cpu")) == splits
+
+
 # ---------------------------------------------------------------------------
 # K6: the backward (the plain version, through PairPool1)
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ replies must be equal.
 
 import io
 import json
+import threading
 
 import numpy as np
 import jax
@@ -101,6 +102,46 @@ def test_reload_and_warmup(rng, rescorers):
     with pytest.raises(ValueError, match="do not match"):
         r.reload(params=bad)
     r.warmup(batch_size=2)
+
+
+def test_reload_from_another_thread_waits_for_the_batch_in_flight(
+        rng, rescorers):
+    """A reload started from a second thread while a batch's forward is
+    under way (a hook after the first block starts it and waits half a
+    second for it) does not reach that batch: its scores are the old
+    params' exactly, and the next batch's are the new params' exactly."""
+    _, _, params = rescorers
+    cfg = load_config(None, OVERRIDES)
+    bumped = jax.tree.map(lambda x: x * 1.5, params)
+    images = _images(rng, sizes=(10, 20, 30))
+    old = Rescorer(cfg, params, pool_impl="dense",
+                   device="cpu").rescore_batch(images)
+    new = Rescorer(cfg, bumped, pool_impl="dense",
+                   device="cpu").rescore_batch(images)
+    assert not all(np.allclose(o, n) for o, n in zip(old, new))
+    r = Rescorer(cfg, params, pool_impl="dense", device="cpu")
+    threads = []
+
+    def start_reload(module, inputs, output):
+        if threads:
+            return
+        t = threading.Thread(target=r.reload, kwargs={"params": bumped})
+        threads.append(t)
+        t.start()
+        t.join(timeout=0.5)   # a reload that does not wait is done by now
+
+    hook = r.model.blocks[0].register_forward_hook(start_reload)
+    try:
+        during = r.rescore_batch(images)
+    finally:
+        hook.remove()
+    threads[0].join()
+    after = r.rescore_batch(images)
+    assert len(threads) == 1
+    for got, want in zip(during, old):
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(after, new):
+        np.testing.assert_array_equal(got, want)
 
 
 def _requests(rng):
