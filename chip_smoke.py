@@ -19,7 +19,14 @@ Phases (each raises on failure; the script then exits non-zero):
    other bit for bit); a winner count (no winner of K1's max missed); two
    launches bit-identical;
 3c. K3 and K4 against the plain scan, exactly: the training batch with
-   T=1 and T=10, duplicated GT columns (first index wins), N=4096;
+   T=1, T=10 and T=32, duplicated GT columns (first index wins), config
+   4's batch (N=4096, G=400) with T=1 and T=10 and cut to N=4095, rows
+   with more candidates than a list holds, G=1024, all-zero IoU, a tiny
+   G=3, K4 at N=4096; two launches bit-identical; outputs exact in
+   allocator blocks filled with a non-zero pattern first (the kernel
+   writes every output; ``python3 chip_smoke.py --scan-times`` runs this
+   phase and then times K3 and K4 alone, ``--scan-stages`` rebuilds K3
+   with the chain's bit test a no-op);
 4. the serving path: the 16-block serving_bucketed.yaml model with seeded
    numpy weights through the bridge serves images in all five buckets via
    Rescorer.rescore_batch and serve_stream, with K1's launch counter
@@ -39,7 +46,10 @@ Phases (each raises on failure; the script then exits non-zero):
 8. the train CLI runs 5 steps from a temporary YAML and writes metrics;
 9. times of the training path with CUDA events: the step host to host and
    on the device, the device busy share and each kernel's share, K2, K3
-   and K4 ms/launch beside their plain versions and bounds;
+   and K4 ms/launch beside their plain versions and bounds; from K3's own
+   input, the rows with a candidate, the list entries walked, the largest
+   connected component of the det-GT candidate graph and the chain figure
+   (its rows times one dependent shared-memory round trip);
 9b. K1 and K2 on the 16-block models' own launch arguments at the four
    shapes of the main paths (the serving bench batch, config 2's training
    batch, config 4's B=2 N=4096 through pair_kernel 2, an evaluation batch
@@ -71,7 +81,10 @@ Phases (each raises on failure; the script then exits non-zero):
    bench batch) against their plain versions, in bf16 and f32, with the
    fill of stage B's groups and the length of K6's winner queue; K5/K6
    ms/launch (CUDA events and the profiler) beside K1/K2's on the same
-   batch, the forward and the step, with CUDA events and the host clock;
+   batch; K3 on the scan input of config 4's training step (events, the
+   profiler, the plain version, the input's statistics and both figures);
+   the forward and the step, with CUDA events and the host clock, with
+   K3's share of the step's kernel time;
 11. config 3 (coco_multiclass.yaml, 80 classes) on 80-class synthetic
    data: 5 training steps through K1/K2 with the class-match feature and 5
    through K5/K6 with nine features, launches counted; one served batch
@@ -790,19 +803,62 @@ def scan_input(arrays, thresholds, seed=0):
         arrays["gt_valid"], arrays["gt_crowd"], thresholds, impl="kernel"))
 
 
-def compare_scan(name, iou, thresholds, single=False):
+def crowd_training_batch():
+    """Config 4's training batch (B=2 N=4096 G=400), the first of its
+    stream as phase 10 trains on it, on the card."""
+    roidb = synthetic_roidb(**CROWD_DATA)
+    batch = next(BatchIterator(roidb, 2, crowd_config().data.bucket_sizes))
+    return training.batch_to_device(batch, torch.device(DEV))
+
+
+def sparse_iou(rng, b, n, g, per_row, dense_rows=()):
+    """Pre-masked IoU in sixteenths (exact ties) with about ``per_row``
+    candidates a row above 0.3, every fifth row masked, and ``dense_rows``
+    with a candidate in every column (more than a list holds)."""
+    iou = np.round(rng.uniform(0.3, 1.0, (b, n, g)) * 16) / 16
+    iou *= rng.uniform(size=(b, n, g)) < per_row / g
+    iou[:, ::5] = 0.0
+    rows = list(dense_rows)
+    iou[:, rows] = np.round(rng.uniform(0.5, 1.0, (b, len(rows), g)) * 16) / 16
+    return torch.from_numpy(iou.astype(np.float32)).to(DEV)
+
+
+def compare_scan(name, iou, thresholds, single=False, twice=False,
+                 dirty=False):
+    """K3 (K4 with ``single``: one image, a grid of one) against the plain
+    scan, exactly. ``twice``: a second launch must give the same bits.
+    ``dirty``: the caching allocator's free blocks of the outputs' sizes
+    are filled with a non-zero pattern first, and the outputs must land in
+    them, which shows that the kernel writes every output."""
     thr = torch.tensor(thresholds, dtype=torch.float32)
-    if single:
-        got = k3.launch_kernel(iou[None].contiguous(), thr)
-    else:
-        got = k3.launch_kernel(iou, thr)
-    want = k3.greedy_scan_reference(iou[None] if single else iou, thr)
+    x = iou[None].contiguous() if single else iou
+    reused = ""
+    if dirty:
+        shape = x.shape[:2] + (len(thresholds),)
+        junk = [t for _ in range(4) for t in (
+            torch.ones(shape, dtype=torch.bool, device=DEV),
+            torch.full(shape, 0x5A5A5A5A, dtype=torch.int32, device=DEV))]
+        ptrs = {t.data_ptr() for t in junk}
+        del junk
+    got = k3.launch_kernel(x, thr)
+    if dirty:
+        hit = all(t.data_ptr() in ptrs for t in got)
+        reused = f", outputs in the filled blocks: {hit}"
+        if not hit:
+            raise AssertionError(f"{name}: the outputs did not land in the "
+                                 f"filled blocks; the check proves nothing")
+    want = k3.greedy_scan_reference(x, thr)
+    again = k3.launch_kernel(x, thr) if twice else got
     torch.cuda.synchronize()
-    ok = all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(got, want))
-    log(f"  {'K4' if single else 'K3'} {name:<28} shape "
+    ok = all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    over = int(((x >= min(thresholds)).sum(dim=2) > 32).sum().item())
+    log(f"  {'K4' if single else 'K3'} {name:<26} shape "
         f"{tuple(iou.shape)} T={len(thresholds)}: matched "
-        f"{int(want[0].sum().item())}, exact: {ok}")
-    if not ok:
+        f"{int(want[0].sum().item())}, rows past a list {over}, exact: {ok}"
+        + (f", two launches bit-identical: {same}" if twice else "")
+        + reused)
+    if not ok or not same:
         raise AssertionError(f"scan kernel differs from its plain version: "
                              f"{name}")
 
@@ -811,21 +867,40 @@ def phase_scan_cases():
     log("phase 3c: K3/K4 (greedy matching scan) against the plain scan")
     arrays = training_batch()
     iou1, _ = scan_input(arrays, (0.5,))
-    compare_scan("probe_batch_t1", iou1, (0.5,))
+    compare_scan("probe_batch_t1", iou1, (0.5,), dirty=True)
     iou10, _ = scan_input(arrays, COCO_THRESHOLDS, seed=1)
-    compare_scan("probe_batch_t10", iou10, COCO_THRESHOLDS)
+    compare_scan("probe_batch_t10", iou10, COCO_THRESHOLDS, dirty=True)
     g = iou1.shape[2]
     ties = iou1.repeat_interleave(2, dim=2)[:, :, :g].contiguous()
     compare_scan("duplicated_gt_columns", ties, COCO_THRESHOLDS)
+    t32 = tuple(np.round(np.linspace(0.05, 0.95, 32), 3).tolist())
+    compare_scan("probe_batch_t32", iou1, t32, twice=True)
+    compare_scan("probe_image_k4", iou10[3], COCO_THRESHOLDS, single=True)
+    crowd = crowd_training_batch()
+    iou4k, _ = scan_input(crowd, (0.5,))
+    compare_scan("config4_t1", iou4k, (0.5,), dirty=True)
+    iou4k10, _ = scan_input(crowd, COCO_THRESHOLDS, seed=1)
+    compare_scan("config4_t10", iou4k10, COCO_THRESHOLDS, twice=True)
+    compare_scan("config4_n4095", iou4k10[:, :4095].contiguous(),
+                  COCO_THRESHOLDS)
+    rng = np.random.default_rng(11)
+    over = sparse_iou(rng, 2, 300, 112, 4, dense_rows=(3, 50, 51, 200))
+    compare_scan("overflow_rows", over, COCO_THRESHOLDS, twice=True)
+    compare_scan("overflow_rows_k4", over[1], (0.5,), single=True)
+    wide = sparse_iou(rng, 2, 1000, 1024, 6, dense_rows=(7, 998))
+    compare_scan("g1024_n1000", wide, COCO_THRESHOLDS, twice=True)
+    compare_scan("g1024_n1000_t32", wide, t32)
+    compare_scan("all_zero", torch.zeros((2, 257, 112), device=DEV),
+                 COCO_THRESHOLDS, dirty=True)
+    compare_scan("tiny_n5_g3", sparse_iou(rng, 3, 5, 3, 2), (0.5, 0.75))
     rec = layout_record(np.random.default_rng(3), 0, "clustered", 4096)
     big = training.batch_to_device(make_batch([rec], padded_n=4096),
                                    torch.device(DEV))
-    iou4k, _ = capture(k3, "greedy_scan", lambda: matching.greedy_match(
+    iou_one, _ = capture(k3, "greedy_scan", lambda: matching.greedy_match(
         big["boxes"][0], big["scores"][0], big["valid"][0],
         big["gt_boxes"][0], big["gt_valid"][0], big["gt_crowd"][0], (0.5,),
         impl="kernel"))
-    compare_scan("clustered_n4096", iou4k, (0.5,), single=True)
-    return iou1, iou10
+    compare_scan("clustered_n4096", iou_one, (0.5,), single=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1217,13 +1292,82 @@ def k2_bound(args, m, dm, dtype, kern=k1) -> tuple[float, str, str]:
 
 def scan_bound(iou, t) -> tuple[float, str]:
     """The [B, N, G] IoU read once and the outputs written once, against
-    two comparisons per (b, t, n, g); the serial chain over N is what
-    limits the kernel and no bound counts it."""
+    two comparisons per (b, t, n, g). The chain is not in it: see
+    scan_chain."""
     b, n, g = iou.shape
     bytes_s = (iou.numel() * 4 + t * 4 + b * n * t * 5) / PEAK_BYTES
     ops_s = 2 * b * t * n * g / PEAK_F32
     return max(bytes_s, ops_s) * 1e3, \
         "operations" if ops_s >= bytes_s else "bytes"
+
+
+def scan_stats(iou, thresholds, best) -> list[tuple[int, int, int]]:
+    """Per image, at the lowest threshold, from the scan's input and its
+    result ``best`` [B, N, T]: (rows with a candidate, list entries walked
+    until the first untaken GT, rows in the largest connected component of
+    the det-GT candidate graph). Rows of different components never wait
+    on each other, so the largest one is the chain no design can shorten."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    thr = np.asarray(thresholds, np.float32)
+    x = iou.cpu().numpy()
+    bst = best[..., int(thr.argmin())].cpu().numpy()
+    _, n, g = x.shape
+    gidx = np.arange(g)
+    out = []
+    for b in range(x.shape[0]):
+        cand = x[b] >= thr.min()                      # [N, G]
+        count = cand.sum(axis=1)
+        v = x[b, np.arange(n), np.maximum(bst[b], 0)][:, None]
+        ahead = (cand & ((x[b] > v) | ((x[b] == v)
+                                       & (gidx < bst[b][:, None])))).sum(1)
+        walked = int(np.where(bst[b] >= 0, ahead + 1, count).sum())
+        r, c = np.nonzero(cand)
+        graph = coo_matrix((np.ones(len(r)), (r, n + c)), shape=(n + g,) * 2)
+        _, labels = connected_components(graph, directed=False)
+        rows = labels[:n][count > 0]
+        largest = int(np.bincount(rows).max()) if len(rows) else 0
+        out.append((int((count > 0).sum()), walked, largest))
+    return out
+
+
+CHAIN_CYCLES = 32   # one dependent shared-memory round trip (load latency)
+
+
+def sm_clock_mhz() -> float:
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.split()[0])
+
+
+def scan_chain(stats) -> tuple[float, str]:
+    """The chain figure: the largest component's rows (images run side by
+    side) x one dependent shared-memory round trip at the SM's top clock."""
+    rows = max(s[2] for s in stats)
+    mhz = sm_clock_mhz()
+    ms = rows * CHAIN_CYCLES / (mhz * 1e3)
+    return ms, (f"{rows} rows in the largest component x {CHAIN_CYCLES} "
+                f"cycles at {mhz:.0f} MHz")
+
+
+def log_scan_stats(label, iou, thresholds, best) -> float:
+    """Logs the scan's input statistics and both figures; returns the
+    chain figure in ms."""
+    stats = scan_stats(iou, thresholds, best)
+    n = iou.shape[1]
+    bound_ms, by = scan_bound(iou, len(thresholds))
+    chain_ms, how = scan_chain(stats)
+    log(f"  {label}: per image, rows with a candidate "
+        f"{'/'.join(str(s[0]) for s in stats)} of {n}; list entries walked "
+        f"{'/'.join(str(s[1]) for s in stats)} ("
+        f"{sum(s[1] for s in stats) / max(1, sum(s[0] for s in stats)):.2f} "
+        f"a row); largest component {'/'.join(str(s[2]) for s in stats)} "
+        f"rows")
+    log(f"  {label}: bound {bound_ms:.6f} ms ({by}); chain figure "
+        f"{chain_ms:.6f} ms ({how})")
+    return chain_ms
 
 
 def phase_train_times(state, tmp: Path) -> dict:
@@ -1287,9 +1431,11 @@ def phase_train_times(state, tmp: Path) -> dict:
     log_kernels(by_name, busy_ms, "step")
     log(f"  K2 {dtype}: {k2_ms:.4f} ms/launch; plain {k2_plain_ms:.3f} ms; "
         f"bound {k2_bound_ms:.5f} ms ({k2_by}: {k2_how})")
+    _, best = k3.launch_kernel(iou, thr)
+    log_scan_stats(f"K3's input T={len(thr)}", iou, thr.tolist(), best)
     log(f"  K3 T={len(thr)}: {k3_ms:.4f} ms/launch; plain {k3_plain_ms:.3f} "
         f"ms; bound {k3_bound_ms:.6f} ms ({k3_by}, {iou.numel() * 4 / 1e6:.2f}"
-        f" MB of IoU; the serial chain of {iou.shape[1]} steps limits it)")
+        f" MB of IoU)")
     log(f"  K4 (one image): {k4_ms:.4f} ms/launch; plain {k4_plain_ms:.3f} ms;"
         f" bound {k4_bound_ms:.6f} ms ({k4_by})")
     return {
@@ -2015,6 +2161,18 @@ def phase_crowd_times(state, cfg, batch) -> tuple[dict, dict]:
         f"{k1_ms:.4f} ms/launch, K2 {k2_ms:.4f} ms/launch (K5 "
         f"{times['pair_pool_fwd']['ms']:.4f}, K6 "
         f"{times['pair_pool_bwd']['ms']:.4f})")
+    # K3 on the scan input of config 4's training step
+    iou, thr = capture(k3, "greedy_scan_batched",
+                       lambda: training.train_step(state, arrays, cfg))
+    k3_ms = cuda_time(lambda: k3.launch_kernel(iou, thr), iters=50)
+    k3_dev, _ = scan_device_ms(lambda: k3.launch_kernel(iou, thr))
+    k3_plain_ms = cuda_time(lambda: k3.greedy_scan_reference(iou, thr),
+                            iters=1, warmup=1)
+    _, best = k3.launch_kernel(iou, thr)
+    log_scan_stats(f"config 4 K3's input T={len(thr)}", iou, thr.tolist(),
+                   best)
+    log(f"  config 4 B=2 N=4096 G={iou.shape[2]}: K3 {k3_ms:.4f} ms/launch "
+        f"by events, {k3_dev:.4f} on the device; plain {k3_plain_ms:.3f} ms")
 
     # the same model through the default pair_kernel 2, a state of its own
     cfg2 = crowd_config(pair_kernel=2)
@@ -2039,9 +2197,12 @@ def phase_crowd_times(state, cfg, batch) -> tuple[dict, dict]:
             busy_ms, by_name = profile_kernels(fn, reps=2)
             share = sum(v for key, v in by_name.items()
                         if any(n in key for n in names))
+            scan = sum(v for key, v in by_name.items()
+                       if "greedy_scan" in key)
             busy = (f"device busy {busy_ms / events:.3f}, kernels "
                     f"{busy_ms:.3f} ms, the pair kernels "
-                    f"{share / busy_ms:.3f} of kernel time" if busy_ms
+                    f"{share / busy_ms:.3f} of kernel time, K3 "
+                    f"{scan / busy_ms:.4f} ({scan:.4f} ms)" if busy_ms
                     else "profile: not measured")
             log(f"  config 4 {name}, pair_kernel {pk}, ms (events, host, "
                 f"host, events): {', '.join(f'{x:.3f}' for x in runs)}; CUDA "
@@ -2332,6 +2493,91 @@ def phase_k1_stages():
         build._loaded.pop("pairwise2_fwd", None)
 
 
+def scan_time_inputs() -> dict:
+    """The scan inputs of ``--scan-times``, made as scan_input makes them:
+    K3 at config 2's and config 4's training batches, T=1 and T=10, and
+    K4 on one config-2 image -> {label: (iou, thresholds)}."""
+    inputs = {}
+    for label, arrays in (("K3 config 2 B=8 N=1024 G=112", training_batch()),
+                          ("K3 config 4 B=2 N=4096 G=400",
+                           crowd_training_batch())):
+        for thr in ((0.5,), COCO_THRESHOLDS):
+            inputs[f"{label} T={len(thr)}"] = scan_input(arrays, thr)
+    iou, thr = inputs["K3 config 2 B=8 N=1024 G=112 T=1"]
+    inputs["K4 one config-2 image T=1"] = (iou[:1].contiguous(), thr)
+    return inputs
+
+
+def phase_scan_times():
+    """K3 and K4 timed: CUDA events around 50 launches (twice), then the
+    device time from the profiler, beside the bound and the chain figure.
+    Only ``greedy_match_batch(impl="kernel")`` and ``launch_kernel`` of the
+    package are used, so a copy of this script beside an older tree times
+    that tree's kernel on the same card."""
+    log("K3/K4 times: ms/launch by CUDA events (two chains of 50), then on "
+        "the device (profiler)")
+    for label, (iou, thr) in scan_time_inputs().items():
+        def fn():
+            k3.launch_kernel(iou, thr)
+
+        events = [cuda_time(fn, iters=50) for _ in range(2)]
+        kernel, call = scan_device_ms(fn)
+        _, best = k3.launch_kernel(iou, thr)
+        log_scan_stats(label, iou, thr.tolist(), best)
+        log(f"  {label}: events {events[0]:.4f}, {events[1]:.4f}; device "
+            f"{kernel:.4f} ms/launch (the whole call, copies and fills "
+            f"included: {call:.4f})")
+
+
+def scan_device_ms(fn, reps: int = 20) -> tuple[float, float]:
+    """(the scan kernel's device ms, all device ms of the call) per call
+    from the profiler; zeros when the trace holds no device time."""
+    for _ in range(2):
+        busy, by_name = profile_kernels(fn, reps)
+        if busy:
+            return sum(v for key, v in by_name.items()
+                       if "greedy_scan" in key), busy
+    return 0.0, 0.0
+
+
+# -D flags of a scratch build of matching_scan.cu: (label, flags)
+SCAN_BUILDS = (
+    ("as built", ()),
+    ("the chain's bit test a no-op", ("-DGNET_ABLATE_CHAIN",)),
+)
+
+
+def phase_scan_stages():
+    """Who sets K3's pace: the kernel as built (outputs checked) and
+    rebuilt with the chain's bit test a no-op (the producers' pace; outputs
+    wrong, not read), timed on the device."""
+    inputs = scan_time_inputs()
+    label, (iou, thr) = next(iter(inputs.items()))
+    want = k3.greedy_scan_reference(iou, thr)
+    flags = build.NVCC_FLAGS
+    log("K3/K4 by build: device ms per launch (profiler) at "
+        + "; ".join(inputs))
+    try:
+        for name, extra in SCAN_BUILDS:
+            build.NVCC_FLAGS = flags + extra
+            build._loaded.pop("matching_scan", None)
+            build.build(["matching_scan"])
+            exact = "not read"
+            if "ABLATE" not in " ".join(extra):
+                got = k3.launch_kernel(iou, thr)
+                exact = all(torch.equal(a, b) for a, b in zip(got, want))
+                if not exact:
+                    raise AssertionError(f"K3 built with {extra} differs "
+                                         f"from its plain version")
+            cells = [f"{scan_device_ms(lambda: k3.launch_kernel(x, t))[0]:.4f}"
+                     for x, t in inputs.values()]
+            log(f"  {name:<30} {' '.join(cells)} (exact at {label}: "
+                f"{exact})")
+    finally:
+        build.NVCC_FLAGS = flags
+        build._loaded.pop("matching_scan", None)
+
+
 def device_ms(fn, reps: int = 10) -> float:
     """Device time of one call's kernels from the profiler; a second try
     if the first trace came back empty, then 0.0 (not measured)."""
@@ -2413,6 +2659,18 @@ def main() -> int:
         phase_build(PAIR_KERNELS)
         phase_pair_shapes(check=False)
         phase_k5_k6_shapes()
+        log(card)
+        return 0
+    if sys.argv[1:] == ["--scan-times"]:
+        # K3/K4 alone: built, checked (phase 3c), timed; no result line.
+        phase_build(("matching_scan",))
+        phase_scan_cases()
+        phase_scan_times()
+        log(card)
+        return 0
+    if sys.argv[1:] == ["--scan-stages"]:
+        phase_build(("matching_scan",))
+        phase_scan_stages()
         log(card)
         return 0
     if sys.argv[1:] == ["--k1-stages"]:

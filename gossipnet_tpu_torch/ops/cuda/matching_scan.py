@@ -11,6 +11,10 @@ and non-real GTs zeroed), so thresholds must be > 0.
 tensors they run :func:`greedy_scan_reference`. Thresholds are a 1-D
 float tensor, on the host or on the IoU's device. The kernel does
 comparisons only, so it equals the plain version exactly.
+
+:func:`scan_lists_reference` is the kernel's algorithm in plain torch
+(candidate lists, prefixes per threshold, the overflow path, the walk);
+tests hold it against the reference scans. It is no path of the port.
 """
 
 from __future__ import annotations
@@ -71,6 +75,66 @@ def greedy_scan_reference(iou: Tensor, thresholds: Tensor):
     return scan_loop(iou.float(), thresholds.to(iou.device, torch.float32))
 
 
+def scan_lists_reference(iou: Tensor, thresholds: Tensor,
+                         cap: int = 32) -> tuple[Tensor, Tensor]:
+    """The kernel's algorithm in plain torch, on pre-masked IoU [B, N, G]
+    -> (matched, best) [B, N, T], the same function as
+    :func:`greedy_scan_reference`.
+
+    Each row's candidates at the lowest threshold, ordered by (IoU desc,
+    GT index asc), form its list; the candidates at threshold t are the
+    list's prefix of IoU >= t. A row with no candidate is unmatched and
+    leaves ``taken`` alone. A row with more than ``cap`` candidates takes
+    the full-row argmax (the kernel's overflow path). Any other row, per
+    threshold, takes the first entry of its prefix whose GT is not taken.
+    """
+    _check_thresholds(thresholds)
+    iou = iou.float()
+    thr = thresholds.to(iou.device, torch.float32)
+    bsz, n, g = iou.shape
+    t = thr.shape[0]
+    dev = iou.device
+    if g == 0:
+        return (torch.zeros((bsz, n, t), dtype=torch.bool, device=dev),
+                torch.full((bsz, n, t), -1, dtype=torch.int32, device=dev))
+    order = torch.sort(-iou, dim=2, stable=True).indices   # GT asc on ties
+    values = torch.gather(iou, 2, order)
+    count = (iou >= thr.min()).sum(dim=2)                   # [B, N]
+    width = min(cap, g)
+    lists, list_v = order[..., :width], values[..., :width]
+    entry = torch.arange(width, device=dev)
+    gidx = torch.arange(g, device=dev)
+    taken = torch.zeros((bsz, t, g), dtype=torch.bool, device=dev)
+    matched = torch.zeros((bsz, n, t), dtype=torch.bool, device=dev)
+    best = torch.full((bsz, n, t), -1, dtype=torch.int32, device=dev)
+    for i in range(n):
+        cnt = count[:, i]                                   # [B]
+        ids, v = lists[:, i], list_v[:, i]                  # [B, W]
+        in_list = entry[None, :] < cnt[:, None]
+        # the prefix length per threshold, then the bit test of each entry
+        prefix = ((v[:, None, :] >= thr[None, :, None])
+                  & in_list[:, None, :]).sum(dim=2)         # [B, T]
+        bit = torch.gather(taken, 2, ids[:, None, :].expand(bsz, t, width))
+        free = (entry[None, None, :] < prefix[..., None]) & ~bit
+        hit = free.any(dim=2)
+        first = free.int().argmax(dim=2)                    # first free
+        pick = torch.gather(ids, 1, first)                  # [B, T]
+        # overflow: the whole row, largest IoU, lowest index on ties
+        row = iou[:, i, None, :]                            # [B, 1, G]
+        elig = (row >= thr[None, :, None]) & ~taken
+        cand = torch.where(elig, row, torch.full_like(row, NEG_INF))
+        mx = cand.amax(dim=2, keepdim=True)
+        full_hit = elig.any(dim=2)
+        full_pick = torch.where(elig & (cand == mx), gidx, g).amin(dim=2)
+        over = (cnt > cap)[:, None]
+        hit = torch.where(over, full_hit, hit)
+        pick = torch.where(over, full_pick, pick)
+        taken = taken | ((gidx == pick[..., None]) & hit[..., None])
+        matched[:, i] = hit
+        best[:, i] = torch.where(hit, pick, -1).to(torch.int32)
+    return matched, best
+
+
 def _library() -> ctypes.CDLL:
     from gossipnet_tpu_torch.ops.cuda import build
 
@@ -105,10 +169,13 @@ def launch_kernel(iou: Tensor, thresholds: Tensor,
         raise ValueError(f"the scan kernel takes G <= "
                          f"{lib.gnet_greedy_scan_max_g()} and T <= 32, got "
                          f"G={g}, T={t}")
-    matched = torch.zeros((bsz, n, t), dtype=torch.bool, device=iou.device)
-    best = torch.full((bsz, n, t), -1, dtype=torch.int32, device=iou.device)
-    if g == 0:
-        return matched, best
+    if g == 0:   # no GT: nothing to launch, every row unmatched
+        return (torch.zeros((bsz, n, t), dtype=torch.bool, device=iou.device),
+                torch.full((bsz, n, t), -1, dtype=torch.int32,
+                           device=iou.device))
+    # the kernel writes every output: no fill launch
+    matched = torch.empty((bsz, n, t), dtype=torch.bool, device=iou.device)
+    best = torch.empty((bsz, n, t), dtype=torch.int32, device=iou.device)
     thr = thresholds.to(iou.device, torch.float32,
                         non_blocking=True).contiguous()
     with torch.cuda.device(iou.device):

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: K1
 (pair-pool forward), K2 (its backward: f32, bf16, the tie rule, two
-launches bit-identical), K3/K4 (the matching scan, exactly), K5/K6 (the
+launches bit-identical), K3/K4 (the matching scan, exactly: overflow rows,
+G = 1024, 400 and 13, N = 4096 and N not a multiple of 32, T = 32, all-zero
+IoU, two launches bit-identical, every output written), K5/K6 (the
 unfolded pair pool and its backward, the same checks), K7 (the per-tile
 ablation: six modes, three column tiles), one training step
 of config 2 and one of config 3 through K5/K6, with their launch counts;
@@ -221,6 +223,83 @@ def test_k3_k4_match_plain_scan_exactly_on_card(t):
         assert torch.equal(x.cpu(), y.cpu())
     for x, y in zip(one, want):
         assert torch.equal(x.cpu(), y[1].cpu())
+
+
+def _sparse_iou(rng, b, n, g, per_row, dense_rows=()):
+    """Pre-masked IoU in sixteenths (exact ties), about ``per_row``
+    candidates a row, every fifth row masked, ``dense_rows`` with a
+    candidate in every column (more than a candidate list holds)."""
+    iou = np.round(rng.uniform(0.3, 1.0, (b, n, g)) * 16) / 16
+    iou *= rng.uniform(size=(b, n, g)) < per_row / g
+    iou[:, ::5] = 0.0
+    rows = list(dense_rows)
+    iou[:, rows] = np.round(rng.uniform(0.5, 1.0, (b, len(rows), g)) * 16) / 16
+    return iou.astype(np.float32)
+
+
+COCO_T = np.round(np.arange(0.5, 0.951, 0.05), 2).astype(np.float32)
+T32 = np.round(np.linspace(0.05, 0.95, 32), 3).astype(np.float32)
+SCAN_CASES = {   # name: (iou maker, thresholds)
+    "overflow_rows": (lambda r: _sparse_iou(r, 2, 300, 112, 4, (3, 50, 51)),
+                      COCO_T),
+    "g1024_n1000": (lambda r: _sparse_iou(r, 2, 1000, 1024, 6, (7, 998)),
+                    COCO_T),
+    "g400_n4096": (lambda r: _sparse_iou(r, 2, 4096, 400, 3, (100,)),
+                   np.float32([0.5])),
+    "n_not_a_multiple_of_32": (lambda r: _sparse_iou(r, 3, 77, 16, 2),
+                               COCO_T),
+    "t32": (lambda r: _sparse_iou(r, 2, 500, 112, 8, (40,)), T32),
+    "g_not_a_multiple_of_4": (lambda r: _sparse_iou(r, 2, 130, 13, 3, (9,)),
+                              COCO_T[:3]),
+    "all_zero": (lambda r: np.zeros((2, 257, 112), np.float32), COCO_T),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SCAN_CASES))
+def test_k3_k4_cases_exact_on_card(name):
+    """K3 on each case, and K4 on its first image, exactly as the plain
+    scan; two launches bit-identical."""
+    from gossipnet_tpu_torch.ops.cuda import matching_scan as k3
+
+    dev = _card()
+    make, thr_np = SCAN_CASES[name]
+    iou = torch.from_numpy(make(np.random.default_rng(5))).to(dev)
+    thr = torch.from_numpy(thr_np)
+    got = k3.greedy_scan_batched(iou, thr)
+    again = k3.launch_kernel(iou, thr)
+    one = k3.greedy_scan(iou[0], thr)
+    want = k3.greedy_scan_reference(iou, thr)
+    torch.cuda.synchronize()
+    for x, y, z in zip(got, again, want):
+        assert torch.equal(x, y)
+        assert torch.equal(x.cpu(), z.cpu())
+    for x, z in zip(one, want):
+        assert torch.equal(x.cpu(), z[0].cpu())
+
+
+@pytest.mark.cuda
+def test_k3_writes_every_output_on_card():
+    """The outputs come from torch.empty: filled blocks of their sizes in
+    the caching allocator are reused, and the result is still exact."""
+    from gossipnet_tpu_torch.ops.cuda import matching_scan as k3
+
+    dev = _card()
+    iou = torch.from_numpy(_sparse_iou(np.random.default_rng(6), 4, 700,
+                                       112, 3, (11,))).to(dev)
+    thr = torch.from_numpy(COCO_T)
+    shape = (4, 700, len(COCO_T))
+    junk = [x for _ in range(4) for x in (
+        torch.ones(shape, dtype=torch.bool, device=dev),
+        torch.full(shape, 0x5A5A5A5A, dtype=torch.int32, device=dev))]
+    ptrs = {x.data_ptr() for x in junk}
+    del junk
+    got = k3.launch_kernel(iou, thr)
+    want = k3.greedy_scan_reference(iou, thr)
+    torch.cuda.synchronize()
+    assert all(x.data_ptr() in ptrs for x in got)
+    for x, y in zip(got, want):
+        assert torch.equal(x.cpu(), y.cpu())
 
 
 @pytest.mark.cuda
