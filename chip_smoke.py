@@ -93,13 +93,20 @@ Phases (each raises on failure; the script then exits non-zero):
    (pair_ablate.cu), against its plain version: six modes x column tiles
    of 32, 64 and 128 at a small ragged shape with invalid detections and
    at the probe's own B=8 N=1024 P=32: the five f32 modes at rtol = atol =
-   1e-5, bf3d within one bf16 step and bit-equal on 99%, rows without a
-   neighbour (-1e30) at the same places, two launches bit-identical;
+   1e-5 (nofc2, h1 as it is, bit-equal), bf3d within one bf16 step and
+   bit-equal on 99%, rows without a neighbour (-1e30) at the same places,
+   two launches bit-identical; W2 a permutation matrix and b2 = 0, so
+   that any misplaced fragment shows: full and bf3d bit-equal; the build's
+   18 instantiations without a spill (ptxas), with HMMA in every mode but
+   nofc2 and none there (cuobjdump -sass);
 12. the ablation tool (gossipnet_tpu_torch.tools.kernel_ablate) as a user
    runs it: ``all`` chains 40 K7 launches per mode, times them with CUDA
    events and prints ms/call, us/tile and full - mode; the launch counter
-   must read 40 per timed chain and 41 per mode with its warm-up; then ``full`` at column tiles 32 and 128; the
-   plain version's time and the bound per mode;
+   must read 40 per timed chain and 41 per mode with its warm-up; then
+   ``full`` at column tiles 32 and 128; the plain version's time, the
+   bound and the CUDA-core figure (FC1, the elementwise work, IoU and
+   features at the f32 rate: this design's floor) per mode, each with
+   its share of the time;
 13. the evaluation path: evaluate.main on the card evaluates 64 synthetic
    images with the 16-block config 2 model (seeded weights), 16 K1
    launches per batch and no other kernel; its scores equal
@@ -1546,9 +1553,57 @@ def k7_inputs(small: bool) -> dict:
     return inputs
 
 
+def permuted_w2(inputs: dict, seed: int = 3) -> dict:
+    """The inputs with W2 a permutation matrix and b2 = 0: each pre2[q] is
+    then one exact product h1[p] * 1, whatever order FC2 sums in, so the
+    kernel must equal the plain version bit for bit unless a fragment puts
+    a (slot, p, q) in the wrong place."""
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(k7.P))
+    w2 = torch.zeros_like(inputs["w2"])
+    w2[torch.arange(k7.P), perm.to(w2.device)] = 1.0
+    return {**inputs, "w2": w2, "b2": torch.zeros_like(inputs["b2"])}
+
+
+def k7_check(label, inputs, mode, tile_j, want, exact=False) -> float:
+    """One K7 case against ``want``, the plain version's output: the five
+    f32 modes at rtol = atol = 1e-5, bf3d within one bf16 step and
+    bit-equal on 99%, ``exact``: bit-equal everywhere; rows without a
+    neighbour (-1e30) at the same places, two launches bit-identical."""
+    args = [inputs[k] for k in K7_ARGS]
+    empty = want < -1e29                 # the mask value, f32 or bf16
+    got = k7.pair_ablate(*args, mode, tile_j)
+    again = k7.pair_ablate(*args, mode, tile_j)
+    torch.cuda.synchronize()
+    same_rows = torch.equal(got < -1e29, empty)
+    err = ((got - want).abs()[~empty].max().item()
+           if (~empty).any() else 0.0)
+    equal = (got == want).float().mean().item()
+    if exact:
+        ok, tol = torch.equal(got, want), "bit-equal"
+    elif mode == "bf3d":
+        ok = (torch.allclose(got, want, rtol=BF16_STEP, atol=0.0)
+              and equal >= 0.99)
+        tol = "one bf16 step, 99% bit-equal"
+    else:
+        ok, tol = torch.allclose(got, want, **F32_TOL), TOL_TEXT["float32"]
+    ok = ok and same_rows and torch.equal(got, again)
+    log(f"  K7 {label:<22} {mode:<7} TJ={tile_j:<4} max_abs_err="
+        f"{err:.3e} bit-equal {equal:.4f} rows at -1e30 "
+        f"{int(empty.all(-1).sum())} (same places: {same_rows}) "
+        f"tol {tol}; two launches bit-identical -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(
+            f"K7 disagrees with its plain version: {label} {mode} "
+            f"TILE_J={tile_j} max_abs_err={err}")
+    return err
+
+
 def phase_k7_cases() -> float:
     log("phase 3f: K7 (the per-tile ablation of the pair tile) against its "
-        "plain version: six modes x TILE_J 32, 64, 128")
+        "plain version: six modes x TILE_J 32, 64, 128; nofc2 (h1 as it is) "
+        "bit-equal; W2 a permutation and b2 = 0 (full, bf3d) bit-equal")
+    k7_sass_check()
     worst = 0.0
     for label, small in (("small_b2_n200_ragged", True),
                          ("probe_b8_n1024", False)):
@@ -1556,59 +1611,79 @@ def phase_k7_cases() -> float:
         args = [inputs[k] for k in K7_ARGS]
         for mode in k7.MODES:
             want = k7.pair_ablate_reference(*args, mode)
-            empty = want < -1e29             # the mask value, f32 or bf16
             for tile_j in k7.TILE_JS:
-                got = k7.pair_ablate(*args, mode, tile_j)
-                again = k7.pair_ablate(*args, mode, tile_j)
-                torch.cuda.synchronize()
-                same_rows = torch.equal(got < -1e29, empty)
-                err = ((got - want).abs()[~empty].max().item()
-                       if (~empty).any() else 0.0)
-                equal = (got == want).float().mean().item()
-                if mode == "bf3d":
-                    ok = (torch.allclose(got, want, rtol=BF16_STEP, atol=0.0)
-                          and equal >= 0.99)
-                    tol = "one bf16 step, 99% bit-equal"
-                else:
-                    ok = torch.allclose(got, want, **F32_TOL)
-                    tol = TOL_TEXT["float32"]
-                ok = ok and same_rows and torch.equal(got, again)
-                log(f"  K7 {label:<22} {mode:<7} TJ={tile_j:<4} max_abs_err="
-                    f"{err:.3e} bit-equal {equal:.4f} rows at -1e30 "
-                    f"{int(empty.all(-1).sum())} (same places: {same_rows}) "
-                    f"tol {tol}; two launches bit-identical -> "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise AssertionError(
-                        f"K7 disagrees with its plain version: {label} "
-                        f"{mode} TILE_J={tile_j} max_abs_err={err}")
-                worst = max(worst, err)
+                worst = max(worst, k7_check(label, inputs, mode, tile_j, want,
+                                            exact=mode == "nofc2"))
+        perm = permuted_w2(inputs)
+        for mode in ("full", "bf3d"):
+            want = k7.pair_ablate_reference(*[perm[k] for k in K7_ARGS],
+                                            mode)
+            for tile_j in k7.TILE_JS:
+                k7_check(f"{label}_permW2", perm, mode, tile_j, want,
+                         exact=True)
     return worst
 
 
-def k7_bound(inputs: dict, mode: str) -> tuple[float, str, str]:
+def k7_sass_check() -> None:
+    """ptxas and cuobjdump on the built pair_ablate library: no spill in
+    any of the 18 instantiations, HMMA (the tensor cores' mma.sync) in
+    every mode that keeps FC2 and none in nofc2."""
+    import re
+
+    spills = [line.strip() for line in
+              build.build_logs.get("pair_ablate", "").splitlines()
+              if "spill" in line and not re.search(
+                  r"0 bytes spill stores, 0 bytes spill loads", line)]
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(build.library_path("pair_ablate"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    hmma, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*pair_ablate_kernelILi(\d+)ELi(\d+)E",
+                      line)
+        if m:
+            name = (k7.MODES[int(m.group(1))], int(m.group(2)))
+            hmma[name] = 0
+        elif name and "HMMA" in line:
+            hmma[name] += 1
+    log("  K7 SASS (cuobjdump -sass): HMMA per instantiation "
+        + ", ".join(f"{mode}/{tj} {n}" for (mode, tj), n in sorted(
+            hmma.items(), key=lambda x: (k7.MODES.index(x[0][0]), x[0][1]))))
+    want = {(mode, tj) for mode in k7.MODES for tj in k7.TILE_JS}
+    wrong = [k for k, n in hmma.items() if (n == 0) != (k[0] == "nofc2")]
+    if set(hmma) != want or wrong or spills:
+        raise AssertionError(f"K7 build: instantiations {sorted(hmma)}, "
+                             f"HMMA where not expected or missing {wrong}, "
+                             f"spills {spills}")
+
+
+def k7_bound(inputs: dict, mode: str) -> tuple[float, str, str, float]:
     """The least time for K7's work in ``mode`` on these inputs. K7 is
     dense, so nothing depends on the data: every pair goes through the IoU
     test (two operations for the stand-in), the features (not ``nofeat``;
     dead code in ``nogw``), the Wg product (not ``nogw``), the adds, FC2
     (not ``nofc2``) and the mask; each input is read and the output
-    written once."""
+    written once. Also the CUDA-core figure of this design, which runs
+    FC2 alone on the tensor cores: the same work without FC2, all of it
+    at the f32 rate (read the time against it, as K3's against its chain
+    figure)."""
     cols, a = inputs["cols"], inputs["a"]
     bsz, _, n = cols.shape
     p, g = k7.P, k7.G
     pairs = bsz * n * n
-    per_pair = 4 * p + (0 if mode == "nogw" else 2 * g * p) \
-        + (0 if mode == "nofc2" else 2 * p * p)
+    fc1 = 0 if mode == "nogw" else 2 * g * p
+    per_pair = 4 * p + fc1 + (0 if mode == "nofc2" else 2 * p * p)
     feature_ops = 0 if mode in ("nofeat", "nogw") else FEATURE_OPS
-    ops_s = pairs * per_pair / PEAK_BF16 + pairs * (
-        (2 if mode == "nofeat" else IOU_OPS) + feature_ops) / PEAK_F32
+    test_ops = (2 if mode == "nofeat" else IOU_OPS) + feature_ops
+    ops_s = pairs * per_pair / PEAK_BF16 + pairs * test_ops / PEAK_F32
     nbytes = sum(inputs[k].numel() * 4 for k in K7_ARGS) + a.numel() * 4
     bytes_s = nbytes / PEAK_BYTES
-    how = (f"{pairs} pairs x {per_pair} product and "
-           f"{(2 if mode == 'nofeat' else IOU_OPS) + feature_ops} f32 ops, "
+    core_ms = pairs * (fc1 + 4 * p + test_ops) / PEAK_F32 * 1e3
+    how = (f"{pairs} pairs x {per_pair} product and {test_ops} f32 ops, "
            f"{nbytes / 1e6:.2f} MB")
     return max(ops_s, bytes_s) * 1e3, \
-        "operations" if ops_s >= bytes_s else "bytes", how
+        "operations" if ops_s >= bytes_s else "bytes", how, core_ms
 
 
 def phase_ablate() -> tuple[dict, int]:
@@ -1644,13 +1719,17 @@ def phase_ablate() -> tuple[dict, int]:
             raise AssertionError(f"ablation chain of {mode} is not finite")
         plain_ms, _ = cuda_once(
             lambda: k7.pair_ablate_reference(*args, mode))
-        bound_ms, by, how = k7_bound(inputs, mode)
+        bound_ms, by, how, core_ms = k7_bound(inputs, mode)
         out[mode] = dict(ms=r["ms"], plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=by)
         log(f"  K7 {mode:<7} TJ=64: {r['ms']:.4f} ms/call, "
             f"{r['us_per_tile']:.4f} us/tile; full - mode "
             f"{r.get('full_minus_ms', 0.0):+.4f} ms; plain {plain_ms:.3f} "
-            f"ms; bound {bound_ms:.5f} ms ({by}: {how})")
+            f"ms; bound {bound_ms:.5f} ms ({by}: {how}), "
+            f"{bound_ms / r['ms']:.4f} of it; CUDA-core figure "
+            f"{core_ms:.5f} ms (FC1, elementwise, IoU and features at 67 "
+            f"TFLOP/s: read the time against this), {core_ms / r['ms']:.4f} "
+            f"of it")
     return out["full"], launches["pair_ablate"]
 
 

@@ -31,6 +31,11 @@ is [B, N, P], so it can feed ``a`` of the next call as the probe chains it.
 (``csrc/pair_ablate.cu``) or raise, CPU tensors run
 :func:`pair_ablate_reference`, which repeats the kernel's arithmetic (its
 fmaf chains in float64, ``pairwise2._fma``; the same bf16 rounding points).
+The kernel runs FC2 on the tensor cores (``pair_group.cuh::fc2_mma``), so
+its sum of the same exact bf16 products is in another order than the
+plain version's fmaf chain: rtol = atol = 1e-5 in the five f32 modes, one
+bf16 step in ``bf3d``; h1 and everything before it are the plain
+version's bit for bit.
 """
 
 from __future__ import annotations
@@ -84,14 +89,43 @@ def _check(cols: Tensor, a: Tensor, b: Tensor, wg: Tensor, w2: Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _fc2_fmaf(h1: Tensor, w2r: Tensor) -> Tensor:
+    """FC2's dot as an fmaf chain from 0 over the input index p ascending."""
+    pre2 = torch.zeros_like(h1)
+    for p in range(P):
+        pre2 = _fma(h1[..., p:p + 1], w2r[p], pre2)
+    return pre2
+
+
+def _fc2_mma(h1: Tensor, w2r: Tensor) -> Tensor:
+    """FC2's dot in the order of the kernel's tensor-core product
+    (``fc2_mma``, two m16n8k16 k blocks): from 0, each block of 16 exact
+    bf16 x bf16 products summed exactly (float64) and added to the f32
+    accumulator with one rounding. The hardware adds a block with its own
+    alignment and rounding, so this is the order, not the card's bits."""
+    acc = torch.zeros(h1.shape, dtype=torch.float64, device=h1.device)
+    h, w = h1.double(), w2r.double()
+    for k0 in range(0, P, 16):
+        acc = (acc + h[..., k0:k0 + 16] @ w[k0:k0 + 16]).float().double()
+    return acc.float()
+
+
+_FC2_ORDERS = {"fmaf": _fc2_fmaf, "mma": _fc2_mma}
+
+
 def pair_ablate_reference(cols: Tensor, a: Tensor, b: Tensor, wg: Tensor,
                           w2: Tensor, b2: Tensor, mode: str,
-                          tile_j: int = 64, thr: float = 0.2) -> Tensor:
+                          tile_j: int = 64, thr: float = 0.2,
+                          fc2_order: str = "fmaf") -> Tensor:
     """Plain PyTorch K7 on any device -> [B, N, P] float32: the dense
     [B, rows, N, P] pair tensor in row chunks, with the kernel's rounding
     points (explicit bf16 casts on the dots' operands, bf16 adds in
-    ``bf3d``) and its fmaf chains. ``tile_j`` changes nothing here."""
+    ``bf3d``) and its fmaf chains. ``tile_j`` changes nothing here.
+    ``fc2_order``: ``"fmaf"`` (the oracle) sums FC2 as an fmaf chain,
+    ``"mma"`` in the tensor cores' order (``_fc2_mma``; the tests use it
+    to show that the oracle's tolerance holds that order)."""
     _check(cols, a, b, wg, w2, b2, mode, tile_j)
+    fc2 = _FC2_ORDERS[fc2_order]
     bf = mode == "bf3d"
     bsz, _, n = cols.shape
     f32 = dict(dtype=torch.float32, device=a.device)
@@ -126,9 +160,7 @@ def pair_ablate_reference(cols: Tensor, a: Tensor, b: Tensor, wg: Tensor,
             h2 = h1
         else:
             h1 = h1 if bf else _bf16(h1)                         # the dot's operand
-            pre2 = torch.zeros_like(h1)
-            for p in range(P):                                   # FC2 input index
-                pre2 = _fma(h1[..., p:p + 1], w2r[p], pre2)
+            pre2 = fc2(h1, w2r)
             pre2 = _bf16(_bf16(pre2) + b2) if bf else pre2 + b2
             h2 = torch.clamp(pre2, min=0.0)
         if mode != "nomask":

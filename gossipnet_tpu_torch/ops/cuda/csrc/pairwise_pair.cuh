@@ -139,6 +139,9 @@ __device__ __forceinline__ float pair_iou(const float* rs, int i,
                                    fmaxf(row(rs, Y1, i), col(cs, Y1, j))),
                          0.f);
   const float inter = __fmul_rn(iw, ih);
+  // A zero dividend gives 0 without the division: most pairs of K7's
+  // dense tile do not overlap, and the IEEE division is slow on them.
+  if (inter == 0.f) return 0.f;
   const float uni =
       __fsub_rn(__fadd_rn(row(rs, AREA, i), col(cs, AREA, j)), inter);
   return __fdiv_rn(inter, fmaxf(uni, EPS));

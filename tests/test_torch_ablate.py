@@ -1,5 +1,7 @@
 """K7, the per-tile ablation of the pair tile: the port's plain version
-against the TPU kernel itself.
+against the TPU kernel itself, and the plain version with FC2 summed in
+the order of the kernel's tensor-core product against the oracle's fmaf
+order (the kernel's gate must hold that order).
 
 ``scripts/kernel_ablate.py`` runs and times at import and reads
 ``sys.argv``, so it cannot be imported. The test parses the file, takes the
@@ -144,6 +146,39 @@ def test_full_equals_k5_plain_version_where_a_row_has_a_neighbour(inputs):
     assert has.all()
     np.testing.assert_allclose(got, k5, rtol=2e-2, atol=2e-2)
     assert np.mean(np.isclose(got, k5, rtol=1e-5, atol=1e-5)) >= 0.995
+
+
+@pytest.fixture(scope="module")
+def ragged():
+    """The card tests' small ragged case (tests/test_torch_cuda.py): B=2,
+    N=200 (no multiple of any column tile) in a 200-pixel canvas,
+    detections 150-169 of each image invalid."""
+    got = kernel_ablate.probe_inputs(2, 200, canvas=200.0, seed=1)
+    got["cols"][:, pf.DetColumns._fields.index("valid"), 150:170] = 0.0
+    return got
+
+
+@pytest.mark.parametrize("mode", ablate.MODES)
+def test_the_gate_holds_the_tensor_core_order(ragged, mode):
+    """The kernel sums FC2 on the tensor cores: two k blocks of 16, each
+    block's exact products added to an f32 accumulator that starts at 0,
+    b2 after. The plain version with FC2 in that order stays inside the kernel's
+    gate around the fmaf-order oracle: rtol = atol = 1e-5 in the five f32
+    modes, one bf16 step and >= 99% bit-equal in bf3d, rows without a
+    neighbour at the same places; nofc2 has no FC2 and stays bit-equal."""
+    args = [ragged[k] for k in ("cols", "a", "b", "wg", "w2", "b2")]
+    want = ablate.pair_ablate_reference(*args, mode).numpy()
+    got = ablate.pair_ablate_reference(*args, mode, fc2_order="mma").numpy()
+    np.testing.assert_array_equal(got < -1e29, want < -1e29)
+    assert (want < -1e29).all(-1)[:, 150:170].all() or mode == "nomask"
+    if mode == "bf3d":
+        np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=0)
+        assert np.mean(got == want) >= 0.99
+    elif mode == "nofc2":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        assert (got != want).any()   # the order does move some outputs
 
 
 def test_wrapper_checks_mode_tile_and_shapes(inputs):

@@ -4,7 +4,8 @@ launches bit-identical), K3/K4 (the matching scan, exactly: overflow rows,
 G = 1024, 400 and 13, N = 4096 and N not a multiple of 32, T = 32, all-zero
 IoU, two launches bit-identical, every output written), K5/K6 (the
 unfolded pair pool and its backward, the same checks), K7 (the per-tile
-ablation: six modes, three column tiles), one training step
+ablation: six modes, three column tiles; bit-equal where FC2's order
+cannot matter: W2 a permutation, or no FC2), one training step
 of config 2 and one of config 3 through K5/K6, with their launch counts;
 K5/K6 on the launch arguments of config 4's model (f32 bit-equal m and
 winners, bf16 with dm zero at the near-tied maxima), two K6 launches
@@ -490,6 +491,53 @@ def test_k7_matches_plain_on_card(mode, tile_j):
         assert np.mean(x == y) >= 0.99
     else:
         np.testing.assert_allclose(x, y, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_j", [32, 64, 128])
+@pytest.mark.parametrize("mode", ["full", "bf3d", "nofc2"])
+def test_k7_fragment_layout_is_exact_on_card(mode, tile_j):
+    """K7 bit-equal to its plain version where the order of FC2's sum
+    cannot matter, at the ragged shape and at the probe's B=8 N=1024:
+    ``full`` and ``bf3d`` with W2 a permutation matrix and b2 = 0 (each
+    output one exact product, so any (slot, p, q) that a fragment misplaces
+    shows), ``nofc2`` with the probe's weights (h1 as FC1 leaves it)."""
+    from gossipnet_tpu_torch.ops.cuda import ablate as k7
+    from gossipnet_tpu_torch.tools.kernel_ablate import probe_inputs
+
+    dev = _card()
+    small = probe_inputs(2, 200, canvas=200.0, seed=1, device=dev)
+    small["cols"][:, pf.DetColumns._fields.index("valid"), 150:170] = 0.0
+    for inputs in (small, probe_inputs(device=dev)):
+        if mode != "nofc2":
+            perm = torch.from_numpy(np.random.default_rng(3).permutation(32))
+            inputs["w2"] = torch.zeros_like(inputs["w2"])
+            inputs["w2"][torch.arange(32), perm.to(dev)] = 1.0
+            inputs["b2"] = torch.zeros_like(inputs["b2"])
+        args = [inputs[k] for k in ("cols", "a", "b", "wg", "w2", "b2")]
+        got = k7.pair_ablate(*args, mode, tile_j)
+        want = k7.pair_ablate_reference(*args, mode)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["full", "bf3d"])
+def test_k7_takes_b_off_its_16_byte_alignment_on_card(mode):
+    """b a contiguous view one float into its storage: the kernel stages
+    it with 4-byte copies instead of 16-byte ones, with the same result."""
+    from gossipnet_tpu_torch.ops.cuda import ablate as k7
+    from gossipnet_tpu_torch.tools.kernel_ablate import probe_inputs
+
+    inputs = probe_inputs(2, 200, canvas=200.0, seed=1, device=_card())
+    b = inputs["b"]
+    inputs["b"] = torch.cat([b.new_zeros(1), b.flatten()])[1:].view_as(b)
+    assert inputs["b"].data_ptr() % 16 and inputs["b"].is_contiguous()
+    args = [inputs[k] for k in ("cols", "a", "b", "wg", "w2", "b2")]
+    got = k7.pair_ablate(*args, mode, 64)
+    want = k7.pair_ablate(*[x.clone() for x in args], mode, 64)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
