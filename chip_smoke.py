@@ -116,7 +116,28 @@ Phases (each raises on failure; the script then exits non-zero):
    scores and of swept GreedyNMS; the warm wall time, forward and host
    matching apart; then train() with a validation set at N=1024 and
    eval_every=2 logs val_AP, keeps the best checkpoint, and the eval CLI
-   reads it with --best.
+   reads it with --best;
+14. serving trained weights, from phase 13's checkpoint: (a)
+   Rescorer.from_checkpoint bit-equal to a Rescorer on the best state
+   restored by hand, reload(checkpoint_dir, best=False) to the latest
+   state, the npz round trip bit-equal; (b) the TcpServer in this process
+   on the 16-block serving_bucketed model: 4 JSON clients and a binary one
+   at once over the phase-4 images, JSON replies within 2e-6 and binary
+   within 1e-6 of rescore_batch, a bad request and a stats request
+   answered, 16 K1 launches per served batch, then a reload under service
+   after which every reply is the old weights' or the new ones'; (c) the
+   serve CLI in a subprocess (--checkpoint-dir, --tcp 0): SIGHUP reloads,
+   SIGTERM drains with exit 0; (d) file mode (--input, --output) equal to
+   rescore_batch to 6 decimals, with its launches; (e) an artifact
+   exported from the checkpoint served in-process, by the serve CLI and
+   by evaluate --artifact (the checkpoint's AP to 1e-6); (f) wait() of a
+   dispatched batch returns while 0.5 s of work enqueued after it still
+   runs (F2);
+14g. for information: TCP request latency p50/p99, images/s and mean
+   batch at 1 and 4 JSON clients and 1 binary client on the bench's
+   images, and the JSON-lines stream through rescore_stream with the
+   read-back before and after F2's repair, in turns (``python3
+   chip_smoke.py --serve-times`` runs only this).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result
@@ -125,28 +146,38 @@ and exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import math
+import queue
+import signal
+import socket
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from gossipnet_tpu_torch import api
 from gossipnet_tpu_torch import evaluate
 from gossipnet_tpu_torch import native
+from gossipnet_tpu_torch import serving
 from gossipnet_tpu_torch import train as training
 from gossipnet_tpu_torch.api import Rescorer
 from gossipnet_tpu_torch.config import load_config, experiment_path
 from gossipnet_tpu_torch.data.bucketing import (
     BatchIterator,
+    bucket_for,
     eval_batches,
     make_batch,
 )
+from gossipnet_tpu_torch.data.roidb import _xywh_to_xyxy_np
 from gossipnet_tpu_torch.data.synthetic import (
     layout_batch,
     layout_record,
@@ -164,6 +195,9 @@ from gossipnet_tpu_torch.ops.cuda import pairwise2 as k1
 from gossipnet_tpu_torch.params import as_state_dict, init_params
 from gossipnet_tpu_torch.serving import serve_stream
 from gossipnet_tpu_torch.tools import kernel_ablate
+from gossipnet_tpu_torch.utils import model_artifact
+from gossipnet_tpu_torch.utils.checkpoint import CheckpointManager
+from gossipnet_tpu_torch.utils.export import load_params_npz, save_params_npz
 
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 on CUDA cores,
 # HBM3 bandwidth. Bounds below are against these, at the card's power
@@ -2685,6 +2719,521 @@ def k1_bound(args, dtype) -> tuple[float, str]:
         "operations" if ops_s >= bytes_s else "bytes"
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: serving trained weights
+# ---------------------------------------------------------------------------
+
+SERVE_WAIT_S = 300          # every socket read, join and CLI line waits this
+F2_SLEEP_S = 0.5            # the work enqueued behind a dispatched batch
+SERVE_REQUESTS = 40         # closed-loop requests per client in phase 14g
+
+
+def checkpoint_states(cfg, ckpt: Path) -> tuple[dict, dict]:
+    """Phase 13's best and latest states, restored by hand (not through
+    the Rescorer) -> two state_dicts on the CPU."""
+    mgr = CheckpointManager(ckpt)
+    state = training.create_train_state(
+        cfg, training.build_model(cfg, "dense", "cpu"))
+    best = {k: v.clone() for k, v in
+            mgr.restore_best(state).model.state_dict().items()}
+    state, _ = mgr.restore(state)
+    return best, {k: v.clone() for k, v in state.model.state_dict().items()}
+
+
+def bit_equal(got, want) -> bool:
+    return all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def json_line(rid, image) -> bytes:
+    return (json.dumps({"id": rid, "boxes": image[0].tolist(),
+                        "scores": image[1].tolist()}) + "\n").encode()
+
+
+def bin_frame(rid, image) -> bytes:
+    boxes, scores = image[0], image[1]
+    return (struct.pack("<IQII", serving.BIN_MAGIC, rid, len(scores), 0)
+            + np.ascontiguousarray(boxes, "<f4").tobytes()
+            + np.ascontiguousarray(scores, "<f4").tobytes())
+
+
+def read_frame(sock):
+    """One binary reply -> (id, error or None, scores or None)."""
+    magic, status, rid = struct.unpack("<IBQ",
+                                       serving._recv_exact(sock, 13))
+    (ln,) = struct.unpack("<I", serving._recv_exact(sock, 4))
+    if status:
+        return rid, serving._recv_exact(sock, ln).decode(), None
+    scores = np.frombuffer(serving._recv_exact(sock, 4 * ln), "<f4")
+    (k,) = struct.unpack("<I", serving._recv_exact(sock, 4))
+    serving._recv_exact(sock, 4 * k)
+    return rid, None, scores
+
+
+def tcp_client(port, requests, binary=False, latencies=None) -> list:
+    """Sends ``requests`` ((id, image) or raw JSON text) one at a time on
+    one connection -> the replies (dicts, or read_frame tuples)."""
+    out = []
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=SERVE_WAIT_S) as s:
+        f = s.makefile("r")
+        for req in requests:
+            t0 = time.perf_counter()
+            if binary:
+                s.sendall(bin_frame(*req))
+                out.append(read_frame(s))
+            else:
+                s.sendall(req.encode() if isinstance(req, str)
+                          else json_line(*req))
+                out.append(json.loads(f.readline()))
+            if latencies is not None:
+                latencies.append(time.perf_counter() - t0)
+    return out
+
+
+def run_clients(jobs) -> list:
+    """Runs each (fn, args) in its own thread -> results in order; raises
+    what a client raised."""
+    results, errors = [None] * len(jobs), []
+
+    def run(i, fn, args):
+        try:
+            results[i] = fn(*args)
+        except Exception as e:   # noqa: BLE001 -- raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, fn, args))
+               for i, (fn, args) in enumerate(jobs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SERVE_WAIT_S)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"TCP clients failed: {errors}")
+    return results
+
+
+class CliLines:
+    """A CLI subprocess's stderr, line by line, read by a thread, so that
+    every wait has a timeout."""
+
+    def __init__(self, proc):
+        self.lines = queue.Queue()
+        self.seen: list[str] = []
+
+        def read():
+            for line in proc.stderr:
+                self.lines.put(line.rstrip("\n"))
+
+        threading.Thread(target=read, daemon=True).start()
+
+    def until(self, prefix: str) -> str:
+        deadline = time.monotonic() + SERVE_WAIT_S
+        while True:
+            line = self.lines.get(timeout=max(deadline - time.monotonic(),
+                                              0.001))
+            self.seen.append(line)
+            if line.startswith(prefix):
+                return line
+
+
+def serve_and_check(rescorer, images, n_json, buckets) -> int:
+    """Serves ``images`` to ``n_json`` JSON clients and one binary client
+    at once, then a bad request and a stats request -> the K1 launches.
+
+    A score moves with its batch's composition (the dense layers' GEMMs
+    sum in another order at another batch size; bf16 rounding of the pair
+    inputs magnifies an f32 ulp), so each reply is held to the Rescorer's
+    result for the very batch the server dispatched, recomputed through
+    ``rescore_async``: JSON within 2e-6 (6 decimals), binary within 1e-6;
+    the distance to ``rescore_batch``'s grouping is logged beside."""
+    blocks = rescorer.cfg.model.num_blocks
+    server = serving.TcpServer(rescorer, port=0, threshold=0.5)
+    groups, dispatch = [], server._dispatch_group
+
+    def recording(bucket, group):
+        groups.append((bucket, [g[2]["id"] for g in group],
+                       [g[3] for g in group]))
+        dispatch(bucket, group)
+
+    server._dispatch_group = recording
+    server.start()
+    reset_counts()
+    try:
+        jobs = [(tcp_client, (server.port,
+                              [(f"c{c}-{i}", images[i]) for i in
+                               np.roll(np.arange(len(images)), c)]))
+                for c in range(n_json)]
+        jobs.append((tcp_client, (server.port,
+                                  [(100 + i, im) for i, im in
+                                   enumerate(images)], True)))
+        replies = run_clients(jobs)
+        bad, stats = tcp_client(server.port,
+                                ["{not json\n", '{"stats": true}\n'])
+    finally:
+        server.stop()
+    launches = counts()
+    want = {}
+    for bucket, ids, group in groups:
+        want.update(zip(ids, rescorer.rescore_async(
+            group, padded_n=bucket).wait()))
+    grouped = rescorer.rescore_batch(images)
+    json_err, bin_err, exact, n_rep, spread = 0.0, 0.0, 0, 0, 0.0
+    for client in replies[:n_json]:
+        for rep in client:
+            got = np.asarray(rep["new_scores"])
+            json_err = max(json_err,
+                           float(np.abs(got - want[rep["id"]]).max()))
+            spread = max(spread, float(np.abs(
+                got - grouped[int(rep["id"].split("-")[1])]).max()))
+            n_rep += 1
+    for rid, err, scores in replies[n_json]:
+        if err is not None:
+            raise AssertionError(f"binary request {rid}: {err}")
+        diff = np.abs(scores - want[rid])
+        bin_err = max(bin_err, float(diff.max()))
+        exact += int(diff.max() == 0.0)
+        spread = max(spread, float(np.abs(scores - grouped[rid - 100])
+                                   .max()))
+    log(f"  (b) TcpServer: {n_rep} JSON replies from {n_json} clients and "
+        f"{len(replies[n_json])} binary frames at once over buckets "
+        f"{buckets}, in {len(groups)} batches of "
+        f"{sorted(len(ids) for _, ids, _ in groups)} images; against the "
+        f"Rescorer on the same batches: max |diff| JSON {json_err:.2e} "
+        f"(tol 2e-6, 6 decimals), binary {bin_err:.2e} (tol 1e-6), {exact} "
+        f"of {len(replies[n_json])} binary replies bit-equal; against "
+        f"rescore_batch's grouping: {spread:.2e}")
+    log(f"  (b) bad request -> {bad}; stats images {stats['images']}, "
+        f"batches {stats['batches']}, mean batch {stats['mean_batch']}, "
+        f"errors {stats['errors']}; launches {launches} (expected "
+        f"{blocks} K1 x {server.stats['batches']} batches)")
+    if json_err > 2e-6 or bin_err > 1e-6 or "error" not in bad \
+            or stats["images"] != (n_json + 1) * len(images) \
+            or stats["errors"] != 1 or len(want) != stats["images"]:
+        raise AssertionError("the TCP server's replies are wrong")
+    if launches != want_counts(
+            pair_pool2_fwd=blocks * server.stats["batches"]):
+        raise AssertionError("the TCP server did not run every block on K1")
+    return launches["pair_pool2_fwd"]
+
+
+def phase_serve_trained(tmp: Path) -> int:
+    """Phase 14: phase 13's trained checkpoint served through every entry
+    point that reads weights -> the K1 launches of the in-process TCP
+    server and file mode."""
+    log("phase 14: serving trained weights - phase 13's checkpoint through "
+        "from_checkpoint, the TCP server, the serve CLI, file mode and an "
+        "artifact, on the 16-block serving_bucketed model")
+    ckpt, cfg2_path = tmp / "eval_ckpt", tmp / "eval.yaml"
+    root = Path(__file__).resolve().parent
+    cfg = load_config(experiment_path("serving_bucketed"))
+    blocks = cfg.model.num_blocks
+    images = [(r.det_boxes, r.det_scores, None)
+              for r in serving_images(np.random.default_rng(0))]
+
+    # (a) checkpoints into the Rescorer, and the npz round trip
+    best, latest = checkpoint_states(cfg, ckpt)
+    served = Rescorer.from_checkpoint(cfg, str(ckpt), device=DEV)
+    want = Rescorer(cfg, best, device=DEV).rescore_batch(images)
+    got = served.rescore_batch(images)
+    served.reload(checkpoint_dir=str(ckpt), best=False)
+    got_latest = served.rescore_batch(images)
+    want_latest = Rescorer(cfg, latest, device=DEV).rescore_batch(images)
+    served.reload(checkpoint_dir=str(ckpt))
+    save_params_npz(tmp / "best.npz", best)
+    got_npz = Rescorer(cfg, load_params_npz(tmp / "best.npz"),
+                       device=DEV).rescore_batch(images)
+    same_weights = all(torch.equal(best[k], latest[k]) for k in best)
+    log(f"  (a) from_checkpoint (best) vs a Rescorer on the best state "
+        f"restored by hand: bit-equal {bit_equal(got, want)}; "
+        f"reload(best=False) vs the latest state: bit-equal "
+        f"{bit_equal(got_latest, want_latest)} (best and latest weights "
+        f"equal: {same_weights}); save_params_npz -> load_params_npz -> "
+        f"Rescorer: bit-equal {bit_equal(got_npz, want)}")
+    if not (bit_equal(got, want) and bit_equal(got_latest, want_latest)
+            and bit_equal(got_npz, want)):
+        raise AssertionError("checkpoint-backed scores differ")
+
+    # (b) the TCP server in this process: 4 JSON clients and a binary one
+    # at once, a bad request and a stats request
+    buckets = sorted({bucket_for(len(im[1]), cfg.data.bucket_sizes)
+                      for im in images})
+    tcp_launches = serve_and_check(served, images, 4, buckets)
+
+    # (b) a reload while a client is served: every reply is the old
+    # weights' or the new ones', and the new ones once it returned
+    # (one client, so every request is dispatched alone: batch 1)
+    new_params = init_params(cfg.model, seed=1)
+    new = Rescorer(cfg, new_params, device=DEV).rescore_batch(
+        images, batch_size=1)
+    old = served.rescore_batch(images, batch_size=1)
+    server = serving.TcpServer(served, port=0, threshold=0.5).start()
+    progress = queue.Queue()
+
+    def streaming(port):
+        out = []
+        with socket.create_connection(("127.0.0.1", port),
+                                      timeout=SERVE_WAIT_S) as s:
+            f = s.makefile("r")
+            for k in range(4 * len(images)):
+                done = reloaded.is_set()
+                s.sendall(json_line(k, images[k % len(images)]))
+                out.append((done, json.loads(f.readline())))
+                progress.put(k)
+        return out
+
+    reloaded, results = threading.Event(), []
+    try:
+        t = threading.Thread(target=lambda: results.append(
+            streaming(server.port)))
+        t.start()
+        while progress.get(timeout=SERVE_WAIT_S) < len(images):
+            pass
+        served.reload(params=new_params)
+        reloaded.set()
+        t.join(timeout=SERVE_WAIT_S)
+    finally:
+        server.stop()
+    kinds = []
+    for done, rep in results[0]:
+        i, s = rep["id"] % len(images), np.asarray(rep["new_scores"])
+        kind = ("old" if np.abs(s - old[i]).max() <= 2e-6 else
+                "new" if np.abs(s - new[i]).max() <= 2e-6 else "neither")
+        if kind == "neither" or (done and kind == "old"):
+            raise AssertionError(f"reply {rep['id']} after the reload "
+                                 f"({done}) is {kind}")
+        kinds.append(kind)
+    log(f"  (b) reload under service: {kinds.count('old')} replies on the "
+        f"old weights, then {kinds.count('new')} on the new ones, none "
+        f"mixed")
+    served.reload(checkpoint_dir=str(ckpt))
+
+    # (c) the CLI in a subprocess: SIGHUP reloads, SIGTERM drains
+    cfg2 = load_config(str(cfg2_path))
+    fit = [im for im in images if len(im[1]) <= max(cfg2.data.bucket_sizes)]
+    # one client: every request alone, as rescore_batch at batch 1
+    want2 = Rescorer(cfg2, best, device=DEV).rescore_batch(fit,
+                                                           batch_size=1)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gossipnet_tpu_torch.serve", "-c",
+         str(cfg2_path), "--checkpoint-dir", str(ckpt), "--tcp", "0",
+         "--device", DEV], cwd=root, stderr=subprocess.PIPE, text=True)
+    lines = CliLines(proc)
+    try:
+        port = int(lines.until("serving on ").rsplit(":", 1)[1])
+        first = tcp_client(port, [(i, im) for i, im in enumerate(fit)])
+        proc.send_signal(signal.SIGHUP)
+        reload_line = lines.until("weights reloaded")
+        second = tcp_client(port, [(i, im) for i, im in enumerate(fit)])
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=SERVE_WAIT_S)
+        drained = lines.until("drained: ")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    cli_err = max(float(np.abs(np.asarray(rep["new_scores"])
+                               - want2[rep["id"]]).max())
+                  for rep in first + second)
+    log(f"  (c) serve CLI -c eval.yaml --checkpoint-dir --tcp 0: "
+        f"{len(first) + len(second)} replies, max |diff| {cli_err:.2e} "
+        f"against rescore_batch at batch 1 (tol 2e-6); SIGHUP -> "
+        f"{reload_line!r}; "
+        f"SIGTERM -> {drained!r}, exit {rc}")
+    if cli_err > 2e-6 or rc != 0 or not drained.startswith(
+            f"drained: {2 * len(fit)} images in") \
+            or not drained.endswith(", 0 errors"):
+        raise AssertionError(f"serve CLI: {lines.seen}")
+
+    # (d) file mode on a COCO-results file of the phase-4 images
+    dets = [{"image_id": i, "category_id": 1,
+             "bbox": [float(x1), float(y1), float(x2 - x1), float(y2 - y1)],
+             "score": float(s)}
+            for i, (bx, sc, _) in enumerate(images)
+            for (x1, y1, x2, y2), s in zip(bx, sc)]
+    (tmp / "dets.json").write_text(json.dumps(dets))
+    from_file = [(_xywh_to_xyxy_np(np.asarray(
+        [d["bbox"] for d in dets if d["image_id"] == i], np.float32)),
+        np.asarray([d["score"] for d in dets if d["image_id"] == i],
+                   np.float32), None) for i in range(len(images))]
+    want_file = np.concatenate(served.rescore_batch(from_file))
+    reset_counts()
+    serving.main(["-c", experiment_path("serving_bucketed"),
+                  "--checkpoint-dir", str(ckpt), "--input",
+                  str(tmp / "dets.json"), "--output", str(tmp / "out.json"),
+                  "--device", DEV])
+    launches = counts()
+    got_file = np.asarray([d["score"] for d in json.loads(
+        (tmp / "out.json").read_text())])
+    file_err = float(np.abs(got_file - want_file).max())
+    rounded = int((got_file == np.round(want_file.astype(np.float64), 6))
+                  .sum())
+    log(f"  (d) file mode --input --output: {len(got_file)} detections of "
+        f"{len(images)} images, max |diff| {file_err:.2e} against "
+        f"rescore_batch (tol 1e-6: 6 decimals), {rounded} equal to its "
+        f"6-decimal rounding; launches {launches}")
+    if file_err > 1e-6 or launches != want_counts(
+            pair_pool2_fwd=blocks * len(buckets)):
+        raise AssertionError("file mode differs")
+    file_launches = launches["pair_pool2_fwd"]
+
+    # (e) an artifact: export, serve, evaluate
+    art = tmp / "trained.gnetart"
+    model_artifact.main(["-c", str(cfg2_path), "--checkpoint-dir", str(ckpt),
+                         "--out", str(art), "--batches", "1,2,4,8",
+                         "--device", DEV])
+    artifact = model_artifact.ArtifactRescorer(art, device=DEV)
+    art_err = max(float(np.abs(g - w).max()) for g, w in
+                  zip(artifact.rescore_batch(fit, batch_size=1), want2))
+    cli = subprocess.run(
+        [sys.executable, "-m", "gossipnet_tpu_torch.serve", "--artifact",
+         str(art), "--device", DEV], input=json_line(7, fit[0]).decode(),
+        cwd=root,
+        capture_output=True, text=True, timeout=SERVE_WAIT_S)
+    reply = json.loads(cli.stdout.splitlines()[0]) if cli.stdout else {}
+    reply_err = float(np.abs(np.asarray(reply.get("new_scores", [1e9]))
+                             - want2[0]).max())
+    with contextlib.redirect_stdout(io.StringIO()):   # phase 13 printed it
+        ap_ckpt = evaluate.main(["-c", str(cfg2_path), "--best", "--device",
+                                 DEV])
+        ap_art = evaluate.main(["-c", str(cfg2_path), "--artifact",
+                                str(art), "--device", DEV])
+    ap_err = abs(ap_ckpt["gossipnet"]["AP"] - ap_art["gossipnet"]["AP"])
+    log(f"  (e) artifact ({len(artifact.exported_shapes())} shapes, "
+        f"{art.stat().st_size / 1e6:.2f} MB): vs the checkpoint Rescorer "
+        f"max |diff| {art_err:.2e} (tol 1e-6); serve --artifact reply "
+        f"{reply.get('id')} max |diff| {reply_err:.2e} (tol 2e-6); "
+        f"evaluate --artifact AP {ap_art['gossipnet']['AP']:.6f} vs "
+        f"--checkpoint-dir --best {ap_ckpt['gossipnet']['AP']:.6f} "
+        f"(tol 1e-6)")
+    if art_err > 1e-6 or cli.returncode != 0 or reply.get("id") != 7 \
+            or reply_err > 2e-6 or ap_err > 1e-6:
+        raise AssertionError(f"artifact: {cli.stderr[-2000:]}")
+
+    # (f) F2: wait() does not wait for work enqueued after its batch
+    waited, slept = f2_wait(served, api._HostCopy)
+    old_waited, _ = f2_wait(served, DeviceCopy)
+    log(f"  (f) rescore_async of the bench batch, then torch.cuda._sleep "
+        f"of {F2_SLEEP_S} s ({sleep_cycles()} cycles at "
+        f"{sm_clock_mhz():.0f} MHz) enqueued behind it: wait() returned "
+        f"after {waited:.4f} s (limit 0.25), the stream after "
+        f"{slept:.4f} s; the copy on wait() as before the repair: "
+        f"{old_waited:.4f} s")
+    if waited >= 0.25 or slept < 0.25:
+        raise AssertionError("wait() waits for work enqueued after its "
+                             "batch")
+    return tcp_launches + file_launches
+
+
+def bench_images():
+    """The bench's images: 8 clustered layouts of 896 detections."""
+    rng = np.random.default_rng(0)
+    return [(r.det_boxes, r.det_scores, None) for r in
+            (layout_record(rng, i, "clustered", 1024) for i in range(8))]
+
+
+def sleep_cycles() -> int:
+    return int(F2_SLEEP_S * sm_clock_mhz() * 1e6)
+
+
+class DeviceCopy:
+    """The read-back as it was before F2's repair: the device tensor,
+    copied to the host when it is read, behind everything enqueued since
+    on the stream."""
+
+    def __init__(self, probs):
+        self._probs = probs
+
+    def numpy(self):
+        return self._probs.cpu().numpy()
+
+
+def f2_wait(rescorer, copy) -> tuple[float, float]:
+    """Dispatch the bench batch, enqueue F2_SLEEP_S of sleep behind it ->
+    (seconds wait() took, seconds until the stream was idle), with the
+    read-back ``copy`` in place of ``api._HostCopy``; its scores must
+    equal ``rescore_batch``'s."""
+    images = bench_images()
+    want = rescorer.rescore_batch(images)
+    saved = api._HostCopy
+    api._HostCopy = copy
+    try:
+        torch.cuda.synchronize()
+        handle = rescorer.rescore_async(images)
+        torch.cuda._sleep(sleep_cycles())
+        t0 = time.perf_counter()
+        got = handle.wait()
+        waited = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        slept = time.perf_counter() - t0
+    finally:
+        api._HostCopy = saved
+    if not bit_equal(got, want):
+        raise AssertionError("rescore_async differs from rescore_batch")
+    return waited, slept
+
+
+def phase_serve_times(card: str) -> None:
+    """Phase 14g, for information: TCP request latency at 1 and 4 JSON
+    clients and 1 binary client, closed loop, on the bench's images, with
+    the 16-block serving_bucketed model (seeded weights); then
+    serve_stream's JSON-lines stream through rescore_stream with the
+    read-back of F2's repair and as it was before, in turns."""
+    cfg = load_config(experiment_path("serving_bucketed"))
+    rescorer = Rescorer(cfg, init_params(cfg.model, seed=0), device=DEV)
+    log(f"phase 14g: serving times on the bench's images (8 x 896 "
+        f"detections, bucket 1024), {SERVE_REQUESTS} requests per client "
+        f"[{card}]")
+    images = bench_images()
+    server = serving.TcpServer(rescorer, port=0, threshold=0.5).start()
+    try:
+        # the 4-client run twice: the first meets batch sizes that start()
+        # did not warm (it warms each bucket at 1 and at its cap)
+        for label, n_clients, binary in (("1 JSON client", 1, False),
+                                         ("4 JSON clients", 4, False),
+                                         ("4 JSON clients again", 4, False),
+                                         ("1 binary client", 1, True)):
+            before = server.stats_snapshot()
+            lat: list[float] = []
+            t0 = time.perf_counter()
+            run_clients([(tcp_client, (
+                server.port, [(c * 1000 + k, images[k % len(images)])
+                              for k in range(SERVE_REQUESTS)], binary, lat))
+                for c in range(n_clients)])
+            wall = time.perf_counter() - t0
+            after = server.stats_snapshot()
+            n = after["images"] - before["images"]
+            batches = after["batches"] - before["batches"]
+            ms = np.asarray(lat) * 1e3
+            log(f"  TCP {label}: request latency p50 "
+                f"{np.percentile(ms, 50):.3f} ms, p99 "
+                f"{np.percentile(ms, 99):.3f} ms; {n / wall:.1f} images/s; "
+                f"mean batch {n / batches:.3f} ({n} images in {batches} "
+                f"batches) [{card}]")
+    finally:
+        server.stop()
+    lines = "".join(json_line(k, images[k % len(images)]).decode()
+                    for k in range(8 * len(images)))
+
+    def stream_s(copy) -> tuple[float, int]:
+        saved = api._HostCopy
+        api._HostCopy = copy
+        try:
+            t0 = time.perf_counter()
+            n = serve_stream(rescorer, 0.5, inp=io.StringIO(lines),
+                             out=io.StringIO())
+            return time.perf_counter() - t0, n
+        finally:
+            api._HostCopy = saved
+
+    stream_s(api._HostCopy)   # warm
+    runs = [("after", api._HostCopy), ("before", DeviceCopy),
+            ("before", DeviceCopy), ("after", api._HostCopy)] * 2
+    for label, copy in runs:
+        s, n = stream_s(copy)
+        log(f"  serve_stream (rescore_stream, batches of 8) of {n} JSON "
+            f"lines, read-back {label} F2's repair: {s * 1e3:.1f} ms, "
+            f"{n / s:.1f} images/s [{card}]")
+
+
 def phase_build(names=KERNELS):
     log(f"phase 2: build {', '.join(names)} from ops/cuda/csrc/, one nvcc "
         f"each, all at once")
@@ -2752,6 +3301,12 @@ def main() -> int:
         phase_scan_stages()
         log(card)
         return 0
+    if sys.argv[1:] == ["--serve-times"]:
+        # Phase 14g alone: the serving times, for information; no result.
+        phase_build(KERNELS[:1])
+        phase_serve_times(card)
+        log(card)
+        return 0
     if sys.argv[1:] == ["--k1-stages"]:
         phase_build(KERNELS[:2])
         phase_k1_stages()
@@ -2794,7 +3349,10 @@ def main() -> int:
         times["pair_ablate"], ablate_launches = phase_ablate()
         eval_launches, eval_err = phase_evaluate(Path(tmp))
         worst["pair_pool2_fwd"] = max(worst["pair_pool2_fwd"], eval_err)
-    log(f"launches on the main paths: serving K1 {serve_launches}; "
+        serve_launches += phase_serve_trained(Path(tmp))
+    phase_serve_times(card)
+    log(f"launches on the main paths: serving K1 {serve_launches} "
+        f"(phases 4 and 14); "
         f"training {launches}; config 4 training {crowd_launches}; the "
         f"ablation tool K7 {ablate_launches}; evaluation {eval_launches}")
     launches = {**launches, "pair_pool_fwd": crowd_launches["pair_pool_fwd"],

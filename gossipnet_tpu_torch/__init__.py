@@ -2,12 +2,14 @@
 
 A port of ``gossipnet_tpu`` (JAX, TPU) for one NVIDIA H100. It imports
 nothing of the JAX package. The serving path is ported (``Rescorer`` in
-``api.py``, the JSON-lines server in ``serving.py``, the model in
-``models/gossipnet.py``), and so is training (``train.py``, ``losses.py``,
-``ops/matching.py``). Their kernels are hand-written CUDA for sm_90a
-(``ops/cuda/``): K1 and K2, the pair-pool forward and backward, and K3/K4,
-the greedy matching scan. Entry points default to ``device="cuda"`` and
-raise when there is no card.
+``api.py``, the JSON-lines, TCP and file-mode servers in ``serving.py``,
+serving artifacts in ``utils/model_artifact.py``, the model in
+``models/gossipnet.py``), and so are training (``train.py``,
+``losses.py``, ``ops/matching.py``) and evaluation (``evaluate.py``).
+Their kernels are hand-written CUDA for sm_90a (``ops/cuda/``): K1/K2 and
+K5/K6, the pair-pool forwards and backwards, K3/K4, the greedy matching
+scan, and K7, the ablation probe. Entry points default to
+``device="cuda"`` and raise when there is no card.
 """
 
 from gossipnet_tpu_torch.config import Config, ModelConfig, load_config

@@ -1,14 +1,16 @@
 """Serving API: rescore raw detections, NMS-free (port of
 ``gossipnet_tpu/api.py``).
 
-    rescorer = Rescorer(cfg, params)                # device="cuda"
+    rescorer = Rescorer.from_checkpoint(cfg, "checkpoints/")  # device="cuda"
     new_scores = rescorer(boxes, scores)            # one image
     kept = boxes[new_scores > 0.5]                  # thresholding IS NMS
     results = rescorer.rescore_batch(list_of_images)  # bucketed batches
 
 Images are padded to shape buckets and batched per bucket; results come
 back per detection in input order. ``params`` is a PyTorch ``state_dict``
-or a JAX parameter tree of numpy arrays (bridged by ``params.py``). On
+or a JAX parameter tree of numpy arrays (bridged by ``params.py``);
+``from_checkpoint`` reads the best (or latest) checkpoint a training run
+of this package wrote. On
 CUDA the default pool path is the pair kernel of ``model.pair_kernel`` (K1
 or K5); there is no CPU fallback —
 ``device="cpu"`` must be asked for.
@@ -17,6 +19,7 @@ or K5); there is no CPU fallback —
 from __future__ import annotations
 
 import threading
+from pathlib import Path
 from typing import Sequence
 
 import numpy as np
@@ -44,11 +47,44 @@ def _scatter_scores(host_row: np.ndarray, n: int, keep) -> np.ndarray:
     return out
 
 
+def zero_batch(b: int, n: int) -> tuple:
+    """An all-padding (b, n) batch of packed arrays: warm-up and timing
+    runs."""
+    return (np.zeros((b, n, 4), np.float32), np.zeros((b, n), np.float32),
+            np.zeros((b, n), bool), np.zeros((b, n), np.int32))
+
+
+class _HostCopy:
+    """One dispatched batch's probabilities on their way to the host.
+
+    On the card the copy into pinned host memory is enqueued right behind
+    the batch's forward and an event marks its end, so reading it waits
+    for this batch alone, not for batches enqueued after it on the same
+    stream. On the CPU the tensor is already on the host."""
+
+    def __init__(self, probs: torch.Tensor):
+        self._ready = None
+        if probs.is_cuda:
+            self._host = torch.empty(probs.shape, dtype=probs.dtype,
+                                     pin_memory=True)
+            self._host.copy_(probs, non_blocking=True)
+            self._ready = torch.cuda.Event()
+            self._ready.record()
+        else:
+            self._host = probs
+
+    def numpy(self) -> np.ndarray:
+        if self._ready is not None:
+            self._ready.synchronize()
+        return self._host.numpy()
+
+
 class Rescorer:
     """Bucketed detection rescorer on one device.
 
-    PyTorch runs eagerly, so there is nothing to compile per shape and no
-    batch padding: a partial batch runs at its own size.
+    PyTorch runs eagerly, so there is nothing to compile per shape: a
+    partial batch runs at its own size (``_pad_batch`` returns it as it
+    is; ``ArtifactRescorer`` pads to its exported batches).
     """
 
     def __init__(self, cfg: Config, params, pool_impl: str | None = None,
@@ -63,14 +99,63 @@ class Rescorer:
         # held while a batch's forward is enqueued and while reload copies:
         # a batch never runs on a mix of old and new weights
         self._lock = threading.Lock()
-        self.reload(params=params)
+        self._load(params)
+
+    # --- constructors ---
+    @staticmethod
+    def load_checkpoint_params(cfg: Config, checkpoint_dir: str,
+                               best: bool = True) -> dict:
+        """The trained parameters (a ``state_dict`` on the CPU) of the
+        best-AP checkpoint, or of the latest periodic one when ``best`` is
+        false or no best exists. Builds the model on the CPU only, so
+        tools that need weights alone (the artifact export) need no card.
+        """
+        from gossipnet_tpu_torch.train import build_model, create_train_state
+        from gossipnet_tpu_torch.utils.checkpoint import CheckpointManager
+
+        if not Path(checkpoint_dir).is_dir():   # the manager would make it
+            raise FileNotFoundError(f"no checkpoint in {checkpoint_dir}")
+        ckpt = CheckpointManager(checkpoint_dir)
+        if not (best and ckpt.has_best()) and ckpt.latest_step() is None:
+            raise FileNotFoundError(f"no checkpoint in {checkpoint_dir}")
+        state = create_train_state(
+            cfg, build_model(cfg, "dense", torch.device("cpu")))
+        if best and ckpt.has_best():
+            state = ckpt.restore_best(state)
+        else:
+            state, _ = ckpt.restore(state)
+        return state.model.state_dict()
+
+    @classmethod
+    def from_checkpoint(cls, cfg: Config, checkpoint_dir: str,
+                        pool_impl: str | None = None, best: bool = True,
+                        device="cuda") -> "Rescorer":
+        """Serve the best-AP (or latest periodic) checkpoint."""
+        params = cls.load_checkpoint_params(cfg, checkpoint_dir, best=best)
+        return cls(cfg, params, pool_impl, device=device)
 
     # --- internals ---
+    def _pad_batch(self, b: int) -> int:
+        """The batch a b-image group dispatches at: b itself (the eager
+        forward has no shape set to stay inside); ``ArtifactRescorer``
+        pads to its exported batches."""
+        return b
+
     def _dispatch(self, boxes_a, scores_a, valid_a, classes_a):
-        """Enqueue one padded batch on the device; returns (device tensor
-        of probabilities, row count). CUDA work is asynchronous: the
-        caller can pack the next batch while this one computes. The class
-        ids reach a multi-class model and nothing else."""
+        """Enqueue one padded batch on the device; returns (a
+        :class:`_HostCopy` of the probabilities, row count). CUDA work is
+        asynchronous: the caller can pack the next batch while this one
+        computes. The class ids reach a multi-class model and nothing
+        else."""
+        b = scores_a.shape[0]
+        b_pad = self._pad_batch(b)
+        if b_pad != b:   # inert rows: valid=False
+            pad = ((0, b_pad - b),)
+            boxes_a = np.pad(boxes_a, pad + ((0, 0), (0, 0)))
+            scores_a = np.pad(scores_a, pad + ((0, 0),))
+            valid_a = np.pad(valid_a, pad + ((0, 0),))
+            classes_a = np.pad(classes_a, pad + ((0, 0),))
+
         def dev(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
@@ -79,25 +164,37 @@ class Rescorer:
         with self._lock, torch.inference_mode():
             logits = self.model(dev(boxes_a), dev(scores_a), dev(valid_a),
                                 classes)
-            return torch.sigmoid(logits), scores_a.shape[0]
+            return _HostCopy(torch.sigmoid(logits)), b
 
     def _run(self, boxes_a, scores_a, valid_a, classes_a) -> np.ndarray:
         """Dispatch one padded batch and block for the result."""
         out, b = self._dispatch(boxes_a, scores_a, valid_a, classes_a)
-        return out.cpu().numpy()[:b]
+        return out.numpy()[:b]
 
-    def reload(self, params) -> None:
-        """Swap serving weights in place (a ``state_dict`` or a JAX tree).
+    def reload(self, params=None, *, checkpoint_dir: str | None = None,
+               best: bool = True) -> None:
+        """Swap serving weights in place: new ``params`` (a ``state_dict``
+        or a JAX tree), or the best-AP (``best``) or latest checkpoint of
+        ``checkpoint_dir``.
 
-        Safe to call from an admin thread while other threads serve. The
-        copy takes the lock that ``_dispatch`` holds while it enqueues a
-        batch's forward, so it waits for a batch being enqueued and no
-        batch runs on a mix of old and new weights. It is ordered on the
-        device's stream after every batch already dispatched, so those
-        finish on the old weights, and every later dispatch uses the new
-        ones. Loading a checkpoint directory comes with the checkpoint
-        slice (ROADMAP.md item 13).
+        Safe to call from an admin thread or a signal handler while other
+        threads serve. The copy takes the lock that ``_dispatch`` holds
+        while it enqueues a batch's forward, so it waits for a batch being
+        enqueued and no batch runs on a mix of old and new weights. It is
+        ordered on the device's stream after every batch already
+        dispatched, so those finish on the old weights, and every later
+        dispatch uses the new ones.
         """
+        if (params is None) == (checkpoint_dir is None):
+            raise ValueError("pass exactly one of params / checkpoint_dir")
+        if checkpoint_dir is not None:
+            params = self.load_checkpoint_params(self.cfg, checkpoint_dir,
+                                                 best=best)
+        self._load(params)
+
+    def _load(self, params) -> None:
+        """Copy ``params`` into the live model under the dispatch lock,
+        after checking that every name and shape matches."""
         sd = as_state_dict(params)
         want = self.model.state_dict()
         got_shapes = {k: tuple(v.shape) for k, v in sd.items()}
@@ -118,10 +215,7 @@ class Rescorer:
         library handles and the allocator's pools are in place before the
         first real request."""
         for n in self.cfg.data.bucket_sizes:
-            self._run(np.zeros((batch_size, n, 4), np.float32),
-                      np.zeros((batch_size, n), np.float32),
-                      np.zeros((batch_size, n), bool),
-                      np.zeros((batch_size, n), np.int32))
+            self._run(*zero_batch(batch_size, n))
 
     def _check_image(self, idx, scores, classes, truncate):
         if self.cfg.model.num_classes > 1 and classes is None:
@@ -200,7 +294,7 @@ class Rescorer:
 
         def emit(entry):
             out, b, metas = entry
-            host = out.cpu().numpy()[:b]
+            host = out.numpy()[:b]
             for row, (idx, n, keep) in enumerate(metas):
                 yield idx, _scatter_scores(host[row], n, keep)
 
@@ -291,15 +385,16 @@ class Rescorer:
 
 class AsyncBatch:
     """Handle for one in-flight :meth:`Rescorer.rescore_async` batch;
-    ``wait()`` copies the result to the host (the only synchronizing
-    step) and returns per-image new-score arrays in dispatch order."""
+    ``wait()`` blocks until this batch's result is on the host (the only
+    synchronizing step; it does not wait for batches dispatched after it)
+    and returns per-image new-score arrays in dispatch order."""
 
-    def __init__(self, device_out, row_count: int, metas):
-        self._out = device_out
+    def __init__(self, host_copy: _HostCopy, row_count: int, metas):
+        self._out = host_copy
         self._b = row_count
         self._metas = metas
 
     def wait(self) -> list[np.ndarray]:
-        host = self._out.cpu().numpy()[: self._b]
+        host = self._out.numpy()[: self._b]
         return [_scatter_scores(host[row], n, keep)
                 for row, (n, keep) in enumerate(self._metas)]

@@ -17,10 +17,11 @@ the library loads, numpy otherwise, with identical results).
 The forward runs eagerly under ``torch.no_grad()``, so there is nothing to
 compile and nothing to cache: the reference's module-level forward caches
 (its jitted local forward per model instance, its sharded forward per
-mesh) have no counterpart here. ``forward_fn`` stays as the hook for
-another forward. Not ported yet and refused by the CLI: ``--artifact``
-(ROADMAP.md item 13) and evaluation over a device mesh
-(``parallel.enable: "on"``, item 14).
+mesh) have no counterpart here. ``forward_fn`` is the hook for another
+forward: ``--artifact`` evaluates a serving artifact through
+``ArtifactRescorer.forward`` at its exported batch sizes. Not ported yet
+and refused by the CLI: evaluation over a device mesh
+(``parallel.enable: "on"``, ROADMAP.md item 14).
 """
 
 from __future__ import annotations
@@ -215,9 +216,6 @@ def main(argv=None) -> dict:
     import argparse
 
     from gossipnet_tpu_torch.config import load_config
-    from gossipnet_tpu_torch.params import init_params
-    from gossipnet_tpu_torch.train import build_model, create_train_state
-    from gossipnet_tpu_torch.utils.checkpoint import CheckpointManager
 
     p = argparse.ArgumentParser(
         description="Evaluate GossipNet rescoring (PyTorch/CUDA)")
@@ -238,18 +236,68 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--artifact", default=None,
-                   help="an exported serving artifact (not ported: item 13)")
+                   help="evaluate a serving artifact "
+                        "(utils/model_artifact.py) instead of a checkpoint; "
+                        "-c still selects the evaluation set (default: the "
+                        "artifact's own config)")
     args = p.parse_args(argv)
 
+    artifact = None
     if args.artifact:
-        raise SystemExit("--artifact (an exported serving artifact) is not "
-                         "ported yet: ROADMAP.md item 13")
-    cfg = load_config(args.config)
+        from gossipnet_tpu_torch.utils.model_artifact import ArtifactRescorer
+
+        artifact = ArtifactRescorer(args.artifact,
+                                    device=resolve_device(args.device))
+    if args.config or artifact is None:
+        cfg = load_config(args.config)
+    else:
+        cfg = artifact.cfg
     if cfg.parallel.enable == "on":
         raise SystemExit("evaluation over a device mesh (parallel.enable: "
                          "'on') is not ported yet: ROADMAP.md item 14")
     device = resolve_device(args.device)
     roidb = load_roidb(cfg)
+
+    batch_size = cfg.train.batch_size
+    bucket_sizes = cfg.data.bucket_sizes
+    model, fwd = None, None
+    if artifact is not None:
+        # eval_batches pads every batch to exactly batch_size, and the
+        # artifact serves only its exported (b, n) shapes: batch_size is
+        # the largest exported batch <= the configured one (else the
+        # smallest exported)
+        exported_bs = sorted({b for b, _ in artifact.exported_shapes()})
+        fitting = [b for b in exported_bs if b <= cfg.train.batch_size]
+        batch_size = fitting[-1] if fitting else exported_bs[0]
+        bucket_sizes = tuple(artifact.cfg.data.bucket_sizes)
+        fwd = artifact.forward
+        print(f"evaluating artifact {args.artifact} "
+              f"({len(artifact.meta['shapes'])} shapes)")
+    else:
+        model = _restore_model(args, cfg, device)
+    out = {
+        "gossipnet": evaluate_model(
+            None, model, roidb,
+            batch_size=batch_size,
+            bucket_sizes=bucket_sizes,
+            forward_fn=fwd,
+        ),
+        "raw_scores": evaluate_raw_scores(roidb),
+    }
+    thrs = np.arange(0.3, 0.75, 0.05) if args.nms_sweep else [0.5]
+    best = max(evaluate_greedy_nms_sweep(roidb, [float(t) for t in thrs]),
+               key=lambda ts: ts[1]["AP"])
+    out["greedy_nms"] = {"iou_threshold": best[0], **best[1]}
+    print(json.dumps(out, indent=2))
+    return out
+
+
+def _restore_model(args, cfg, device) -> GossipNet:
+    """The CLI's model on ``device``: seeded random weights, the best or
+    the latest checkpoint."""
+    from gossipnet_tpu_torch.params import init_params
+    from gossipnet_tpu_torch.train import build_model, create_train_state
+    from gossipnet_tpu_torch.utils.checkpoint import CheckpointManager
 
     pool_impl = args.pool_impl or (
         "kernel" if device.type == "cuda" else "dense")
@@ -274,20 +322,7 @@ def main(argv=None) -> dict:
             print(f"restored step {state.step} from {ckpt_dir}")
         else:
             print(f"WARNING: no checkpoint in {ckpt_dir}; evaluating init")
-    out = {
-        "gossipnet": evaluate_model(
-            None, model, roidb,
-            batch_size=cfg.train.batch_size,
-            bucket_sizes=cfg.data.bucket_sizes,
-        ),
-        "raw_scores": evaluate_raw_scores(roidb),
-    }
-    thrs = np.arange(0.3, 0.75, 0.05) if args.nms_sweep else [0.5]
-    best = max(evaluate_greedy_nms_sweep(roidb, [float(t) for t in thrs]),
-               key=lambda ts: ts[1]["AP"])
-    out["greedy_nms"] = {"iou_threshold": best[0], **best[1]}
-    print(json.dumps(out, indent=2))
-    return out
+    return model
 
 
 if __name__ == "__main__":

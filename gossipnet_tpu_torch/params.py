@@ -2,9 +2,10 @@
 
 The JAX package's serving interchange format is one NPZ of '/'-joined
 flax paths (``gossipnet_tpu/utils/export.py``), e.g. ``init_fc/kernel``,
-``block_0/reduce/kernel``, ``block_0/pair_wg``, ``head/bias``. This module
-reads that format with numpy alone and maps it to a PyTorch ``state_dict``
-of :class:`~gossipnet_tpu_torch.models.gossipnet.GossipNet` and back:
+``block_0/reduce/kernel``, ``block_0/pair_wg``, ``head/bias``;
+``utils/export.py`` reads and writes it with numpy alone. This module maps
+such a tree to a PyTorch ``state_dict`` of
+:class:`~gossipnet_tpu_torch.models.gossipnet.GossipNet` and back:
 
 - ``block_<k>/...`` <-> ``blocks.<k>....``;
 - a Dense ``kernel`` [in, out] <-> ``weight`` [out, in] (transposed);
@@ -19,7 +20,6 @@ Both directions are exact (a transpose moves no bits).
 from __future__ import annotations
 
 import re
-from pathlib import Path
 from typing import Mapping
 
 import numpy as np
@@ -27,41 +27,11 @@ import torch
 
 from gossipnet_tpu_torch.config import ModelConfig
 from gossipnet_tpu_torch.ops import pair_features as pf
-
-
-def flatten_paths(tree: Mapping) -> dict:
-    """Nested dict tree -> {'a/b/c': numpy leaf}."""
-    flat = {}
-
-    def walk(node, prefix):
-        for k, v in node.items():
-            path = f"{prefix}/{k}" if prefix else str(k)
-            if isinstance(v, Mapping):
-                walk(v, path)
-            else:
-                flat[path] = np.asarray(v)
-
-    walk(tree, "")
-    return flat
-
-
-def unflatten_paths(flat: Mapping) -> dict:
-    """Inverse of :func:`flatten_paths` (the NPZ key convention)."""
-    tree: dict = {}
-    for path, v in flat.items():
-        parts = path.split("/")
-        node = tree
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = v
-    return tree
-
-
-def load_params_npz(path: str | Path) -> dict:
-    """A params NPZ written by ``gossipnet_tpu.utils.export.save_params_npz``
-    -> nested tree of numpy arrays."""
-    with np.load(path) as data:
-        return unflatten_paths({k: data[k] for k in data.files})
+from gossipnet_tpu_torch.utils.export import (  # noqa: F401 (re-exported)
+    flatten_paths,
+    load_params_npz,
+    unflatten_paths,
+)
 
 
 def _flat(tree_or_flat: Mapping) -> dict:

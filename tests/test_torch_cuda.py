@@ -9,7 +9,9 @@ cannot matter: W2 a permutation, or no FC2), one training step
 of config 2 and one of config 3 through K5/K6, with their launch counts;
 K5/K6 on the launch arguments of config 4's model (f32 bit-equal m and
 winners, bf16 with dm zero at the near-tied maxima), two K6 launches
-bit-identical there, and K6's column-permutation probe.
+bit-identical there, and K6's column-permutation probe; and
+``AsyncBatch.wait()`` reading back its own batch alone (work enqueued on
+the stream after the dispatch does not delay it).
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
 without one. The file imports no JAX, so it runs where JAX is not
@@ -817,3 +819,42 @@ def test_k6_column_permutation_probe_on_card(p, num_classes, dtype):
     assert torch.equal(m, m_p)
     assert torch.equal(got_p[1], got[1][:, perm])
     _assert_grads(got_p, (got[0], got[1][:, perm], *got[2:]), dtype)
+
+
+@pytest.mark.cuda
+def test_wait_does_not_wait_for_work_enqueued_after_its_batch():
+    """AsyncBatch.wait() reads its own batch back: half a second of work
+    enqueued on the stream after the dispatch does not delay it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import time
+
+    from gossipnet_tpu_torch.api import Rescorer
+    from gossipnet_tpu_torch.config import experiment_path, load_config
+    from gossipnet_tpu_torch.data.synthetic import layout_record
+    from gossipnet_tpu_torch.params import init_params
+
+    cfg = load_config(experiment_path("serving_bucketed"))
+    rescorer = Rescorer(cfg, init_params(cfg.model, seed=0))
+    rng = np.random.default_rng(0)
+    images = [(r.det_boxes, r.det_scores, None) for r in
+              (layout_record(rng, i, "clustered", 1024) for i in range(8))]
+    want = rescorer.rescore_batch(images)
+    # cycles per second of torch.cuda._sleep, measured with events
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(10 ** 8)
+    end.record()
+    torch.cuda.synchronize()
+    cycles = int(0.5 * 10 ** 8 / (start.elapsed_time(end) / 1e3))
+    handle = rescorer.rescore_async(images)
+    torch.cuda._sleep(cycles)
+    t0 = time.perf_counter()
+    got = handle.wait()
+    waited = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    slept = time.perf_counter() - t0
+    assert slept > 0.3                # the sleep did run behind the batch
+    assert waited < 0.25
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

@@ -10,6 +10,7 @@ code and must agree exactly.
 """
 
 import json
+import zipfile
 
 import jax
 import jax.numpy as jnp
@@ -206,8 +207,16 @@ def test_cli_refusals_and_random_init(tmp_path, capsys):
     cfg_file = _write_config(tmp_path, tmp_path / "empty")
     with pytest.raises(SystemExit, match="--best: no best checkpoint"):
         t_eval.main(["-c", str(cfg_file), "--best", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="item 13"):
-        t_eval.main(["-c", str(cfg_file), "--artifact", "x.pt2"])
+    # an artifact of the JAX package (compiled programs, no weights file)
+    jax_art = tmp_path / "x.gnetart"
+    with zipfile.ZipFile(jax_art, "w") as z:
+        z.writestr("meta.json", json.dumps(
+            {"format_version": 1, "platforms": ["tpu"], "shapes": [[1, 64]],
+             "config": {}}))
+        z.writestr("blobs/1x64.jaxexp", b"")
+    with pytest.raises(ValueError, match="JAX/TPU artifact"):
+        t_eval.main(["-c", str(cfg_file), "--artifact", str(jax_art),
+                     "--device", "cpu"])
     ov = yaml.safe_load(cfg_file.read_text())
     ov["parallel"]["enable"] = "on"
     mesh_file = tmp_path / "mesh.yaml"

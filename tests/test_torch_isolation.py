@@ -44,7 +44,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "utils.checkpoint", "utils.metrics", "data.bucketing",
                  "ops.cuda.ablate", "tools.kernel_ablate", "evaluate",
                  "eval.cocoeval", "native", "ops.nms", "data.pets",
-                 "data.roidb", "data.synthetic"):
+                 "data.roidb", "data.synthetic", "serving",
+                 "utils.export", "utils.model_artifact"):
         assert f"gossipnet_tpu_torch.{name}" in result["modules"], name
 
 
@@ -105,11 +106,17 @@ def test_train_cli_raises_without_a_card(tmp_path):
     assert not metrics.exists()          # no step ran on the CPU
 
 
-def test_serve_cli_without_random_init_names_the_roadmap_item():
+def test_serve_cli_without_random_init_names_the_roadmap_item(tmp_path):
+    """Serving over a device mesh is what the serve CLI still refuses,
+    naming the roadmap item, before it looks for a card or a checkpoint."""
+    import yaml
+
     from gossipnet_tpu_torch.serving import main
 
-    with pytest.raises(SystemExit, match="item 13"):
-        main(["-c", str(ROOT / "experiments" / "serving_bucketed.yaml")])
+    mesh = tmp_path / "mesh.yaml"
+    mesh.write_text(yaml.safe_dump({"parallel": {"enable": "on"}}))
+    with pytest.raises(SystemExit, match="item 14"):
+        main(["-c", str(mesh), "--checkpoint-dir", str(tmp_path / "none")])
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
