@@ -135,9 +135,27 @@ Phases (each raises on failure; the script then exits non-zero):
    runs (F2);
 14g. for information: TCP request latency p50/p99, images/s and mean
    batch at 1 and 4 JSON clients and 1 binary client on the bench's
-   images, and the JSON-lines stream through rescore_stream with the
-   read-back before and after F2's repair, in turns (``python3
-   chip_smoke.py --serve-times`` runs only this).
+   images, and the JSON-lines stream through rescore_stream (``python3
+   chip_smoke.py --serve-times`` runs only this);
+15. the captured paths (utils/cuda_graphs.py) against the eager ones: the
+   serving forward of the 16-block model at the bench batch through K1
+   and K5, in bf16 and f32, and config 4's, bit-equal to the eager
+   forward at the same padded batch, a replay launching what an eager
+   forward launches; 20 config-2 steps, 5 config-4 steps through
+   pair_kernel 1 and 4 micro-steps of grad_accum_steps 2, each against
+   eager train_step on a twin state: every step's metrics, then the
+   parameters and optimizer slots, bit for bit; then, eager against
+   captured in turns (events, host, host, events): the forward at the
+   bench batch and config 4 (dets/s, kernel time, busy share),
+   rescore_batch host to host, the config-2 and config-4 steps, the
+   evaluation of 64 images, the TCP table of phase 14g; the capture
+   seconds per shape and the memory reserved after the warm-up
+   (``python3 chip_smoke.py --graph-times`` runs only these timings).
+
+Every path of phases 4-14 runs through captured graphs, as a user's call
+does: a replay adds its graph's launches to each counter, and the eager
+run before each capture launches them too, so the launch checks count
+replays plus captures.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result
@@ -147,6 +165,7 @@ and exits 1.
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -196,7 +215,9 @@ from gossipnet_tpu_torch.params import as_state_dict, init_params
 from gossipnet_tpu_torch.serving import serve_stream
 from gossipnet_tpu_torch.tools import kernel_ablate
 from gossipnet_tpu_torch.utils import model_artifact
+from gossipnet_tpu_torch.utils import profiling
 from gossipnet_tpu_torch.utils.checkpoint import CheckpointManager
+from gossipnet_tpu_torch.utils.cuda_graphs import StepGraphs, forward_graphs
 from gossipnet_tpu_torch.utils.export import load_params_npz, save_params_npz
 
 # Published H100 SXM peaks (dense): bf16 tensor cores, f32 on CUDA cores,
@@ -402,6 +423,7 @@ def phase_serving(cfg):
     log(f"  images: {[len(im[1]) for im in images]} dets -> buckets "
         f"{buckets}")
     rescorer.warmup(batch_size=1)
+    warmed = rescorer._graphs.shapes()
 
     k1.pair_pool.launches = 0
     t0 = time.perf_counter()
@@ -409,11 +431,16 @@ def phase_serving(cfg):
     batch_s = time.perf_counter() - t0
     launches = k1.pair_pool.launches
     n_batches = len(buckets)       # every image group fits one batch
+    # a shape warmup(batch_size=1) did not capture (the two-image group,
+    # padded to 2) is captured at its first dispatch, after one eager run
+    new = len(rescorer._graphs.shapes()) - len(warmed)
     log(f"  rescore_batch: {len(images)} images in {batch_s * 1e3:.1f} ms, "
-        f"K1 launches {launches} (expected {16 * n_batches} = 16 x "
-        f"{n_batches} batches)")
-    if launches != cfg.model.num_blocks * n_batches:
-        raise AssertionError(f"K1 launches {launches} != 16 x {n_batches}")
+        f"K1 launches {launches} (expected {16 * (n_batches + new)} = 16 x "
+        f"({n_batches} replayed batches + {new} eager run before a "
+        f"capture)); graphs captured: {rescorer._graphs.shapes()}")
+    if launches != cfg.model.num_blocks * (n_batches + new):
+        raise AssertionError(f"K1 launches {launches} != 16 x "
+                             f"({n_batches} + {new})")
     for im, s in zip(images, out):
         if len(s) != len(im[1]) or not np.isfinite(s).all() \
                 or s.min() < 0 or s.max() > 1:
@@ -548,7 +575,8 @@ def phase_times(rescorer, dtype):
         f"{tested} IoU tests, {nbytes / 1e6:.2f} MB); tiles skipped "
         f"{skipped:.4f}")
     busy = f"{busy_ms / fwd_ms:.3f}" if busy_ms else "not measured"
-    log(f"  forward (16 blocks, 16 K1 launches): {fwd_ms:.3f} ms = "
+    log(f"  eager forward (16 blocks, 16 K1 launches; captured: phase "
+        f"15): {fwd_ms:.3f} ms = "
         f"{dets_s:.0f} dets/s (B x N / forward time); device busy {busy} "
         f"of it, K1 {16 * kernel_ms / fwd_ms:.3f}; Rescorer.rescore_batch "
         f"of 8 images host-to-host: {e2e_ms:.3f} ms")
@@ -815,8 +843,12 @@ def capture(module, name: str, run):
     fn = getattr(module, name)
 
     def record(*args, **kw):
-        calls.append(tuple(x.detach().clone() if isinstance(x, torch.Tensor)
-                           else x for x in args))
+        # a thresholds pair is recorded as its host tensor: the scan's
+        # wrapper copies it to the card on each call, as it always did
+        calls.append(tuple(
+            x.detach().clone() if isinstance(x, torch.Tensor)
+            else x.host.clone() if isinstance(x, k3.Thresholds) else x
+            for x in args))
         return fn(*args, **kw)
 
     # a wrapper's launch count lives on it; carry it over and back
@@ -1025,18 +1057,22 @@ def phase_training(tmp: Path):
     log(f"  {steps} steps in {run_s:.1f} s (first steps include warm-up); "
         f"launches {launches}")
     blocks = cfg.model.num_blocks
-    # The label check adds one forward (16 K1) and one K3 launch; K4 runs
-    # once per image of it.
-    want = want_counts(pair_pool2_fwd=blocks * steps + blocks,
-                       pair_pool2_bwd=blocks * steps,
-                       greedy_scan_batched=steps + 1,
+    runs = steps + state.graphs.captures
+    # Each step replays its shape's graph; each capture followed one eager
+    # step. The label check adds one forward (16 K1) and one K3 launch; K4
+    # runs once per image of it.
+    want = want_counts(pair_pool2_fwd=blocks * runs + blocks,
+                       pair_pool2_bwd=blocks * runs,
+                       greedy_scan_batched=runs + 1,
                        greedy_scan=first.batch_size)
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} (16 K1 + 16 K2 "
                              f"+ 1 K3 per step)")
-    log(f"  = {blocks} K1 + {blocks} K2 + 1 K3 per step over {steps} steps "
-        f"(+ one checking forward, and K4 on its {first.batch_size} images, "
-        f"whose labels equal the batched K3 labels)")
+    log(f"  = {blocks} K1 + {blocks} K2 + 1 K3 per step over {steps} "
+        f"replayed steps and {state.graphs.captures} eager step(s) before "
+        f"a capture (+ one checking forward, and K4 on its "
+        f"{first.batch_size} images, whose labels equal the batched K3 "
+        f"labels)")
 
     losses = [json.loads(x)["loss"] for x in
               metrics_path.read_text().splitlines()]
@@ -1145,25 +1181,15 @@ def phase_train_cli(tmp: Path):
 
 def profile_kernels(fn, reps: int) -> tuple[float, dict]:
     """Device time of ``reps`` calls of ``fn`` from torch.profiler's CUDA
-    trace, kernel events only -> (busy ms per call, {kernel name: ms per
-    call}); (0.0, {}) when the trace holds no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    trace, kernel events only (``profiling.kernel_ms``) -> (busy ms per
+    call, {kernel name: ms per call}); (0.0, {}) when the trace holds no
+    device time."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiling.profile_trace(None) as prof:
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    # kernel events only: a user annotation (the optimizer's step range)
-    # also carries device time, spanning the kernels inside it
-    by_name = {e.key: e.device_time_total / reps / 1e3
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.device_time_total > 0
-               and not getattr(e, "is_user_annotation", False)
-               and "#" not in e.key}
+    by_name = {k: v / reps for k, v in profiling.kernel_ms(prof).items()}
     return sum(by_name.values()), by_name
 
 
@@ -1420,7 +1446,8 @@ def phase_train_times(state, tmp: Path) -> dict:
     dev = torch.device(DEV)
     it = BatchIterator(synthetic_roidb(**TRAIN_DATA), 8,
                        cfg.data.bucket_sizes)
-    batches = [training.batch_to_device(next(it), dev) for _ in range(4)]
+    hosts = [training.host_arrays(next(it)) for _ in range(4)]
+    batches = [dict(zip(h, device_arrays(h.values()))) for h in hosts]
     k2_args = capture(k1, "launch_backward_kernel",
                       lambda: training.train_step(state, batches[0], cfg))
     scan_args = capture(k3, "greedy_scan_batched",
@@ -1443,11 +1470,12 @@ def phase_train_times(state, tmp: Path) -> dict:
     k3_bound_ms, k3_by = scan_bound(iou, len(thr))
     k4_bound_ms, k4_by = scan_bound(one, len(thr))
 
+    # the step as train() runs it: a replay of phase 6's captured graphs
     def steps(n):
         for i in range(n):
-            training.train_step(state, batches[i % 4], cfg)
+            state.graphs(hosts[i % 4])
 
-    steps(2)
+    steps(4)
     # in turns (events, host, host, events): the host clock spreads
     runs = [cuda_time(lambda: steps(1), iters=10, warmup=1),
             host_ms(lambda: steps(1), 10), host_ms(lambda: steps(1), 10),
@@ -1459,7 +1487,7 @@ def phase_train_times(state, tmp: Path) -> dict:
     def share(part):
         return sum(v for key, v in by_name.items() if part in key)
 
-    log(f"  training step, ms (events, host, host, events): "
+    log(f"  training step, captured, ms (events, host, host, events): "
         f"{', '.join(f'{x:.3f}' for x in runs)}; CUDA events {step_ms:.3f} "
         f"ms = {8 * 1024 / step_ms * 1e3:.0f} dets/s, host to host "
         f"{host_med:.3f} ms")
@@ -1816,9 +1844,13 @@ def phase_evaluate(tmp: Path) -> tuple[dict, float]:
     out = evaluate.main(["-c", str(path), "--random-init", "--nms-sweep"])
     wall = time.perf_counter() - t0
     launches = counts()
-    want = want_counts(pair_pool2_fwd=blocks * len(batches))
-    log(f"  evaluate.main: {wall:.2f} s wall (model build and warm-up "
-        f"included); launches {launches}")
+    # every batch replays its shape's graph; each shape's capture followed
+    # one eager forward
+    shapes = len({(b.batch_size, b.padded_n) for b in batches})
+    want = want_counts(pair_pool2_fwd=blocks * (len(batches) + shapes))
+    log(f"  evaluate.main: {wall:.2f} s wall (model build and captures "
+        f"included); launches {launches}: {blocks} K1 x ({len(batches)} "
+        f"replayed batches + {shapes} eager forward before a capture)")
     if launches != want:
         raise AssertionError(f"evaluation launches {launches} != {want} "
                              f"({blocks} K1 per batch, nothing else)")
@@ -1889,7 +1921,7 @@ def phase_evaluate(tmp: Path) -> tuple[dict, float]:
                                             f32.train.batch_size,
                                             f32.data.bucket_sizes)
         got_counts = counts()
-        want_n = blocks * len(batches) if impl == "kernel" else 0
+        want_n = blocks * (len(batches) + shapes) if impl == "kernel" else 0
         if got_counts != want_counts(pair_pool2_fwd=want_n):
             raise AssertionError(f"f32 {impl} evaluation launched "
                                  f"{got_counts}")
@@ -1901,7 +1933,7 @@ def phase_evaluate(tmp: Path) -> tuple[dict, float]:
     aps = {impl: evaluate._evaluator_for(
         roidb, scores_by_image=both[impl]).summarize()["AP"]
         for impl in both}
-    log(f"  f32 scores of rescore_roidb, K1 path ({blocks * len(batches)} "
+    log(f"  f32 scores of rescore_roidb, K1 path ({want_n} "
         f"launches) vs dense plain path (0 launches) on the same "
         f"{len(roidb)} images: max |diff| {dense_err:.3e} (tol "
         f"{score_tol:.1e}: the logit tolerance through the sigmoid); AP "
@@ -1937,16 +1969,17 @@ def phase_evaluate(tmp: Path) -> tuple[dict, float]:
     metrics = tmp / "eval_metrics.jsonl"
     reset_counts()
     t0 = time.perf_counter()
-    training.train(tcfg, train_db, val_roidb=val_db, pool_impl="kernel",
-                   metrics_path=str(metrics), max_steps=EVAL_TRAIN_STEPS,
-                   device=DEV)
+    tstate = training.train(tcfg, train_db, val_roidb=val_db,
+                            pool_impl="kernel", metrics_path=str(metrics),
+                            max_steps=EVAL_TRAIN_STEPS, device=DEV)
     run_s = time.perf_counter() - t0
     got = counts()
     evals = EVAL_TRAIN_STEPS // 2
+    runs = EVAL_TRAIN_STEPS + tstate.graphs.captures
+    eval_shapes = len(forward_graphs(tstate.model).shapes())
     want = want_counts(
-        pair_pool2_fwd=blocks * (EVAL_TRAIN_STEPS + evals * val_batches),
-        pair_pool2_bwd=blocks * EVAL_TRAIN_STEPS,
-        greedy_scan_batched=EVAL_TRAIN_STEPS)
+        pair_pool2_fwd=blocks * (runs + evals * val_batches + eval_shapes),
+        pair_pool2_bwd=blocks * runs, greedy_scan_batched=runs)
     recs = [json.loads(x) for x in metrics.read_text().splitlines()]
     aps = {r["step"]: r["val_AP"] for r in recs if "val_AP" in r}
     log(f"  train() with a validation set of {len(val_db)} images at "
@@ -2138,6 +2171,7 @@ def phase_crowd_serving():
     images = [(boxes[b][valid[b]], scores[b][valid[b]], None)
               for b in range(2)]
     rescorer = Rescorer(cfg, init_params(cfg.model, seed=0), device=DEV)
+    rescorer.warmup(batch_size=2)
     reset_counts()
     out = rescorer.rescore_batch(images)
     torch.cuda.synchronize()
@@ -2161,7 +2195,8 @@ def phase_crowd_serving():
     inert = (torch.equal(logits[t[2]], logits_moved[t[2]])
              and bool((logits[pad] == PAD_LOGIT).all()))
     log(f"  Rescorer.rescore_batch of 2 images x {len(images[0][1])} "
-        f"detections (bucket 4096): launches {launches['pair_pool_fwd']} K5, "
+        f"detections (bucket 4096), a replay of the graph warmup captured: "
+        f"launches {launches['pair_pool_fwd']} K5, "
         f"0 K1; scores finite in [0, 1]; padding inert (valid logits "
         f"bit-equal when the padded boxes move, PAD_LOGIT on padding): "
         f"{inert}")
@@ -2220,10 +2255,12 @@ def phase_crowd_training(tmp: Path):
     run_s = time.perf_counter() - t0
     launches = counts()
     steps, blocks = state.step, cfg.model.num_blocks
-    want = want_counts(pair_pool_fwd=blocks * steps,
-                       pair_pool_bwd=blocks * steps,
-                       greedy_scan_batched=steps)
-    log(f"  {steps} steps in {run_s:.1f} s; launches {launches}")
+    runs = steps + state.graphs.captures
+    want = want_counts(pair_pool_fwd=blocks * runs,
+                       pair_pool_bwd=blocks * runs,
+                       greedy_scan_batched=runs)
+    log(f"  {steps} steps in {run_s:.1f} s, replayed ({state.graphs.captures}"
+        f" eager steps before captures); launches {launches}")
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} (16 K5 + 16 K6 "
                              f"+ 1 K3 per step)")
@@ -2294,13 +2331,16 @@ def phase_crowd_times(state, cfg, batch) -> tuple[dict, dict]:
     for pk, net, st, c, names in (
             (1, model, state, cfg, ("pair_pool_fwd", "pair_pool_bwd")),
             (2, other, state2, cfg2, ("pair_pool2_fwd", "pair_pool2_bwd"))):
+        graphs = forward_graphs(net)
+        steps = st.graphs or StepGraphs(st, c, training.step_body)
+        host = training.host_arrays(batch)
+        packed = [host[k] for k in ("boxes", "scores", "valid", "classes")]
 
         def forward():
-            with torch.inference_mode():
-                net(arrays["boxes"], arrays["scores"], arrays["valid"])
+            graphs(*packed)
 
         def step():
-            training.train_step(st, arrays, c)
+            steps(host)
 
         for name, fn in (("forward", forward), ("training step", step)):
             fn()
@@ -2317,7 +2357,8 @@ def phase_crowd_times(state, cfg, batch) -> tuple[dict, dict]:
                     f"{share / busy_ms:.3f} of kernel time, K3 "
                     f"{scan / busy_ms:.4f} ({scan:.4f} ms)" if busy_ms
                     else "profile: not measured")
-            log(f"  config 4 {name}, pair_kernel {pk}, ms (events, host, "
+            log(f"  config 4 {name}, pair_kernel {pk}, captured, ms "
+                f"(events, host, "
                 f"host, events): {', '.join(f'{x:.3f}' for x in runs)}; CUDA "
                 f"events {events:.3f} ms = {dets / events * 1e3:.0f} dets/s, "
                 f"host {float(np.median(runs[1:3])):.3f} ms; {busy}")
@@ -2353,8 +2394,9 @@ def phase_multiclass(tmp: Path):
         torch.cuda.synchronize()
         launches = counts()
         blocks = cfg.model.num_blocks
-        want = want_counts(**{fwd: blocks * steps, bwd: blocks * steps,
-                              "greedy_scan_batched": steps})
+        runs = steps + state.graphs.captures
+        want = want_counts(**{fwd: blocks * runs, bwd: blocks * runs,
+                              "greedy_scan_batched": runs})
         losses = [json.loads(x)["loss"] for x in
                   metrics_path.read_text().splitlines()]
         ok = launches == want and state.step == steps \
@@ -2376,6 +2418,7 @@ def phase_multiclass(tmp: Path):
     for pk in (1, 2):
         cfg = config(pk, pair_matmul_dtype="float32")
         rescorer = Rescorer(cfg, params, device=DEV)
+        rescorer.rescore_batch(images)      # captures the (8, n) graph
         reset_counts()
         served[pk] = rescorer.rescore_batch(images)
         launches = counts()
@@ -3070,8 +3113,10 @@ def phase_serve_trained(tmp: Path) -> int:
         f"{len(images)} images, max |diff| {file_err:.2e} against "
         f"rescore_batch (tol 1e-6: 6 decimals), {rounded} equal to its "
         f"6-decimal rounding; launches {launches}")
+    # file mode's Rescorer is new: each batch's shape is captured after
+    # one eager forward, then replayed
     if file_err > 1e-6 or launches != want_counts(
-            pair_pool2_fwd=blocks * len(buckets)):
+            pair_pool2_fwd=blocks * 2 * len(buckets)):
         raise AssertionError("file mode differs")
     file_launches = launches["pair_pool2_fwd"]
 
@@ -3175,18 +3220,23 @@ def phase_serve_times(card: str) -> None:
     """Phase 14g, for information: TCP request latency at 1 and 4 JSON
     clients and 1 binary client, closed loop, on the bench's images, with
     the 16-block serving_bucketed model (seeded weights); then
-    serve_stream's JSON-lines stream through rescore_stream with the
-    read-back of F2's repair and as it was before, in turns."""
+    serve_stream's JSON-lines stream through rescore_stream."""
     cfg = load_config(experiment_path("serving_bucketed"))
     rescorer = Rescorer(cfg, init_params(cfg.model, seed=0), device=DEV)
     log(f"phase 14g: serving times on the bench's images (8 x 896 "
         f"detections, bucket 1024), {SERVE_REQUESTS} requests per client "
         f"[{card}]")
+    tcp_times(rescorer, card)
+
+
+def tcp_times(rescorer, tag: str) -> None:
+    """The TCP server on ``rescorer`` (its start() warms every padded
+    shape of every bucket) at 1 and 4 JSON clients and 1 binary client,
+    then two JSON-lines streams through serve_stream; logs each with
+    ``tag``."""
     images = bench_images()
     server = serving.TcpServer(rescorer, port=0, threshold=0.5).start()
     try:
-        # the 4-client run twice: the first meets batch sizes that start()
-        # did not warm (it warms each bucket at 1 and at its cap)
         for label, n_clients, binary in (("1 JSON client", 1, False),
                                          ("4 JSON clients", 4, False),
                                          ("4 JSON clients again", 4, False),
@@ -3207,31 +3257,295 @@ def phase_serve_times(card: str) -> None:
                 f"{np.percentile(ms, 50):.3f} ms, p99 "
                 f"{np.percentile(ms, 99):.3f} ms; {n / wall:.1f} images/s; "
                 f"mean batch {n / batches:.3f} ({n} images in {batches} "
-                f"batches) [{card}]")
+                f"batches) [{tag}]")
     finally:
         server.stop()
     lines = "".join(json_line(k, images[k % len(images)]).decode()
                     for k in range(8 * len(images)))
-
-    def stream_s(copy) -> tuple[float, int]:
-        saved = api._HostCopy
-        api._HostCopy = copy
-        try:
-            t0 = time.perf_counter()
-            n = serve_stream(rescorer, 0.5, inp=io.StringIO(lines),
-                             out=io.StringIO())
-            return time.perf_counter() - t0, n
-        finally:
-            api._HostCopy = saved
-
-    stream_s(api._HostCopy)   # warm
-    runs = [("after", api._HostCopy), ("before", DeviceCopy),
-            ("before", DeviceCopy), ("after", api._HostCopy)] * 2
-    for label, copy in runs:
-        s, n = stream_s(copy)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        n = serve_stream(rescorer, 0.5, inp=io.StringIO(lines),
+                         out=io.StringIO())
+        s = time.perf_counter() - t0
         log(f"  serve_stream (rescore_stream, batches of 8) of {n} JSON "
-            f"lines, read-back {label} F2's repair: {s * 1e3:.1f} ms, "
-            f"{n / s:.1f} images/s [{card}]")
+            f"lines: {s * 1e3:.1f} ms, {n / s:.1f} images/s [{tag}]")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the captured paths against the eager ones
+# ---------------------------------------------------------------------------
+
+GATE_STEPS = 20          # config 2's run, as phase 6 trains it
+GATE_CROWD_STEPS = 5     # config 4's, as phase 10 trains it
+GATE_ACCUM_STEPS = 4     # micro-steps of grad_accum_steps: 2
+TIME_ITERS = 20
+
+
+class EagerGraphs:
+    """Stands in for a Rescorer's ForwardGraphs: the forward runs eagerly
+    on every dispatch, its inputs copied to the card as the Rescorer
+    copied them before its graphs. The before-state of phase 15."""
+
+    def __init__(self, graphs):
+        self.graphs = graphs
+
+    def __call__(self, *arrays):
+        return self.graphs.forward(*(torch.from_numpy(
+            np.ascontiguousarray(x)).to(DEV) for x in arrays))
+
+
+def eager_rescorer(cfg, params):
+    rescorer = Rescorer(cfg, params, device=DEV)
+    rescorer._graphs = EagerGraphs(rescorer._graphs)
+    return rescorer
+
+
+def device_arrays(arrays):
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
+            for x in arrays]
+
+
+def packed_layout(b: int, n: int, pad_from: int | None = None):
+    """bench.py's clustered layout as the packed arrays a Rescorer
+    dispatches; detections from ``pad_from`` on are padding."""
+    batch = layout_batch("clustered", b, n, seed=0)
+    valid = batch.valid.copy()
+    if pad_from is not None:
+        valid[:, pad_from:] = False
+    return (batch.boxes, batch.scores, valid, np.zeros((b, n), np.int32))
+
+
+def gate_forward(label: str, cfg, arrays) -> None:
+    """The replayed forward against the eager one at the same padded
+    batch: bit-equal probabilities, and a replay launches what an eager
+    forward launches."""
+    graphs = Rescorer(cfg, init_params(cfg.model, seed=0),
+                      device=DEV)._graphs
+    first = graphs(*arrays).clone()            # captured, then replayed
+    reset_counts()
+    again = graphs(*arrays).clone()
+    torch.cuda.synchronize()
+    replayed = counts()
+    reset_counts()
+    want = graphs.forward(*device_arrays(arrays))
+    torch.cuda.synchronize()
+    eager = counts()
+    equal = torch.equal(first, want) and torch.equal(again, want)
+    log(f"  forward, {label} {tuple(arrays[1].shape)}: captured vs eager "
+        f"bit-equal {equal} (max |diff| "
+        f"{(first - want).abs().max().item():.2e}); launches per replay "
+        f"{ {k: v for k, v in replayed.items() if v} } = eager's "
+        f"{replayed == eager}; capture {graphs.capture_seconds()}")
+    if not equal or replayed != eager or not sum(eager.values()):
+        raise AssertionError(f"captured forward differs from eager: {label}")
+
+
+def train_batches(data: dict, b: int, cfg, count: int) -> list[dict]:
+    it = BatchIterator(synthetic_roidb(**data), b, cfg.data.bucket_sizes)
+    return [training.host_arrays(next(it)) for _ in range(count)]
+
+
+def twin_states(cfg):
+    """Two training states on the same seeded weights."""
+    return [training.create_train_state(
+        cfg, training.build_model(cfg, "kernel", DEV)) for _ in range(2)]
+
+
+def gate_steps(label: str, cfg, batches: list[dict]) -> StepGraphs:
+    """Captured micro-steps against eager train_step on twin states: the
+    metrics of every step, then the parameters and optimizer slots, bit
+    for bit; each replay launches what an eager step launches."""
+    eager, stepped = twin_states(cfg)
+    graphs = StepGraphs(stepped, cfg, training.step_body)
+    worst, per_step = 0.0, None
+    for host in batches:
+        reset_counts()
+        _, want = training.train_step(eager, dict(zip(
+            host, device_arrays(host.values()))), cfg)
+        torch.cuda.synchronize()
+        eager_counts = counts()
+        captures = graphs.captures
+        reset_counts()
+        got = graphs(host)
+        torch.cuda.synchronize()
+        if graphs.captures == captures:     # a replay, no capture
+            if counts() != eager_counts:
+                raise AssertionError(f"{label}: a replay launched "
+                                     f"{counts()}, an eager step "
+                                     f"{eager_counts}")
+            per_step = eager_counts
+        for k in want:
+            worst = max(worst, (got[k] - want[k]).abs().item())
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(f"{label}: step {stepped.step} {k} "
+                                     f"{got[k].item()} != {want[k].item()}")
+    params = all(torch.equal(a, b) for a, b in zip(
+        stepped.model.parameters(), eager.model.parameters()))
+    slots = all(torch.equal(a, b) for a, b in zip(
+        stepped.optimizer.make_slots(), eager.optimizer.make_slots()))
+    log(f"  {label}: {len(batches)} captured micro-steps vs eager "
+        f"train_step: loss, pos_frac, num_pos and grad_norm bit-equal at "
+        f"every step (last loss {want['loss'].item():.6f}); parameters "
+        f"{params}, optimizer slots {slots}; {graphs.captures} graphs; "
+        f"launches per replay {({k: v for k, v in per_step.items() if v})} "
+        f"= an eager step's")
+    if not (params and slots and per_step):
+        raise AssertionError(f"{label}: captured steps differ from eager")
+    return graphs
+
+
+def in_turns(fns: dict, iters: int = TIME_ITERS) -> dict:
+    """Each of ``fns`` timed by CUDA events, the host clock, the host clock
+    and CUDA events, the paths in turns (their order reversed at each
+    round) -> {label: [events, host, host, events] ms per call}."""
+    out = {k: [0.0] * 4 for k in fns}
+    order = list(fns)
+    for i, kind in enumerate(("events", "host", "host", "events")):
+        for k in order:
+            out[k][i] = (cuda_time(fns[k], iters, warmup=1)
+                         if kind == "events" else host_ms(fns[k], iters))
+        order.reverse()
+    return out
+
+
+def log_turns(label: str, fns: dict, per_call=None, card: str = "") -> dict:
+    """Times ``fns`` in turns and logs each path's times, busy share and,
+    with ``per_call`` (detections a call), its rate."""
+    runs = in_turns(fns)
+    for k, ms in runs.items():
+        events = float(np.median([ms[0], ms[3]]))
+        busy, _ = profile_kernels(fns[k], reps=3)
+        rate = (f" = {per_call / events * 1e3:.0f} dets/s"
+                if per_call else "")
+        log(f"  {label}, {k}: ms (events, host, host, events) "
+            f"{', '.join(f'{x:.3f}' for x in ms)}{rate}; kernels "
+            f"{busy:.3f} ms, busy {busy / events:.3f} [{card}]")
+    return runs
+
+
+def phase_graph_times(card: str) -> None:
+    """Phase 15's timings: eager against captured, in turns, at the bench
+    batch, config 4, the config-2 and config-4 steps, the evaluation of
+    64 images and the TCP server; capture seconds per shape and the memory
+    reserved after the warm-up."""
+    log(f"phase 15 timings: eager vs captured, in turns [{card}]")
+    cfg = load_config(experiment_path("serving_bucketed"))
+    params = init_params(cfg.model, seed=0)
+    served, eager = Rescorer(cfg, params, device=DEV), \
+        eager_rescorer(cfg, params)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()       # what earlier phases left cached
+    base = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    served.warmup(batch_size=8)
+    warm_s = time.perf_counter() - t0
+    secs = served._graphs.capture_seconds()
+    mem = profiling.device_memory_stats()["cuda:0"]
+    log(f"  warmup(batch_size=8): {len(secs)} graphs in {warm_s:.2f} s; "
+        f"seconds per shape (eager run + capture): "
+        f"{ {k: round(v, 4) for k, v in secs.items()} }; memory reserved "
+        f"{base / 2**20:.1f} MiB before, "
+        f"{mem['bytes_reserved'] / 2**20:.1f} MiB after (in use "
+        f"{mem['bytes_in_use'] / 2**20:.1f} MiB) [{card}]")
+    for label, c, arrays in (
+            ("bench forward B=8 N=1024 (K1, bf16)", cfg,
+             packed_layout(8, 1024)),
+            ("config 4 forward B=2 N=4096 (K5, bf16)", crowd_config(),
+             packed_layout(2, 4096, pad_from=3900))):
+        graphs = (served._graphs if c is cfg else Rescorer(
+            c, init_params(c.model, seed=0), device=DEV)._graphs)
+        dev = device_arrays(arrays)
+        b, n = arrays[1].shape
+        log_turns(label, {"eager": lambda: graphs.forward(*dev),
+                          "captured": lambda: graphs(*arrays)},
+                  per_call=b * n, card=card)
+    images = bench_images()
+    log_turns("Rescorer.rescore_batch of the bench's 8 images, host to host",
+              {"eager": lambda: eager.rescore_batch(images),
+               "captured": lambda: served.rescore_batch(images)}, card=card)
+
+    for label, c, data, b in (
+            ("config-2 step B=8 N=1024 G=112 (K1, K2, K3)",
+             train_config(Path(tempfile.gettempdir()), "graph_times"),
+             TRAIN_DATA, 8),
+            ("config-4 step B=2 N=4096 G=400 (K5, K6, K3)", crowd_config(),
+             CROWD_DATA, 2)):
+        batches = train_batches(data, b, c, 4)
+        st_eager, st_graph = twin_states(c)
+        graphs = StepGraphs(st_graph, c, training.step_body)
+        k = iter(range(10 ** 9))
+
+        def eager_step():
+            host = batches[next(k) % 4]
+            training.train_step(st_eager, dict(zip(
+                host, device_arrays(host.values()))), c)
+
+        def captured_step():
+            graphs(batches[next(k) % 4])
+
+        for _ in range(4):
+            captured_step()       # every shape of the four captured
+        log_turns(label, {"eager": eager_step, "captured": captured_step},
+                  per_call=b * batches[0]["scores"].shape[1], card=card)
+        log(f"  {label}: seconds per captured step (eager step + capture):"
+            f" {[round(v, 4) for v in graphs.capture_seconds().values()]}")
+
+    ecfg = load_config(experiment_path("coco_persons_full"),
+                       {"data": {"dataset": "synthetic"}})
+    roidb = evaluate.load_roidb(ecfg)
+    model = training.build_model(ecfg, "kernel", DEV)
+    model.load_state_dict(as_state_dict(init_params(ecfg.model, seed=0)))
+    graphs = forward_graphs(model)
+
+    def eager_forward(*arrays):
+        return graphs.forward(*device_arrays(arrays)).cpu().numpy()
+
+    def rescore(fn=None):
+        return lambda: evaluate.rescore_roidb(
+            None, model, roidb, ecfg.train.batch_size,
+            ecfg.data.bucket_sizes, forward_fn=fn)
+
+    rescore()()
+    runs = in_turns({"eager": rescore(eager_forward),
+                     "captured": rescore()}, iters=3)
+    for k, ms in runs.items():
+        log(f"  evaluation forward of {len(roidb)} images (rescore_roidb, "
+            f"B=8 N=256), {k}: ms (events, host, host, events) "
+            f"{', '.join(f'{x:.3f}' for x in ms)} [{card}]")
+    for label, rescorer in (("eager", eager), ("captured", served),
+                            ("captured", served), ("eager", eager)):
+        tcp_times(rescorer, f"{label}, {card}")
+
+
+def phase_captured(card: str) -> None:
+    """Phase 15: the captured paths (utils/cuda_graphs.py) against the
+    eager ones, bit for bit at the same padded shapes, then timed."""
+    log("phase 15: captured graphs against the eager paths")
+    serve = load_config(experiment_path("serving_bucketed"))
+    bench = packed_layout(8, 1024)
+    for label, model in (("K1 bf16", {}),
+                         ("K1 f32", {"pair_matmul_dtype": "float32"}),
+                         ("K5 bf16", {"pair_kernel": 1}),
+                         ("K5 f32", {"pair_kernel": 1,
+                                     "pair_matmul_dtype": "float32"})):
+        cfg = load_config(experiment_path("serving_bucketed"),
+                          {"model": model}) if model else serve
+        gate_forward(f"serving_bucketed {label}", cfg, bench)
+    gate_forward("config 4 K5 bf16", crowd_config(),
+                 packed_layout(2, 4096, pad_from=3900))
+    tmp = Path(tempfile.gettempdir())
+    cfg2 = train_config(tmp, "gate")
+    gate_steps(f"config 2, {GATE_STEPS} steps", cfg2,
+               train_batches(TRAIN_DATA, 8, cfg2, GATE_STEPS))
+    crowd = crowd_config()
+    gate_steps(f"config 4 pair_kernel 1, {GATE_CROWD_STEPS} steps", crowd,
+               train_batches(CROWD_DATA, 2, crowd, GATE_CROWD_STEPS))
+    accum = train_config(tmp, "gate_accum", grad_accum_steps=2)
+    gate_steps(f"config 2 grad_accum_steps 2, {GATE_ACCUM_STEPS} "
+               f"micro-steps", accum,
+               train_batches(TRAIN_DATA, 8, accum, GATE_ACCUM_STEPS))
+    phase_graph_times(card)
 
 
 def phase_build(names=KERNELS):
@@ -3307,6 +3621,12 @@ def main() -> int:
         phase_serve_times(card)
         log(card)
         return 0
+    if sys.argv[1:] == ["--graph-times"]:
+        # Phase 15's timings alone: eager against captured; no result.
+        phase_build(KERNELS[:5])
+        phase_graph_times(card)
+        log(card)
+        return 0
     if sys.argv[1:] == ["--k1-stages"]:
         phase_build(KERNELS[:2])
         phase_k1_stages()
@@ -3351,6 +3671,7 @@ def main() -> int:
         worst["pair_pool2_fwd"] = max(worst["pair_pool2_fwd"], eval_err)
         serve_launches += phase_serve_trained(Path(tmp))
     phase_serve_times(card)
+    phase_captured(card)
     log(f"launches on the main paths: serving K1 {serve_launches} "
         f"(phases 4 and 14); "
         f"training {launches}; config 4 training {crowd_launches}; the "

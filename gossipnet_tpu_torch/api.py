@@ -29,6 +29,7 @@ from gossipnet_tpu_torch.config import Config
 from gossipnet_tpu_torch.data.bucketing import bucket_for
 from gossipnet_tpu_torch.models.gossipnet import resolve_device
 from gossipnet_tpu_torch.params import as_state_dict
+from gossipnet_tpu_torch.utils.cuda_graphs import forward_graphs
 
 
 def _scatter_scores(host_row: np.ndarray, n: int, keep) -> np.ndarray:
@@ -82,9 +83,12 @@ class _HostCopy:
 class Rescorer:
     """Bucketed detection rescorer on one device.
 
-    PyTorch runs eagerly, so there is nothing to compile per shape: a
-    partial batch runs at its own size (``_pad_batch`` returns it as it
-    is; ``ArtifactRescorer`` pads to its exported batches).
+    A batch dispatches at its padded shape (``_pad_batch``: the next power
+    of two, as the reference pads), and on the card each (padded batch,
+    bucket) replays a graph captured at its first dispatch
+    (``utils/cuda_graphs.py::ForwardGraphs``, kept on the model), as the
+    reference compiles one executable per shape; :meth:`warmup` captures
+    the whole set.
     """
 
     def __init__(self, cfg: Config, params, pool_impl: str | None = None,
@@ -96,6 +100,7 @@ class Rescorer:
         if pool_impl is None:
             pool_impl = "kernel" if self.device.type == "cuda" else "dense"
         self.model = build_model(cfg, pool_impl, self.device).eval()
+        self._graphs = forward_graphs(self.model)
         # held while a batch's forward is enqueued and while reload copies:
         # a batch never runs on a mix of old and new weights
         self._lock = threading.Lock()
@@ -136,17 +141,22 @@ class Rescorer:
 
     # --- internals ---
     def _pad_batch(self, b: int) -> int:
-        """The batch a b-image group dispatches at: b itself (the eager
-        forward has no shape set to stay inside); ``ArtifactRescorer``
-        pads to its exported batches."""
-        return b
+        """The padded batch a b-image group dispatches at: the next power
+        of two, so the set of captured shapes stays (log2(batch_size) + 1)
+        x buckets (``gossipnet_tpu/api.py:164``). Overridden by
+        ``ArtifactRescorer``, whose shape set is fixed at export time."""
+        return 1 << max(b - 1, 0).bit_length()
 
     def _dispatch(self, boxes_a, scores_a, valid_a, classes_a):
         """Enqueue one padded batch on the device; returns (a
         :class:`_HostCopy` of the probabilities, row count). CUDA work is
         asynchronous: the caller can pack the next batch while this one
         computes. The class ids reach a multi-class model and nothing
-        else."""
+        else.
+
+        Under the lock: the copy into the graph's static inputs, the
+        replay and the read-back, which stream order puts before the next
+        replay overwrites the graph's output."""
         b = scores_a.shape[0]
         b_pad = self._pad_batch(b)
         if b_pad != b:   # inert rows: valid=False
@@ -155,16 +165,9 @@ class Rescorer:
             scores_a = np.pad(scores_a, pad + ((0, 0),))
             valid_a = np.pad(valid_a, pad + ((0, 0),))
             classes_a = np.pad(classes_a, pad + ((0, 0),))
-
-        def dev(x):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-
-        classes = (dev(classes_a) if self.cfg.model.num_classes > 1
-                   else None)
-        with self._lock, torch.inference_mode():
-            logits = self.model(dev(boxes_a), dev(scores_a), dev(valid_a),
-                                classes)
-            return _HostCopy(torch.sigmoid(logits)), b
+        with self._lock:
+            return _HostCopy(self._graphs(boxes_a, scores_a, valid_a,
+                                          classes_a)), b
 
     def _run(self, boxes_a, scores_a, valid_a, classes_a) -> np.ndarray:
         """Dispatch one padded batch and block for the result."""
@@ -211,11 +214,15 @@ class Rescorer:
             self.model.load_state_dict(sd)
 
     def warmup(self, batch_size: int = 8) -> None:
-        """Run one full batch per bucket, so the kernel build, the
-        library handles and the allocator's pools are in place before the
-        first real request."""
+        """Dispatch every (batch, bucket) shape reachable for requests
+        served at ``batch_size`` (batches padded to powers of two), so
+        each graph is captured before the first real request
+        (``gossipnet_tpu/api.py:204``)."""
+        batches = sorted({self._pad_batch(b)
+                          for b in range(1, batch_size + 1)})
         for n in self.cfg.data.bucket_sizes:
-            self._run(*zero_batch(batch_size, n))
+            for b in batches:
+                self._run(*zero_batch(b, n))
 
     def _check_image(self, idx, scores, classes, truncate):
         if self.cfg.model.num_classes > 1 and classes is None:

@@ -14,14 +14,15 @@ runs the plain path. The COCO matching and the GreedyNMS sweep are host
 code (``eval/cocoeval.py``, ``ops/nms.py``; C++ through ``native.py`` when
 the library loads, numpy otherwise, with identical results).
 
-The forward runs eagerly under ``torch.no_grad()``, so there is nothing to
-compile and nothing to cache: the reference's module-level forward caches
-(its jitted local forward per model instance, its sharded forward per
-mesh) have no counterpart here. ``forward_fn`` is the hook for another
-forward: ``--artifact`` evaluates a serving artifact through
-``ArtifactRescorer.forward`` at its exported batch sizes. Not ported yet
-and refused by the CLI: evaluation over a device mesh
-(``parallel.enable: "on"``, ROADMAP.md item 14).
+On the card the forward replays one captured graph per (batch_size,
+bucket) (``utils/cuda_graphs.py::ForwardGraphs``), as the reference jits
+its local forward per model. The graphs live on the model, not in a
+module-level cache, and read its parameters as they stand, so a training
+run's periodic evaluation sees the weights its steps update in place.
+``forward_fn`` is the hook for another forward: ``--artifact`` evaluates
+a serving artifact through ``ArtifactRescorer.forward`` at its exported
+batch sizes. Not ported yet and refused by the CLI: evaluation over a
+device mesh (``parallel.enable: "on"``, ROADMAP.md item 14).
 """
 
 from __future__ import annotations
@@ -31,28 +32,26 @@ from pathlib import Path
 from typing import Sequence
 
 import numpy as np
-import torch
 
 from gossipnet_tpu_torch.data.bucketing import eval_batches
 from gossipnet_tpu_torch.data.roidb import Roidb
 from gossipnet_tpu_torch.eval.cocoeval import COCOEvaluator
 from gossipnet_tpu_torch.models.gossipnet import GossipNet, resolve_device
 from gossipnet_tpu_torch.params import as_state_dict
+from gossipnet_tpu_torch.utils.cuda_graphs import forward_graphs
 
 
 def _local_forward(params, model: GossipNet):
     """(boxes, scores, valid, classes) numpy -> sigmoid scores numpy, on
-    the model's device. ``params`` (a state_dict or a JAX tree), when
-    given, is loaded into ``model`` first."""
+    the model's device, through its captured forwards. ``params`` (a
+    state_dict or a JAX tree), when given, is loaded into ``model``
+    first, in place."""
     if params is not None:
         model.load_state_dict(as_state_dict(params))
-    device = next(model.parameters()).device
+    graphs = forward_graphs(model)
 
     def forward(boxes, scores, valid, classes):
-        arrays = [torch.from_numpy(np.ascontiguousarray(x)).to(device)
-                  for x in (boxes, scores, valid, classes)]
-        with torch.no_grad():
-            return torch.sigmoid(model(*arrays)).cpu().numpy()
+        return graphs(boxes, scores, valid, classes).cpu().numpy()
 
     return forward
 

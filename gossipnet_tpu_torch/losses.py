@@ -14,7 +14,11 @@ import torch
 from torch import Tensor
 
 from gossipnet_tpu_torch.config import Config, LossConfig
-from gossipnet_tpu_torch.ops.matching import MatchResult, greedy_match_batch
+from gossipnet_tpu_torch.ops.matching import (
+    MatchResult,
+    Thresholds,
+    greedy_match_batch,
+)
 
 
 def _normalised(weights: Tensor) -> Tensor:
@@ -79,14 +83,16 @@ def weighted_logistic_loss(logits: Tensor, match: MatchResult,
     return loss, metrics
 
 
-def matching_loss(logits: Tensor, batch_arrays: dict,
-                  cfg: Config) -> tuple[Tensor, dict]:
+def matching_loss(logits: Tensor, batch_arrays: dict, cfg: Config,
+                  thresholds: Thresholds | None = None) -> tuple[Tensor, dict]:
     """Greedy matching on the CURRENT logits (detached: labels are targets)
     + the weighted logistic loss.
 
     ``MatchingConfig.crowd_as_ignore``: True leaves crowd GTs in matching
     as ignore regions; False removes them, so the detections they cover
     train as plain negatives. ``class_aware`` matches within classes.
+    ``thresholds``: ``cfg.matching.thresholds`` already on the device (a
+    captured step passes them; by default they are copied on each call).
     """
     m = cfg.matching
     gt_valid = batch_arrays["gt_valid"]
@@ -96,7 +102,8 @@ def matching_loss(logits: Tensor, batch_arrays: dict,
         gt_crowd = torch.zeros_like(gt_crowd)
     match = greedy_match_batch(
         batch_arrays["boxes"], logits.detach(), batch_arrays["valid"],
-        batch_arrays["gt_boxes"], gt_valid, gt_crowd, m.thresholds,
+        batch_arrays["gt_boxes"], gt_valid, gt_crowd,
+        m.thresholds if thresholds is None else thresholds,
         det_classes=batch_arrays["classes"] if m.class_aware else None,
         gt_classes=batch_arrays["gt_classes"] if m.class_aware else None)
     return weighted_logistic_loss(logits, match, cfg.loss)

@@ -9,8 +9,10 @@ and non-real GTs zeroed), so thresholds must be > 0.
 :func:`greedy_scan_batched` (K3, [B, N, G]) and :func:`greedy_scan` (K4,
 [N, G]) launch ``csrc/matching_scan.cu`` on CUDA tensors, or raise; on CPU
 tensors they run :func:`greedy_scan_reference`. Thresholds are a 1-D
-float tensor, on the host or on the IoU's device. The kernel does
-comparisons only, so it equals the plain version exactly.
+float tensor, on the host or on the IoU's device, or a
+:class:`Thresholds` pair, whose device copy a captured step reads without
+a copy. The kernel does comparisons only, so it equals the plain version
+exactly.
 
 :func:`scan_lists_reference` is the kernel's algorithm in plain torch
 (candidate lists, prefixes per threshold, the overflow path, the walk);
@@ -20,6 +22,7 @@ tests hold it against the reference scans. It is no path of the port.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 from torch import Tensor
@@ -27,9 +30,32 @@ from torch import Tensor
 NEG_INF = -1e30
 
 
+class Thresholds(NamedTuple):
+    """IoU thresholds twice: on the host for the checks that branch on
+    them, on the device for the arithmetic. Made once before a step is
+    captured: a graph cannot hold the copy from pageable host memory that
+    a host tensor costs on every call."""
+
+    host: Tensor     # 1-D float32 on the CPU
+    device: Tensor   # the same values where the IoU lies
+
+
+def split_thresholds(thresholds, device) -> Thresholds:
+    """``thresholds`` (a sequence, a 1-D tensor anywhere, or a
+    :class:`Thresholds`, taken as it is) as a :class:`Thresholds` pair on
+    ``device``."""
+    if isinstance(thresholds, Thresholds):
+        return thresholds
+    if isinstance(thresholds, Tensor):
+        host = thresholds.detach().to("cpu", torch.float32).reshape(-1)
+    else:
+        host = torch.tensor(list(thresholds), dtype=torch.float32).reshape(-1)
+    return Thresholds(host, host.to(device, non_blocking=True))
+
+
 def _check_thresholds(thresholds: Tensor) -> None:
-    """Refuse t <= 0; checked on the host (a CPU tensor costs no device
-    sync, which is why the matching code passes its thresholds there)."""
+    """Refuse t <= 0; checked on the host copy, so the check costs no
+    device sync."""
     if thresholds.ndim != 1 or not bool((thresholds.cpu() > 0.0).all()):
         raise ValueError(
             "the matching scan kernel needs 1-D thresholds, all > 0 "
@@ -69,10 +95,11 @@ def scan_loop(iou: Tensor, thresholds: Tensor,
     return matched, best
 
 
-def greedy_scan_reference(iou: Tensor, thresholds: Tensor):
+def greedy_scan_reference(iou: Tensor, thresholds):
     """Plain K3 on pre-masked IoU [B, N, G] -> (matched, best) [B, N, T]."""
-    _check_thresholds(thresholds)
-    return scan_loop(iou.float(), thresholds.to(iou.device, torch.float32))
+    thr = split_thresholds(thresholds, iou.device)
+    _check_thresholds(thr.host)
+    return scan_loop(iou.float(), thr.device.float())
 
 
 def scan_lists_reference(iou: Tensor, thresholds: Tensor,
@@ -150,20 +177,25 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def launch_kernel(iou: Tensor, thresholds: Tensor,
+def launch_kernel(iou: Tensor, thresholds,
                   counter=None) -> tuple[Tensor, Tensor]:
     """One scan launch over B images on the current stream ->
     (matched [B, N, T] bool, best [B, N, T] int32); adds one to
-    ``counter.launches`` (the calling wrapper) when it launches."""
+    ``counter.launches`` (the calling wrapper) when it launches.
+    ``thresholds``: a 1-D tensor or sequence, copied to the card on every
+    call, or a :class:`Thresholds` pair, whose device copy is used as it
+    is."""
     if iou.device.type != "cuda":
         raise RuntimeError(f"the matching scan kernel needs CUDA tensors, "
                            f"got {iou.device}")
     if iou.ndim != 3 or iou.dtype != torch.float32 or not iou.is_contiguous():
         raise ValueError(f"iou must be a contiguous float32 [B, N, G], got "
                          f"{tuple(iou.shape)} {iou.dtype}")
-    _check_thresholds(thresholds)
+    pair = (thresholds if isinstance(thresholds, Thresholds)
+            else split_thresholds(thresholds, "cpu"))
+    _check_thresholds(pair.host)
     bsz, n, g = iou.shape
-    t = thresholds.shape[0]
+    t = pair.host.shape[0]
     lib = _library()
     if g > lib.gnet_greedy_scan_max_g() or t > 32:
         raise ValueError(f"the scan kernel takes G <= "
@@ -176,8 +208,11 @@ def launch_kernel(iou: Tensor, thresholds: Tensor,
     # the kernel writes every output: no fill launch
     matched = torch.empty((bsz, n, t), dtype=torch.bool, device=iou.device)
     best = torch.empty((bsz, n, t), dtype=torch.int32, device=iou.device)
-    thr = thresholds.to(iou.device, torch.float32,
-                        non_blocking=True).contiguous()
+    # the device copy after the outputs, so they take the blocks a caller
+    # freed for them (the check of every output being written relies on it)
+    thr = (pair.device if pair.device.device == iou.device
+           else pair.host.to(iou.device, non_blocking=True))
+    thr = thr.to(torch.float32).contiguous()
     with torch.cuda.device(iou.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gnet_greedy_scan(iou.data_ptr(), thr.data_ptr(),
@@ -190,7 +225,7 @@ def launch_kernel(iou: Tensor, thresholds: Tensor,
     return matched, best
 
 
-def greedy_scan_batched(iou: Tensor, thresholds: Tensor):
+def greedy_scan_batched(iou: Tensor, thresholds):
     """K3: batched greedy pass over pre-masked IoU [B, N, G] ->
     (matched [B, N, T] bool, best [B, N, T] int32). Thresholds > 0."""
     if iou.device.type == "cpu":
@@ -198,7 +233,7 @@ def greedy_scan_batched(iou: Tensor, thresholds: Tensor):
     return launch_kernel(iou, thresholds, greedy_scan_batched)
 
 
-def greedy_scan(iou: Tensor, thresholds: Tensor):
+def greedy_scan(iou: Tensor, thresholds):
     """K4: the greedy pass for one image, pre-masked IoU [N, G] ->
     (matched [N, T] bool, best [N, T] int32). Thresholds > 0."""
     if iou.device.type == "cpu":

@@ -154,18 +154,33 @@ def pair_geometry(row_cols: Tensor, col_cols: Tensor, neighbor_iou: float,
                         float(neighbor_iou))
 
 
+def _take_rows(x: Tensor, rows: tuple) -> Tensor:
+    """``x[list(rows)]`` without an index tensor: each run of consecutive
+    rows is a slice, and the runs are joined. An index list would be copied
+    from pageable host memory to the card on every call, which a captured
+    graph cannot hold."""
+    runs = [[rows[0], rows[0] + 1]]
+    for r in rows[1:]:
+        if r == runs[-1][1]:
+            runs[-1][1] = r + 1
+        else:
+            runs.append([r, r + 1])
+    parts = [x[lo:hi] for lo, hi in runs]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 def fold_separable(wg: Tensor, a: Tensor, b: Tensor,
                    geom: PairGeometry) -> tuple[Tensor, Tensor]:
     """a' = a + i_feats @ wg[_SEP_I], b' = b + j_feats @ wg[_SEP_J], in f32."""
     wg = wg.float()
-    a2 = a.float() + geom.i_feats @ wg[list(_SEP_I)]
-    b2 = b.float() + geom.j_feats @ wg[list(_SEP_J)]
+    a2 = a.float() + geom.i_feats @ _take_rows(wg, _SEP_I)
+    b2 = b.float() + geom.j_feats @ _take_rows(wg, _SEP_J)
     return a2, b2
 
 
 def _kernel_wg(wg: Tensor, multiclass: bool) -> Tensor:
     rows = _KERNEL_ROWS_MC if multiclass else _KERNEL_ROWS
-    return wg.float()[list(rows)].contiguous()
+    return _take_rows(wg.float(), rows).contiguous()
 
 
 # ---------------------------------------------------------------------------

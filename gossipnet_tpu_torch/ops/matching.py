@@ -26,6 +26,10 @@ import torch
 from torch import Tensor
 
 from gossipnet_tpu_torch.ops.cuda import matching_scan
+from gossipnet_tpu_torch.ops.cuda.matching_scan import (
+    Thresholds,
+    split_thresholds,
+)
 from gossipnet_tpu_torch.ops.geometry import pairwise_iof, pairwise_iou
 
 NEG_INF = -1e30
@@ -44,14 +48,6 @@ class MatchResult(NamedTuple):
     labels: Tensor
     ignore: Tensor
     matched_gt: Tensor
-
-
-def _host_thresholds(thresholds) -> Tensor:
-    """Thresholds as a 1-D float32 CPU tensor: the kernel's domain check
-    and its copy to the card then cost no device sync."""
-    if isinstance(thresholds, Tensor):
-        return thresholds.detach().to("cpu", torch.float32).reshape(-1)
-    return torch.tensor(list(thresholds), dtype=torch.float32).reshape(-1)
 
 
 def kernel_domain_ok(thresholds: Tensor) -> bool:
@@ -106,7 +102,7 @@ def _match_scan(boxes, scores, valid, gt_boxes, gt_valid, gt_crowd, thr,
         same = torch.ones(iou.shape, dtype=torch.bool, device=iou.device)
     real_gt = gt_valid & ~gt_crowd                          # [B, G]
     crowd_gt = gt_valid & gt_crowd
-    thr_d = thr.to(boxes.device)
+    thr_d = thr.device
     order, inv = _by_score(scores, valid)
     eligible = (real_gt[:, None, :] & _rows(same, order)
                 & _rows(valid, order)[..., None])
@@ -127,7 +123,7 @@ def _match_kernel(boxes, scores, valid, gt_boxes, gt_valid, gt_crowd, thr,
     """The kernel path, batched -> [B, T, N]
     (``_greedy_match_batched_pallas:236``): IoU, sort and unsort in torch
     around the scan kernel ``scan`` (K3, or K4 per image)."""
-    _require_kernel_domain(thr)
+    _require_kernel_domain(thr.host)
     iou, iof, _ = _overlaps(boxes, gt_boxes, det_classes, gt_classes)
     real_gt = gt_valid & ~gt_crowd
     crowd_gt = gt_valid & gt_crowd
@@ -141,21 +137,21 @@ def _match_kernel(boxes, scores, valid, gt_boxes, gt_valid, gt_crowd, thr,
                   * real_gt[:, None, :].to(iou.dtype))
     matched_s, best_s = scan(iou_masked.contiguous(), thr)
     matched = _unsort(matched_s, inv)
-    thr_d = thr.to(boxes.device)
+    thr_d = thr.device
     crowd_ignore = ~matched & (max_crowd[:, None, :] >= thr_d[None, :, None])
     ignore = (~valid)[:, None, :] | crowd_ignore
     return MatchResult(labels=matched.float(), ignore=ignore,
                        matched_gt=_unsort(best_s, inv))
 
 
-def _k4(iou_masked: Tensor, thr: Tensor):
+def _k4(iou_masked: Tensor, thr: Thresholds):
     matched, best = matching_scan.greedy_scan(iou_masked[0], thr)
     return matched[None], best[None]
 
 
 def greedy_match(boxes: Tensor, scores: Tensor, valid: Tensor,
                  gt_boxes: Tensor, gt_valid: Tensor, gt_crowd: Tensor,
-                 thresholds: Tensor | Sequence[float],
+                 thresholds: Tensor | Sequence[float] | Thresholds,
                  det_classes: Tensor | None = None,
                  gt_classes: Tensor | None = None,
                  impl: str | None = None) -> MatchResult:
@@ -171,7 +167,7 @@ def greedy_match(boxes: Tensor, scores: Tensor, valid: Tensor,
     impl = impl or "scan"
     if impl not in IMPLS:
         raise ValueError(f"unknown matching impl {impl!r}; options: {IMPLS}")
-    thr = _host_thresholds(thresholds)
+    thr = split_thresholds(thresholds, boxes.device)
 
     def batch(x):
         return None if x is None else x[None]
@@ -186,22 +182,23 @@ def greedy_match(boxes: Tensor, scores: Tensor, valid: Tensor,
 
 def greedy_match_batch(boxes: Tensor, scores: Tensor, valid: Tensor,
                        gt_boxes: Tensor, gt_valid: Tensor, gt_crowd: Tensor,
-                       thresholds: Tensor | Sequence[float],
+                       thresholds: Tensor | Sequence[float] | Thresholds,
                        det_classes: Tensor | None = None,
                        gt_classes: Tensor | None = None,
                        impl: str | None = None) -> MatchResult:
     """Batched matching -> MatchResult of [B, T, N]; the entry the training
-    loss uses.
+    loss uses. ``thresholds`` as a :class:`Thresholds` pair reach the
+    device without a copy (a captured step passes them so).
 
     ``impl``: None = K3 ("kernel") on CUDA tensors, the scan on CPU
     tensors; thresholds t <= 0 go to the scan either way (reference
     semantics: the kernel cannot represent them). "scan" | "kernel" force
     a path; "kernel" with t <= 0 raises.
     """
-    thr = _host_thresholds(thresholds)
+    thr = split_thresholds(thresholds, boxes.device)
     if impl is None:
         impl = "kernel" if boxes.device.type == "cuda" else "scan"
-        if not kernel_domain_ok(thr):
+        if not kernel_domain_ok(thr.host):
             impl = "scan"
     if impl not in IMPLS:
         raise ValueError(f"unknown matching impl {impl!r}; options: {IMPLS}")

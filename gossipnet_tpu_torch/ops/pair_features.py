@@ -140,6 +140,7 @@ def dense_pair_tensor(
     if classes is not None:
         class_match = classes[..., :, None] == classes[..., None, :]
     g = pair_features(ri, cj, iou=iou, class_match=class_match)
-    mask = ((iou >= iou.new_tensor(neighbor_iou))
-            & (ri.valid > 0) & (cj.valid > 0))
+    # the threshold as a Python number, compared in float32 as a tensor
+    # of it would be: a captured forward cannot hold a host tensor's copy
+    mask = (iou >= neighbor_iou) & (ri.valid > 0) & (cj.valid > 0)
     return g, mask

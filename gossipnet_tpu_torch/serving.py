@@ -631,21 +631,20 @@ class TcpServer:
 
     # -- lifecycle --
     def start(self):
-        """Warm every bucket at its batch cap and at 1 (and an artifact's
-        exported shapes) before any thread starts or the socket accepts,
-        so the kernel build and the library handles exist before the first
-        request; then seed each bucket's service-time EMA from a second,
-        timed run at its cap."""
-        buckets = self.rescorer.cfg.data.bucket_sizes
-        warm = {(b, n) for n in buckets for b in (1, self._batch_for[n])}
-        exported = getattr(self.rescorer, "exported_shapes", None)
-        if exported is not None:
-            warm |= set(exported())
-        for b, n in sorted(warm):
-            self.rescorer._run(*zero_batch(b, n))
-        for n in buckets:
+        """Dispatch every (batch, bucket) shape a request can reach before
+        any thread starts or the socket accepts: each bucket's padded
+        batches (powers of two; an artifact's exported batches) up to its
+        own cap, so every graph is captured before the first request. Then
+        seed each bucket's service-time EMA from a
+        second, timed run at its cap (``gossipnet_tpu/serving.py:
+        711-729``)."""
+        for n in self.rescorer.cfg.data.bucket_sizes:
+            pads = sorted({self.rescorer._pad_batch(b)
+                           for b in range(1, self._batch_for[n] + 1)})
+            for b in pads:
+                self.rescorer._run(*zero_batch(b, n))
             t0 = time.monotonic()
-            self.rescorer._run(*zero_batch(self._batch_for[n], n))
+            self.rescorer._run(*zero_batch(pads[-1], n))
             self._service_ema[n] = time.monotonic() - t0
         self._queue = queue.Queue()
         self._inflight = queue.Queue()

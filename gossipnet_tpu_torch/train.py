@@ -9,21 +9,26 @@ update. Batches are padded to static buckets; a resumed run replays the
 exact stream (model, optimizer, schedule, step, generator and iterator
 cursor are all saved).
 
+On the card ``train`` replays one captured graph of the step per padded
+shape (``utils/cuda_graphs.py::StepGraphs``), as the reference jits its
+step; :func:`train_step` is the same step run eagerly, its oracle. On the
+CPU the same step function runs eagerly.
+
     python -m gossipnet_tpu_torch.train -c experiments/coco_persons_full.yaml
 
-runs on the card and raises without one. When ``eval_every`` fires with a
+runs on the card and raises without one; ``--profile DIR`` writes a
+``torch.profiler`` trace of steps 10-15. When ``eval_every`` fires with a
 validation set, the COCO AP of the rescored detections
 (``evaluate.evaluate_model``) is logged as ``val_*`` and the best
 checkpoint follows ``val_AP``. Not ported yet, and raising where a run
-reaches them: ``parallel.enable: "on"`` (ROADMAP.md item 14) and
-``--profile`` (item 13).
+reaches it: ``parallel.enable: "on"`` (ROADMAP.md item 14).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -34,9 +39,12 @@ from gossipnet_tpu_torch.data.bucketing import Batch, BatchIterator
 from gossipnet_tpu_torch.data.roidb import Roidb
 from gossipnet_tpu_torch.losses import matching_loss
 from gossipnet_tpu_torch.models.gossipnet import GossipNet, resolve_device
+from gossipnet_tpu_torch.ops.matching import Thresholds
 from gossipnet_tpu_torch.params import as_state_dict, init_params
 from gossipnet_tpu_torch.utils.checkpoint import CheckpointManager
+from gossipnet_tpu_torch.utils.cuda_graphs import StepGraphs
 from gossipnet_tpu_torch.utils.metrics import MetricsLogger, StepTimer
+from gossipnet_tpu_torch.utils.profiling import StepProfiler
 
 BATCH_KEYS = ("boxes", "scores", "valid", "classes", "gt_boxes",
               "gt_classes", "gt_valid", "gt_crowd")
@@ -92,6 +100,23 @@ def global_norm(tensors: Sequence[Tensor]) -> Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+class Hyper(NamedTuple):
+    """The scalars one update of :class:`OptaxOptimizer` reads, computed on
+    the host by :meth:`OptaxOptimizer.plan`: Python numbers in an eager
+    step, 0-d device tensors in a captured one (written before each
+    replay, so no value freezes at its capture-time value).
+
+    Each divisor comes as its reciprocal, which the update multiplies by:
+    on the card ``torch._foreach_div`` by a Python number multiplies by its
+    reciprocal while the 0-d tensor overload divides, so only a product
+    gives an eager and a captured step the same bits."""
+
+    acc_scale: float | Tensor  # 1 / (n + 1): the accumulation mean's step
+    neg_lr: float | Tensor     # -learning rate
+    inv_bc1: float | Tensor    # 1 / (1 - b1 ** count), Adam's first
+    inv_bc2: float | Tensor    # and second bias correction
+
+
 class OptaxOptimizer(torch.optim.Optimizer):
     """optax's chain, written out: ``clip_by_global_norm`` (when
     ``grad_clip_norm > 0``) then ``adam`` / ``adamw`` / ``sgd`` (momentum
@@ -108,7 +133,10 @@ class OptaxOptimizer(torch.optim.Optimizer):
     waits for the device. The learning rate of an update is
     ``param_groups[0]["lr"]``; a ``LambdaLR`` of :func:`make_lr_schedule`
     sets it (initial lr 1.0, so the rate is the schedule's value exactly).
-    :meth:`step` returns True when it updated the parameters.
+    A micro-step is host bookkeeping (:meth:`plan`) and device arithmetic
+    (:meth:`update`), so that a captured step can run the second alone;
+    :meth:`step` does both and returns True when it updated the
+    parameters.
     """
 
     def __init__(self, params, cfg: Config):
@@ -126,22 +154,50 @@ class OptaxOptimizer(torch.optim.Optimizer):
         return [self.state[p].setdefault(name, torch.zeros_like(p))
                 for p in params]
 
+    def make_slots(self) -> list[Tensor]:
+        """Every slot an update reads, made now if missing (zeros, as the
+        first update would make them) -> the slot tensors. A step is
+        captured only after this: a slot made inside a graph would be
+        zeroed on every replay."""
+        group = self.param_groups[0]
+        names = ("trace",) if group["kind"] == "sgd" else ("mu", "nu")
+        names += ("acc",) if group["accum"] > 1 else ()
+        return [t for name in names for t in self._slots(name)]
+
+    def plan(self) -> tuple[bool, Hyper]:
+        """The host bookkeeping of one micro-step: advances ``mini_step``
+        and ``count`` -> (whether it updates the parameters, its
+        :class:`Hyper` scalars)."""
+        group = self.param_groups[0]
+        n, k = 0, group["accum"]
+        if k > 1:
+            n = group["mini_step"]
+            if n + 1 < k:
+                group["mini_step"] = n + 1
+                return False, Hyper(1 / (n + 1), 0.0, 1.0, 1.0)
+            group["mini_step"] = 0
+        group["count"] += 1
+        self._opt_called = True   # what LRScheduler checks: an update ran
+        c, lr = group["count"], group["lr"]
+        return True, Hyper(1 / (n + 1), -lr, 1 / (1 - group["b1"] ** c),
+                           1 / (1 - group["b2"] ** c))
+
     @torch.no_grad()
-    def step(self, closure=None) -> bool:
+    def update(self, apply: bool, hyper: Hyper) -> None:
+        """The device arithmetic of one micro-step on the parameters'
+        ``.grad``: accumulate (``grad_accum_steps > 1``) and, when
+        ``apply``, clip and update."""
         group = self.param_groups[0]
         params = group["params"]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        k = group["accum"]
-        if k > 1:
-            n, accs = group["mini_step"], self._slots("acc")
+        if group["accum"] > 1:
+            accs = self._slots("acc")
             delta = torch._foreach_sub(grads, accs)     # acc += (g - acc)/(n+1)
-            torch._foreach_div_(delta, n + 1)
+            torch._foreach_mul_(delta, hyper.acc_scale)
             torch._foreach_add_(accs, delta)
-            if n + 1 < k:
-                group["mini_step"] = n + 1
-                return False
-            group["mini_step"] = 0
+            if not apply:
+                return
             grads = [a.clone() for a in accs]
             torch._foreach_zero_(accs)
         if group["max_norm"] > 0:
@@ -153,13 +209,11 @@ class OptaxOptimizer(torch.optim.Optimizer):
             torch._foreach_mul_(clipped, 1.0 - keep)
             grads = torch._foreach_mul(grads, keep)
             torch._foreach_add_(grads, clipped)
-        group["count"] += 1
-        c, lr = group["count"], group["lr"]
         if group["kind"] == "sgd":
             traces = self._slots("trace")               # g + momentum * trace
             torch._foreach_mul_(traces, group["momentum"])
             torch._foreach_add_(traces, grads)
-            update = torch._foreach_mul(traces, -lr)
+            update = torch._foreach_mul(traces, hyper.neg_lr)
         else:
             b1, b2 = group["b1"], group["b2"]
             mus, nus = self._slots("mu"), self._slots("nu")
@@ -169,17 +223,38 @@ class OptaxOptimizer(torch.optim.Optimizer):
             torch._foreach_mul_(sq, 1 - b2)
             torch._foreach_mul_(nus, b2)
             torch._foreach_add_(nus, sq)
-            denom = torch._foreach_div(nus, 1 - b2 ** c)
+            denom = torch._foreach_mul(nus, hyper.inv_bc2)
             torch._foreach_sqrt_(denom)
             torch._foreach_add_(denom, group["eps"])
-            update = torch._foreach_div(mus, 1 - b1 ** c)
+            update = torch._foreach_mul(mus, hyper.inv_bc1)
             torch._foreach_div_(update, denom)
             if group["kind"] == "adamw":
                 torch._foreach_add_(update, torch._foreach_mul(
                     params, group["weight_decay"]))
-            torch._foreach_mul_(update, -lr)
+            torch._foreach_mul_(update, hyper.neg_lr)
         torch._foreach_add_(params, update)
-        return True
+
+    def step(self, closure=None) -> bool:
+        apply, hyper = self.plan()
+        self.update(apply, hyper)
+        return apply
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Loads as torch's Optimizer does, but into the slot tensors that
+        exist already, in place (a slot the saved state lacks is zeroed):
+        a captured step reads them at the addresses it was captured with."""
+        params = self.param_groups[0]["params"]
+        live = [dict(self.state[p]) for p in params]
+        super().load_state_dict(state_dict)
+        with torch.no_grad():
+            for p, slots in zip(params, live):
+                for name, tensor in slots.items():
+                    loaded = self.state[p].get(name)
+                    if loaded is None:
+                        tensor.zero_()
+                    else:
+                        tensor.copy_(loaded)
+                    self.state[p][name] = tensor
 
 
 def make_optimizer(cfg: Config, params) -> tuple[OptaxOptimizer,
@@ -201,13 +276,15 @@ def build_model(cfg: Config, pool_impl: str = "dense",
 class TrainState:
     """Everything a resumed run needs: the model (parameters), the
     optimizer and its schedule, the step count and a generator (seeded for
-    stochastic extensions; the JAX state's PRNG key)."""
+    stochastic extensions; the JAX state's PRNG key). ``graphs``: the
+    captured steps that ``train`` runs on this state (not saved)."""
 
     model: GossipNet
     optimizer: OptaxOptimizer
     schedule: torch.optim.lr_scheduler.LambdaLR
     step: int
     generator: torch.Generator
+    graphs: StepGraphs | None = dataclasses.field(default=None, repr=False)
 
     def state_dict(self) -> dict:
         return {"model": self.model.state_dict(),
@@ -217,6 +294,8 @@ class TrainState:
                 "generator": self.generator.get_state()}
 
     def load_state_dict(self, sd: dict) -> None:
+        """Copies into the live parameters and optimizer slots in place,
+        so captured steps stay valid."""
         self.model.load_state_dict(sd["model"])
         self.optimizer.load_state_dict(sd["optimizer"])
         self.schedule.load_state_dict(sd["schedule"])
@@ -237,41 +316,60 @@ def create_train_state(cfg: Config, model: GossipNet, seed: int | None = None,
                       torch.Generator().manual_seed(seed))
 
 
-def loss_and_metrics(model: GossipNet, batch_arrays: dict,
-                     cfg: Config) -> tuple[Tensor, dict]:
+def loss_and_metrics(model: GossipNet, batch_arrays: dict, cfg: Config,
+                     thresholds: Thresholds | None = None,
+                     ) -> tuple[Tensor, dict]:
     """Forward + matching + weighted logistic loss, all on the device (a
     class-agnostic model ignores the batch's class ids)."""
     logits = model(batch_arrays["boxes"], batch_arrays["scores"],
                    batch_arrays["valid"], batch_arrays["classes"])
-    return matching_loss(logits, batch_arrays, cfg)
+    return matching_loss(logits, batch_arrays, cfg, thresholds)
 
 
-def train_step(state: TrainState, batch_arrays: dict, cfg: Config):
-    """One micro-step -> (state, metrics): loss, pos_frac, num_pos and
-    grad_norm (of the step's gradient, before clipping), as 0-d tensors
-    left on the device."""
+def step_body(state: TrainState, batch_arrays: dict, cfg: Config,
+              apply: bool, hyper: Hyper,
+              thresholds: Thresholds | None = None) -> dict:
+    """The device work of one micro-step, which the card captures:
+    forward, matching, loss, backward, the global norm and the optimizer's
+    update (``apply`` and ``hyper`` from ``OptaxOptimizer.plan``) ->
+    metrics: loss, pos_frac, num_pos and grad_norm (of the step's
+    gradient, before clipping), 0-d tensors left on the device."""
     state.optimizer.zero_grad(set_to_none=True)
-    loss, metrics = loss_and_metrics(state.model, batch_arrays, cfg)
+    loss, metrics = loss_and_metrics(state.model, batch_arrays, cfg,
+                                     thresholds)
     loss.backward()
     params = state.optimizer.param_groups[0]["params"]
     metrics["grad_norm"] = global_norm(
         [p.grad for p in params if p.grad is not None]).detach()
-    if state.optimizer.step():
+    state.optimizer.update(apply, hyper)
+    return metrics
+
+
+def train_step(state: TrainState, batch_arrays: dict, cfg: Config):
+    """One eager micro-step -> (state, metrics): the oracle of the captured
+    step that ``train`` replays (the same :func:`step_body`, its scalars
+    Python numbers)."""
+    apply, hyper = state.optimizer.plan()
+    metrics = step_body(state, batch_arrays, cfg, apply, hyper)
+    if apply:
         state.schedule.step()
     state.step += 1
     return state, metrics
 
 
-def train_steps_group(state: TrainState, group: list[dict], cfg: Config):
-    """``steps_per_call`` steps (the JAX package scans them in one device
-    call): metrics are the group's means, grad_norm the last step's."""
-    mlist = []
-    for arrays in group:
-        state, m = train_step(state, arrays, cfg)
-        mlist.append(m)
+def train_steps_group(steps: StepGraphs, group: list[Batch]) -> dict:
+    """``steps_per_call`` steps, one replay of the captured step each (the
+    JAX package scans them in one device call): metrics are the group's
+    means, grad_norm the last step's."""
+    mlist = [steps(host_arrays(b)) for b in group]
     out = {k: torch.stack([m[k] for m in mlist]).mean() for k in mlist[0]}
     out["grad_norm"] = mlist[-1]["grad_norm"]
-    return state, out
+    return out
+
+
+def host_arrays(batch: Batch) -> dict:
+    """The batch's arrays by name, as numpy."""
+    return {k: getattr(batch, k) for k in BATCH_KEYS}
 
 
 def batch_to_device(batch: Batch, device) -> dict:
@@ -307,10 +405,6 @@ def train(
     checkpoint dir resumes bit-exactly. ``params`` seeds the model (a
     state_dict or a JAX tree; default ``init_params``).
     """
-    if profile_dir:
-        raise NotImplementedError(
-            "--profile (a trace of training steps) is not ported yet: "
-            "ROADMAP.md item 13")
     if cfg.parallel.enable == "on":
         raise NotImplementedError(
             "parallel.enable='on' (a device mesh) is not ported yet: "
@@ -330,8 +424,12 @@ def train(
             it.set_state(host_state["iterator"])
         print(f"resumed from step {state.step}", flush=True)
 
+    # captured after the restore above, so they read the restored tensors
+    steps = state.graphs = StepGraphs(state, cfg, step_body)
     logger = MetricsLogger(metrics_path, tb_dir=tb_dir)
     timer = StepTimer()
+    profiler = StepProfiler(profile_dir or "profile",
+                            enabled=bool(profile_dir))
 
     def default_eval(st):
         if val_roidb is None:
@@ -349,10 +447,9 @@ def train(
     queues: dict[tuple[int, int], list[Batch]] = {}
 
     def run_group(state, group: list[Batch]):
-        arrays = [batch_to_device(b, device) for b in group]
-        if len(arrays) == 1:
-            return train_step(state, arrays[0], cfg)
-        return train_steps_group(state, arrays, cfg)
+        if len(group) == 1:
+            return state, steps(host_arrays(group[0]))
+        return state, train_steps_group(steps, group)
 
     def flush_queues(state):
         """Train every queued batch as single steps (deterministic order),
@@ -360,7 +457,7 @@ def train(
         nonlocal host_step
         for key in sorted(queues):
             for b in queues[key]:
-                state, _ = train_step(state, batch_to_device(b, device), cfg)
+                steps(host_arrays(b))
                 host_step += 1
             queues[key] = []
         return state
@@ -387,6 +484,7 @@ def train(
         step = host_step
         for b in group:
             timer.tick(int(np.sum(b.valid)))
+        profiler.step(step)
 
         if step % t.log_every < spc or step >= max_steps:
             logger.log(step, steps_per_sec=timer.steps_per_sec,
@@ -406,6 +504,7 @@ def train(
     # Tail: batches drawn but still queued train as single steps before the
     # final save; the preemption path exits through the same code.
     state = flush_queues(state)
+    profiler.close()
     ckpt.save(state.step, state, {"iterator": it.get_state()})
     if preempted:
         print(f"preempted: snapshot at step {state.step}; rerun to resume",
@@ -458,7 +557,8 @@ def main(argv: list[str] | None = None) -> None:
                    help="pair stage: the CUDA pair kernels of "
                         "model.pair_kernel (default) or dense")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="trace of training steps (not ported: item 13)")
+                   help="write a torch.profiler trace of steps 10-15 to "
+                        "DIR/trace.json")
     p.add_argument("--tensorboard", default=None, metavar="DIR",
                    help="also mirror scalars to TensorBoard summaries")
     args = p.parse_args(argv)

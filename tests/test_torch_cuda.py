@@ -858,3 +858,187 @@ def test_wait_does_not_wait_for_work_enqueued_after_its_batch():
     assert waited < 0.25
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# captured graphs (utils/cuda_graphs.py) against the eager paths
+# ---------------------------------------------------------------------------
+
+GRAPH_CASES = {
+    "k1_f32": dict(pair_kernel=2, pair_matmul_dtype="float32"),
+    "k1_bf16": dict(pair_kernel=2, pair_matmul_dtype="bfloat16"),
+    "k5_f32": dict(pair_kernel=1, pair_matmul_dtype="float32"),
+    "k5_bf16": dict(pair_kernel=1, pair_matmul_dtype="bfloat16"),
+    "multiclass_k1": dict(pair_kernel=2, num_classes=5, class_embed_dim=8),
+    "multiclass_k5": dict(pair_kernel=1, num_classes=5, class_embed_dim=8),
+}
+
+
+def _graph_rescorer(**model):
+    from gossipnet_tpu_torch.api import Rescorer
+    from gossipnet_tpu_torch.config import experiment_path, load_config
+    from gossipnet_tpu_torch.params import init_params
+
+    cfg = load_config(experiment_path("serving_bucketed"),
+                      {"model": {"num_blocks": 4, **model},
+                       "data": {"bucket_sizes": [256, 512]}})
+    return Rescorer(cfg, init_params(cfg.model, seed=0))
+
+
+def _packed(rescorer, b, n, seed=0):
+    """A packed (b, n) batch of clustered images of 7n/8 detections."""
+    rng = np.random.default_rng(seed)
+    nc = rescorer.cfg.model.num_classes
+    boxes, scores, valid, classes = _clustered(
+        rng, b, n, n_valid=7 * n // 8, num_classes=nc if nc > 1 else 0)
+    classes = (np.zeros((b, n), np.int32) if classes is None
+               else classes.astype(np.int32))
+    return boxes, scores, valid, classes
+
+
+def _launch_counts():
+    from gossipnet_tpu_torch.utils.cuda_graphs import COUNTED
+
+    return [fn.launches for fn in COUNTED]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GRAPH_CASES))
+def test_captured_forward_is_bit_equal_to_eager_on_card(name):
+    """The replayed forward equals the eager forward at the same padded
+    batch bit for bit, at three (b, n); a replay launches what an eager
+    forward launches."""
+    dev = _card()
+    r = _graph_rescorer(**GRAPH_CASES[name])
+    graphs = r._graphs
+    for b, n in ((1, 256), (2, 512), (4, 256)):
+        arrays = _packed(r, b, n, seed=b + n)
+        got = graphs(*arrays).clone()         # captures, then replays
+        before = _launch_counts()
+        again = graphs(*arrays).clone()
+        torch.cuda.synchronize()
+        replayed = [a - b_ for a, b_ in zip(_launch_counts(), before)]
+        before = _launch_counts()
+        want = graphs.forward(*(torch.from_numpy(x).to(dev)
+                                for x in arrays))
+        torch.cuda.synchronize()
+        eager = [a - b_ for a, b_ in zip(_launch_counts(), before)]
+        assert torch.equal(got, want), (b, n)
+        assert torch.equal(again, want), (b, n)
+        assert replayed == eager and sum(eager) == 4, (b, n)
+    assert graphs.shapes() == [(1, 256), (2, 512), (4, 256)]
+
+
+@pytest.mark.cuda
+def test_reload_between_replays_reaches_the_graph_on_card():
+    from gossipnet_tpu_torch.params import init_params
+
+    _card()
+    r = _graph_rescorer(pair_matmul_dtype="float32")
+    old = init_params(r.cfg.model, seed=0)
+    new = init_params(r.cfg.model, seed=1)
+    images = [(bx[v], sc[v], None) for bx, sc, v, _ in
+              zip(*_packed(r, 3, 256))]
+    r.warmup(batch_size=4)
+    shapes = r._graphs.shapes()
+    first = r.rescore_batch(images)
+    r.reload(params=new)
+    second = r.rescore_batch(images)
+    r.reload(params=old)
+    third = r.rescore_batch(images)
+    assert r._graphs.shapes() == shapes       # no capture after warm-up
+    fresh = type(r)(r.cfg, new)
+    want = fresh.rescore_batch(images)
+    for a, b, c, w in zip(first, second, third, want):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, w)
+        assert not np.array_equal(a, b)
+
+
+def _train_setup(pair_kernel=2, **train):
+    from gossipnet_tpu_torch import train as training
+    from gossipnet_tpu_torch.config import experiment_path, load_config
+    from gossipnet_tpu_torch.data.bucketing import BatchIterator
+    from gossipnet_tpu_torch.data.synthetic import synthetic_roidb
+
+    dev = _card()
+    cfg = load_config(experiment_path("coco_persons_full"),
+                      {"data": {"dataset": "synthetic"},
+                       "model": {"num_blocks": 4, "pair_kernel": pair_kernel},
+                       "train": train})
+    roidb = synthetic_roidb(num_images=16, seed=0, num_gt=40, dets_per_gt=8,
+                            num_clutter=40)
+    it = BatchIterator(roidb, 8, cfg.data.bucket_sizes)
+    states = [training.create_train_state(
+        cfg, training.build_model(cfg, "kernel", dev)) for _ in range(2)]
+    return training, cfg, it, states, dev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k1k2", "k5k6", "accum2"])
+def test_captured_steps_are_bit_equal_to_eager_on_card(case):
+    """5 replayed steps against 5 eager ``train_step``s: metrics each step,
+    then parameters and optimizer slots, bit for bit; replays launch what
+    eager steps launch."""
+    kw = {"k1k2": {}, "k5k6": {"pair_kernel": 1},
+          "accum2": {"grad_accum_steps": 2}}[case]
+    training, cfg, it, (eager, stepped), dev = _train_setup(**kw)
+    from gossipnet_tpu_torch.utils.cuda_graphs import StepGraphs
+
+    steps = StepGraphs(stepped, cfg, training.step_body)
+    batch = next(it)
+    eager_counts = replay_counts = None
+    for i in range(5):
+        before = _launch_counts()
+        _, want = training.train_step(
+            eager, training.batch_to_device(batch, dev), cfg)
+        torch.cuda.synchronize()
+        mid = _launch_counts()
+        got = steps(training.host_arrays(batch))
+        torch.cuda.synchronize()
+        after = _launch_counts()
+        if i >= 2:   # every capture (one per update kind) is behind
+            eager_counts = [b - a for a, b in zip(before, mid)]
+            replay_counts = [b - a for a, b in zip(mid, after)]
+            assert replay_counts == eager_counts
+        for k in want:
+            assert torch.equal(got[k], want[k]), (i, k)
+    assert sum(eager_counts) == 4 + 4 + 1
+    for a, b in zip(stepped.model.parameters(), eager.model.parameters()):
+        assert torch.equal(a, b)
+    for a, b in zip(stepped.optimizer.make_slots(),
+                    eager.optimizer.make_slots()):
+        assert torch.equal(a, b)
+    assert steps.captures == (2 if case == "accum2" else 1)
+
+
+@pytest.mark.cuda
+def test_wait_after_a_replay_does_not_wait_for_later_work():
+    """As ``test_wait_does_not_wait_for_work_enqueued_after_its_batch``,
+    with the batch a replay of a graph captured by ``warmup``."""
+    import time
+
+    _card()
+    r = _graph_rescorer()
+    r.warmup(batch_size=8)
+    shapes = r._graphs.shapes()
+    images = [(bx[v], sc[v], None) for bx, sc, v, _ in
+              zip(*_packed(r, 8, 256))]
+    want = r.rescore_batch(images)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(10 ** 8)
+    end.record()
+    torch.cuda.synchronize()
+    cycles = int(0.5 * 10 ** 8 / (start.elapsed_time(end) / 1e3))
+    handle = r.rescore_async(images)
+    torch.cuda._sleep(cycles)
+    t0 = time.perf_counter()
+    got = handle.wait()
+    waited = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    assert time.perf_counter() - t0 > 0.3
+    assert waited < 0.25
+    assert r._graphs.shapes() == shapes
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

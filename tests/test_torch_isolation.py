@@ -45,7 +45,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "ops.cuda.ablate", "tools.kernel_ablate", "evaluate",
                  "eval.cocoeval", "native", "ops.nms", "data.pets",
                  "data.roidb", "data.synthetic", "serving",
-                 "utils.export", "utils.model_artifact"):
+                 "utils.export", "utils.model_artifact",
+                 "utils.cuda_graphs", "utils.profiling"):
         assert f"gossipnet_tpu_torch.{name}" in result["modules"], name
 
 

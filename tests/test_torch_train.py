@@ -296,11 +296,12 @@ def test_remat_blocks_give_the_same_gradients():
     ({"data": {"dataset": "coco"}}, "item 10"),
 ])
 def test_unported_training_options_raise(tmp_path, override, match):
-    """``parallel.enable: "on"`` and ``--profile`` are not ported and say
-    which roadmap item they wait for. ``dataset: coco`` (roadmap item 10,
-    since ported: its case keeps its id) no longer raises
-    NotImplementedError: it reaches the COCO loaders and fails only on the
-    annotation file that is not there."""
+    """``parallel.enable: "on"`` is not ported and says which roadmap item
+    it waits for, with or without ``--profile``. ``dataset: coco``
+    (roadmap item 10) and ``--profile`` (item 13), since ported (the test
+    keeps its name and ids), no longer raise NotImplementedError: the COCO
+    loaders fail only on the annotation file that is not there, and a
+    profiled run trains."""
     if "data" in override:
         override = {"data": {"dataset": "coco",
                              "ann_file": str(tmp_path / "missing.json"),
@@ -314,9 +315,14 @@ def test_unported_training_options_raise(tmp_path, override, match):
     else:
         with pytest.raises(NotImplementedError, match=match):
             t_train.train(cfg, roidb, max_steps=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        t_train.train(cfg, roidb, max_steps=1, device="cpu",
-                      profile_dir=str(tmp_path / "p"))
+    if "data" in override:
+        state = t_train.train(cfg, roidb, max_steps=1, device="cpu",
+                              profile_dir=str(tmp_path / "p"))
+        assert state.step == 1
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            t_train.train(cfg, roidb, max_steps=1, device="cpu",
+                          profile_dir=str(tmp_path / "p"))
 
 
 def test_default_eval_with_a_validation_set_raises(tmp_path):
