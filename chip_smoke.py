@@ -134,8 +134,10 @@ Phases (each raises on failure; the script then exits non-zero):
    dispatched batch returns while 0.5 s of work enqueued after it still
    runs (F2);
 14g. for information: TCP request latency p50/p99, images/s and mean
-   batch at 1 and 4 JSON clients and 1 binary client on the bench's
-   images, and the JSON-lines stream through rescore_stream (``python3
+   batch at 1, 4 and 16 JSON clients and 1 and 16 binary clients on the
+   bench's images, the clients subprocesses (tools/tcp_bench_client.py),
+   and at 4 and 16 JSON clients the same client in threads of this
+   process; and the JSON-lines stream through rescore_stream (``python3
    chip_smoke.py --serve-times`` runs only this);
 15. the captured paths (utils/cuda_graphs.py) against the eager ones: the
    serving forward of the 16-block model at the bench batch through K1
@@ -150,7 +152,21 @@ Phases (each raises on failure; the script then exits non-zero):
    rescore_batch host to host, the config-2 and config-4 steps, the
    evaluation of 64 images, the TCP table of phase 14g; the capture
    seconds per shape and the memory reserved after the warm-up
-   (``python3 chip_smoke.py --graph-times`` runs only these timings).
+   (``python3 chip_smoke.py --graph-times`` runs only these timings);
+16. the measuring tools (``gossipnet_tpu_torch/tools/``) on the card,
+   after two gates: K1/K2 and K5/K6 on the 16-block flagship model's
+   launch arguments for the ``blob`` layout at B=2 N=256, B=1 N=1024 and
+   B=2 N=4096 (the suite's largest blob case) and for a coincident batch (every pair a neighbour) at B=1 N=1024,
+   against their plain versions (f32 m and winners bit-equal, bf16 at the
+   tolerances of phases 3 and 3b); and the bench's captured loop body
+   against a host chain of eager forwards, 3 iterations, bit-equal in f32
+   and bf16. Then each tool's ``main()`` with its default arguments, as a
+   user runs it: ``tools.entry``, ``tools.bench`` in the four layouts,
+   ``tools.bench_suite`` (11 cases), ``tools.probe`` in its seven modes
+   (``--iters 5``) and ``forward`` and ``step`` with ``--impl pallas1``,
+   and ``tools.bench_serving`` (subprocess TCP clients); every line names
+   the card, and the tools' launches join the kernels' record
+   (``python3 chip_smoke.py --bench`` runs only this phase).
 
 Every path of phases 4-14 runs through captured graphs, as a user's call
 does: a replay adds its graph's launches to each counter, and the eager
@@ -165,6 +181,7 @@ and exits 1.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -198,6 +215,7 @@ from gossipnet_tpu_torch.data.bucketing import (
 )
 from gossipnet_tpu_torch.data.roidb import _xywh_to_xyxy_np
 from gossipnet_tpu_torch.data.synthetic import (
+    BENCH_LAYOUTS,
     layout_batch,
     layout_record,
     synthetic_roidb,
@@ -2812,7 +2830,7 @@ def read_frame(sock):
     return rid, None, scores
 
 
-def tcp_client(port, requests, binary=False, latencies=None) -> list:
+def tcp_client(port, requests, binary=False) -> list:
     """Sends ``requests`` ((id, image) or raw JSON text) one at a time on
     one connection -> the replies (dicts, or read_frame tuples)."""
     out = []
@@ -2820,7 +2838,6 @@ def tcp_client(port, requests, binary=False, latencies=None) -> list:
                                   timeout=SERVE_WAIT_S) as s:
         f = s.makefile("r")
         for req in requests:
-            t0 = time.perf_counter()
             if binary:
                 s.sendall(bin_frame(*req))
                 out.append(read_frame(s))
@@ -2828,8 +2845,6 @@ def tcp_client(port, requests, binary=False, latencies=None) -> list:
                 s.sendall(req.encode() if isinstance(req, str)
                           else json_line(*req))
                 out.append(json.loads(f.readline()))
-            if latencies is not None:
-                latencies.append(time.perf_counter() - t0)
     return out
 
 
@@ -3217,49 +3232,74 @@ def f2_wait(rescorer, copy) -> tuple[float, float]:
 
 
 def phase_serve_times(card: str) -> None:
-    """Phase 14g, for information: TCP request latency at 1 and 4 JSON
-    clients and 1 binary client, closed loop, on the bench's images, with
-    the 16-block serving_bucketed model (seeded weights); then
-    serve_stream's JSON-lines stream through rescore_stream."""
+    """Phase 14g, for information: TCP request latency of closed-loop
+    clients on the bench's images, with the 16-block serving_bucketed
+    model (seeded weights), the clients as subprocesses and, for the same
+    requests, as threads of this process; then serve_stream's JSON-lines
+    stream through rescore_stream."""
     cfg = load_config(experiment_path("serving_bucketed"))
     rescorer = Rescorer(cfg, init_params(cfg.model, seed=0), device=DEV)
     log(f"phase 14g: serving times on the bench's images (8 x 896 "
         f"detections, bucket 1024), {SERVE_REQUESTS} requests per client "
         f"[{card}]")
-    tcp_times(rescorer, card)
+    tcp_times(rescorer, card, threads=True)
 
 
-def tcp_times(rescorer, tag: str) -> None:
+# (label, clients, protocol, clients as threads of this process) of the
+# TCP rows; the thread rows (phase 14g only) repeat the row before them
+TCP_ROWS = (("1 JSON client", 1, "", False),
+            ("4 JSON clients", 4, "", False),
+            ("4 JSON clients, threads", 4, "", True),
+            ("16 JSON clients", 16, "", False),
+            ("16 JSON clients, threads", 16, "", True),
+            ("1 binary client", 1, "bin", False),
+            ("16 binary clients", 16, "bin", False))
+
+
+def tcp_times(rescorer, tag: str, threads: bool = False) -> None:
     """The TCP server on ``rescorer`` (its start() warms every padded
-    shape of every bucket) at 1 and 4 JSON clients and 1 binary client,
-    then two JSON-lines streams through serve_stream; logs each with
-    ``tag``."""
+    shape of every bucket, default batching) under the TCP_ROWS' closed-
+    loop clients, each sending the bench's images SERVE_REQUESTS times:
+    ``tools/tcp_bench_client.py`` as subprocesses and, with ``threads``,
+    the same client's ``run`` in threads of this process, so that two
+    rows differ by the clients' host alone. Then two JSON-lines streams
+    through serve_stream; logs each with ``tag``."""
+    from gossipnet_tpu_torch.tools import bench_serving, tcp_bench_client
+
     images = bench_images()
-    server = serving.TcpServer(rescorer, port=0, threshold=0.5).start()
-    try:
-        for label, n_clients, binary in (("1 JSON client", 1, False),
-                                         ("4 JSON clients", 4, False),
-                                         ("4 JSON clients again", 4, False),
-                                         ("1 binary client", 1, True)):
-            before = server.stats_snapshot()
-            lat: list[float] = []
-            t0 = time.perf_counter()
-            run_clients([(tcp_client, (
-                server.port, [(c * 1000 + k, images[k % len(images)])
-                              for k in range(SERVE_REQUESTS)], binary, lat))
-                for c in range(n_clients)])
-            wall = time.perf_counter() - t0
-            after = server.stats_snapshot()
-            n = after["images"] - before["images"]
-            batches = after["batches"] - before["batches"]
-            ms = np.asarray(lat) * 1e3
-            log(f"  TCP {label}: request latency p50 "
-                f"{np.percentile(ms, 50):.3f} ms, p99 "
-                f"{np.percentile(ms, 99):.3f} ms; {n / wall:.1f} images/s; "
-                f"mean batch {n / batches:.3f} ({n} images in {batches} "
-                f"batches) [{tag}]")
-    finally:
-        server.stop()
+    rows = [r for r in TCP_ROWS if threads or not r[3]]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "images.npz"
+        tcp_bench_client.save_images(path, images)
+        server = serving.TcpServer(rescorer, port=0, threshold=0.5).start()
+        try:
+            for label, n_clients, proto, in_threads in rows:
+                before = server.stats_snapshot()
+                if in_threads:
+                    reports = run_clients([(tcp_bench_client.run, (
+                        server.port, c, SERVE_REQUESTS, proto, path))
+                        for c in range(n_clients)])
+                else:
+                    reports = bench_serving.run_clients(
+                        server.port, n_clients, SERVE_REQUESTS, proto, path)
+                after = server.stats_snapshot()
+                lat = [x for r in reports for x in r["lats"]]
+                if len(lat) != n_clients * SERVE_REQUESTS:
+                    raise AssertionError(f"TCP {label}: {len(lat)} replies "
+                                         f"of {n_clients * SERVE_REQUESTS}")
+                # the overlap of the clients' run windows
+                wall = (max(r["t1"] for r in reports)
+                        - min(r["t0"] for r in reports))
+                n = after["images"] - before["images"]
+                batches = after["batches"] - before["batches"]
+                ms = np.asarray(lat) * 1e3
+                log(f"  TCP {label}: request latency p50 "
+                    f"{np.percentile(ms, 50):.3f} ms, p99 "
+                    f"{np.percentile(ms, 99):.3f} ms; {n / wall:.1f} "
+                    f"images/s; mean batch {n / batches:.3f} ({n} images in "
+                    f"{batches} batches) [{tag}]")
+        finally:
+            server.stop()
     lines = "".join(json_line(k, images[k % len(images)]).decode()
                     for k in range(8 * len(images)))
     for _ in range(2):
@@ -3548,6 +3588,160 @@ def phase_captured(card: str) -> None:
     phase_graph_times(card)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the measuring tools on the card
+# ---------------------------------------------------------------------------
+
+BLOB_SHAPES = ((2, 256), (1, 1024), (2, 4096))   # (B, N) of the blob gate
+
+
+PROBE_ITERS = "5"
+
+
+# Phase 16 imports the tools where it uses them: the timing modes
+# (--pair-times, --scan-times) stay runnable beside a tree older than them.
+
+
+def flagship(**model):
+    """``tools/entry.py``'s flagship config, with model overrides."""
+    from gossipnet_tpu_torch.tools import entry as entry_tool
+
+    cfg = entry_tool.flagship_cfg()
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, **model))
+
+
+def blob_gate(kern, b: int, n: int, layout: str = "blob"
+              ) -> tuple[float, float]:
+    """K1/K2 (or K5/K6) on the launch arguments the 16-block flagship
+    model passes on a ``blob`` batch (most pairs neighbours: ballots push
+    up to 32 pairs and a warp's queue ring runs at QCAP), or with
+    ``layout="coincident"`` on ``tools/entry.py::coincident_arrays``
+    (every pair),
+    against their plain versions: f32 m and winners bit-equal, bf16 at the
+    tolerances of phases 3 and 3b (K2/K6 with dm zero at near-tied maxima)
+    -> the forward's and the backward's worst errors."""
+    from gossipnet_tpu_torch.tools import entry as entry_tool
+
+    fwd_label, bwd_label = LABELS[kern]
+    model = seeded_model(flagship(pair_kernel=2 if kern is k1 else 1))
+    if layout == "coincident":
+        data = entry_tool.coincident_arrays(b, n)
+    else:
+        batch = layout_batch(layout, b, n, seed=0)
+        data = (batch.boxes, batch.scores, batch.valid)
+    boxes, scores, valid = (torch.from_numpy(x).to(DEV) for x in data)
+    fwd, bwd = capture_pair(kern, model, boxes, scores, valid)
+    args, m, dm = bwd[:6], bwd[6], bwd[7]
+    label = f"{layout} B={b} N={n}"
+    worst = 0.0
+    for block, a6 in (("first block", fwd[:6]), ("last block", args)):
+        for dt in ("float32", "bfloat16"):
+            got = kern.launch_kernel(*a6, dt)
+            want = kern._reference_core(*a6, dt)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            equal = torch.equal(got, want)
+            ok = equal if dt == "float32" else within(got, want, dt)
+            log(f"  {fwd_label} {label + ', ' + block:<30} {dt:<8} "
+                f"bit-equal {equal}, max_abs_err={err:.3e} tol "
+                f"{'bit-equal' if dt == 'float32' else TOL_TEXT[dt]} -> "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{fwd_label} disagrees with its plain "
+                                     f"version: {label} {block} {dt}")
+            worst = max(worst, err)
+    m32 = kern.launch_kernel(*args, "float32")
+    ones = torch.ones_like(dm)
+    wins = kern.launch_backward_kernel(*args, m32, ones, "float32")[4]
+    plain_wins = kern.pair_pool_backward_reference(
+        *args, kern._reference_core(*args, "float32"), ones, "float32")[4]
+    torch.cuda.synchronize()
+    log(f"  {bwd_label} {label}: winners per q (dm = 1: db2) bit-equal "
+        f"{torch.equal(wins, plain_wins)}, {int(plain_wins.sum().item())} "
+        f"winners")
+    if not torch.equal(wins, plain_wins):
+        raise AssertionError(f"{bwd_label} winners differ: {label}")
+    worst_bwd = max(check_backward(label, dt, args, dm, kern)
+                    for dt in ("float32", "bfloat16"))
+    log_queues(label, args, m, bwd[-1], kern)
+    return worst, worst_bwd
+
+
+def phase_loop_gate() -> None:
+    """The bench's captured loop body (``tools/bench.py::Chain``) against
+    a host-level chain of eager forwards: 3 iterations, bit-equal, in f32
+    and bf16."""
+    from gossipnet_tpu_torch.tools import bench as bench_tool
+    from gossipnet_tpu_torch.tools import entry as entry_tool
+
+    batch = entry_tool.synthetic_arrays(8, 1024)
+    boxes, scores, valid = entry_tool.device_tensors(batch, DEV)
+    for dtype in ("float32", "bfloat16"):
+        model = seeded_model(flagship(pair_matmul_dtype=dtype))
+        step = bench_tool.forward_step(model, boxes, valid)
+        chain = bench_tool.Chain(step, scores)
+        got = chain.run(scores, 3).clone()
+        want = bench_tool.host_chain(step, scores, 3)
+        two = bench_tool.host_chain(step, scores, 2)
+        ok = torch.equal(got, want) and not torch.equal(two, want) \
+            and chain.k.item() == 3.0
+        log(f"  captured loop body, 3 iterations, {dtype}: bit-equal to the "
+            f"host chain {torch.equal(got, want)}, max diff "
+            f"{(got - want).abs().max().item():.3e}; iteration 3 moved the "
+            f"scores {not torch.equal(two, want)} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"captured loop body, {dtype}")
+
+
+def phase_tools(card: str) -> tuple[dict, float]:
+    """Phase 16: the gates (the blob layout through K1/K2 and K5/K6, the
+    captured loop body), then each measuring tool's ``main()`` as a user
+    runs it, at full width with its default arguments -> (the launches of
+    the tools' runs, the worst blob error of K1, K2, K5 and K6 by name)."""
+    from gossipnet_tpu_torch.tools import bench as bench_tool
+    from gossipnet_tpu_torch.tools import bench_serving, bench_suite, probe
+    from gossipnet_tpu_torch.tools import entry as entry_tool
+
+    log("phase 16: the measuring tools on the card")
+    t0 = time.perf_counter()
+    worst = {}
+    for kern, names in ((k1, ("pair_pool2_fwd", "pair_pool2_bwd")),
+                        (k5, ("pair_pool_fwd", "pair_pool_bwd"))):
+        cases = [(b, n, "blob") for b, n in BLOB_SHAPES]
+        for b, n, layout in cases + [(1, 1024, "coincident")]:
+            for name, err in zip(names, blob_gate(kern, b, n, layout)):
+                worst[name] = max(worst.get(name, 0.0), err)
+    phase_loop_gate()
+    log(f"  gates: {time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    steps = [("tools.entry", lambda: entry_tool.main([]))]
+    for layout in BENCH_LAYOUTS:
+        steps.append((f"tools.bench --layout {layout}",
+                      lambda layout=layout: bench_tool.main(
+                          ["--layout", layout])))
+    steps.append(("tools.bench_suite", lambda: bench_suite.main([])))
+    for mode in probe.MODES:
+        steps.append((f"tools.probe {mode}", lambda mode=mode: probe.main(
+            [mode, "--iters", PROBE_ITERS])))
+    for mode in ("forward", "step"):
+        steps.append((f"tools.probe {mode} --impl pallas1",
+                      lambda mode=mode: probe.main(
+                          [mode, "--impl", "pallas1", "--iters",
+                           PROBE_ITERS])))
+    steps.append(("tools.bench_serving", lambda: bench_serving.main([])))
+    for name, run in steps:
+        t1 = time.perf_counter()
+        log(f"  $ python -m gossipnet_tpu_torch.{name}")
+        run()
+        log(f"  {name}: {time.perf_counter() - t1:.1f} s [{card}]")
+    launches = counts()
+    log(f"  phase 16: {time.perf_counter() - t0:.1f} s; launches of the "
+        f"tools' runs {launches}")
+    return launches, worst
+
+
 def phase_build(names=KERNELS):
     log(f"phase 2: build {', '.join(names)} from ops/cuda/csrc/, one nvcc "
         f"each, all at once")
@@ -3627,6 +3821,12 @@ def main() -> int:
         phase_graph_times(card)
         log(card)
         return 0
+    if sys.argv[1:] == ["--bench"]:
+        # Phase 16 alone: the gates, then the measuring tools; no result.
+        phase_build(KERNELS[:5])
+        phase_tools(card)
+        log(card)
+        return 0
     if sys.argv[1:] == ["--k1-stages"]:
         phase_build(KERNELS[:2])
         phase_k1_stages()
@@ -3672,6 +3872,9 @@ def main() -> int:
         serve_launches += phase_serve_trained(Path(tmp))
     phase_serve_times(card)
     phase_captured(card)
+    tool_launches, blob_worst = phase_tools(card)
+    for name, err in blob_worst.items():
+        worst[name] = max(worst[name], err)
     log(f"launches on the main paths: serving K1 {serve_launches} "
         f"(phases 4 and 14); "
         f"training {launches}; config 4 training {crowd_launches}; the "
@@ -3679,6 +3882,9 @@ def main() -> int:
     launches = {**launches, "pair_pool_fwd": crowd_launches["pair_pool_fwd"],
                 "pair_pool_bwd": crowd_launches["pair_pool_bwd"],
                 "pair_ablate": ablate_launches}
+    log(f"launches of the measuring tools (phase 16): {tool_launches}")
+    launches = {name: n + tool_launches[name]
+                for name, n in launches.items()}
 
     log(card)
     log(json.dumps({"kernels": [{

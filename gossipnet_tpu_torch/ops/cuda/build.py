@@ -1,8 +1,11 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
-into ``build/torch_kernels/lib<name>-<hash>.so`` at the repository root.
-The hash covers the source, every shared header ``csrc/*.cuh`` and the
+into ``lib<name>-<hash>.so`` under :data:`BUILD_DIR`: ``build/torch_kernels/``
+at the repository root in a checkout, and for an installed package (no
+checkout around it) ``gossipnet_tpu_torch/torch_kernels/`` in the user's
+cache directory (``$XDG_CACHE_HOME``, else ``~/.cache``), never inside
+site-packages. The hash covers the source, every shared header ``csrc/*.cuh`` and the
 flags, so an edited source or header never reuses a stale library. Nothing builds at import: the first call that needs a
 kernel builds it (a few seconds per source), and :func:`build` starts one
 ``nvcc`` per source, all at once.
@@ -19,7 +22,20 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+
+
+def default_build_dir(package_dir: Path, environ=os.environ) -> Path:
+    """Where kernels of the package at ``package_dir`` are built: in a
+    checkout (a ``pyproject.toml`` beside the package) its
+    ``build/torch_kernels``, else the user's cache directory."""
+    root = package_dir.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "torch_kernels"
+    cache = environ.get("XDG_CACHE_HOME") or str(Path.home() / ".cache")
+    return Path(cache) / "gossipnet_tpu_torch" / "torch_kernels"
+
+
+BUILD_DIR = default_build_dir(Path(__file__).resolve().parents[2])
 # No --use_fast_math: the kernels rely on IEEE division and rounding.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -9,7 +9,11 @@ cannot matter: W2 a permutation, or no FC2), one training step
 of config 2 and one of config 3 through K5/K6, with their launch counts;
 K5/K6 on the launch arguments of config 4's model (f32 bit-equal m and
 winners, bf16 with dm zero at the near-tied maxima), two K6 launches
-bit-identical there, and K6's column-permutation probe; and
+bit-identical there, and K6's column-permutation probe; K1/K2 and K5/K6
+on the flagship model's launch arguments for the ``blob`` layout (B=2
+N=256, B=1 N=1024, B=2 N=4096) and a coincident batch, where every pair
+is a neighbour (the same checks); ``tools/bench.py``'s captured
+loop body against a host chain, bit for bit; and
 ``AsyncBatch.wait()`` reading back its own batch alone (work enqueued on
 the stream after the dispatch does not delay it).
 
@@ -27,6 +31,8 @@ masks are exact by construction (explicitly rounded IoU). K2's weight
 gradients sum over every pair in another order: 1e-4 of their largest
 entry; K6's the same. The scan does comparisons only: exact.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1042,3 +1048,133 @@ def test_wait_after_a_replay_does_not_wait_for_later_work():
     assert r._graphs.shapes() == shapes
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+# ---------------------------------------------------------------------------
+# the blob layout (every pair a neighbour) and the bench's captured loop
+# ---------------------------------------------------------------------------
+
+BLOB_CASES = [(k, b, n, layout) for k in (2, 1)
+              for b, n, layout in ((2, 256, "blob"), (1, 1024, "blob"),
+                                   (2, 4096, "blob"),
+                                   (1, 1024, "coincident"))]
+
+
+@pytest.fixture(scope="module", params=BLOB_CASES,
+                ids=[f"pair_kernel{k}-{layout}-B{b}-N{n}"
+                     for k, b, n, layout in BLOB_CASES])
+def blob_args(request):
+    """The first block's forward and the last block's backward launch
+    arguments of the 16-block flagship model (128/32/32, seeded weights),
+    through K1/K2 (``pair_kernel: 2``) or K5/K6 (``pair_kernel: 1``), and
+    the cotangent of that backward, on a ``blob`` batch
+    (``layout_batch("blob", B, N)``: all boxes overlap and 58% of the
+    pairs are neighbours) or a coincident one (every pair a neighbour):
+    ballots push up to 32 pairs and a warp's queue ring runs at its
+    bound."""
+    from gossipnet_tpu_torch.data.synthetic import layout_batch
+    from gossipnet_tpu_torch.ops.cuda import pairwise as k5
+    from gossipnet_tpu_torch.tools import entry
+
+    dev = _card()
+    kernel, b, n, layout = request.param
+    kern = k1 if kernel == 2 else k5
+    cfg = entry.flagship_cfg()
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, pair_kernel=kernel))
+    model = entry.seeded_model(cfg, dev)
+    if layout == "coincident":
+        boxes, scores, valid = (torch.from_numpy(x).to(dev)
+                                for x in entry.coincident_arrays(b, n))
+    else:
+        boxes, scores, valid = entry.device_tensors(
+            layout_batch(layout, b, n, seed=0), dev)
+    seen = {"fwd": [], "bwd": []}
+    launch_fwd, launch_bwd = kern.launch_kernel, kern.launch_backward_kernel
+
+    def record(key, launch):
+        def run(*args):
+            seen[key].append([x.clone() if torch.is_tensor(x) else x
+                              for x in args])
+            return launch(*args)
+        return run
+
+    kern.launch_kernel = record("fwd", launch_fwd)
+    kern.launch_backward_kernel = record("bwd", launch_bwd)
+    try:
+        logits = model(boxes, scores, valid)
+        cot = torch.randn(logits.shape, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        (logits * cot).sum().backward()
+    finally:
+        kern.launch_kernel = launch_fwd
+        kern.launch_backward_kernel = launch_bwd
+    torch.cuda.synchronize()
+    assert len(seen["fwd"]) == len(seen["bwd"]) == 16
+    return kern, tuple(seen["fwd"][0][:6]), tuple(seen["bwd"][0][:6]), \
+        seen["bwd"][0][7]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pair_kernels_on_blob_launch_arguments_on_card(blob_args, dtype):
+    """K1/K2 and K5/K6 where every pair is a neighbour, against their
+    plain versions on the model's own launch arguments: in f32 m
+    bit-equal and the same winners (dm = 1: db2 counts them, bit-equal);
+    in bf16 m within tolerance and the gradients with dm zero at the
+    near-tied maxima."""
+    kern, fwd, args, dm = blob_args
+    for a6 in (fwd, args):
+        m = kern.launch_kernel(*a6, dtype)
+        m_plain = kern._reference_core(*a6, dtype)
+        torch.cuda.synchronize()
+        assert (m > 0).any()
+        if dtype == "float32":
+            assert torch.equal(m, m_plain)
+        else:
+            x, y = m.cpu().numpy(), m_plain.cpu().numpy()
+            np.testing.assert_allclose(x, y, rtol=2e-2, atol=2e-2)
+            assert np.mean(np.abs(x - y) > 1e-4) < 0.01
+    if dtype == "float32":
+        ones = torch.ones_like(dm)
+        wins = kern.launch_backward_kernel(*args, m, ones, dtype)[4]
+        plain_wins = kern.pair_pool_backward_reference(*args, m_plain, ones,
+                                                       dtype)[4]
+        assert torch.equal(wins, plain_wins)
+    else:
+        dm = torch.where(_near_ties(kern, args, dtype), torch.zeros_like(dm),
+                         dm)
+    got = kern.launch_backward_kernel(*args, m, dm, dtype)
+    want = kern.pair_pool_backward_reference(*args, m_plain, dm, dtype)
+    torch.cuda.synchronize()
+    _assert_grads(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_captured_bench_loop_body_equals_the_host_chain_on_card(dtype):
+    """``tools/bench.py``'s chain: one captured graph of the loop body
+    (forward, sigmoid, + k * 1e-7 with k a device counter, written back
+    into the graph's static scores), replayed 3 times, bit-equal to 3
+    eager calls from the host; each replay launches K1 16 times."""
+    from gossipnet_tpu_torch.tools import bench, entry
+
+    dev = _card()
+    cfg = entry.flagship_cfg()
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, pair_matmul_dtype=dtype))
+    model = entry.seeded_model(cfg, dev)
+    boxes, scores, valid = entry.device_tensors(
+        entry.synthetic_arrays(8, 1024), dev)
+    step = bench.forward_step(model, boxes, valid)
+    chain = bench.Chain(step, scores)
+    assert chain.graph is not None
+    before = k1.pair_pool.launches
+    got = chain.run(scores, 3).clone()
+    assert k1.pair_pool.launches == before + 3 * 16
+    want = bench.host_chain(step, scores, 3)
+    two = bench.host_chain(step, scores, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not torch.equal(two, want)
+    assert chain.k.item() == 3.0

@@ -46,7 +46,10 @@ def test_port_and_chip_smoke_import_no_jax():
                  "eval.cocoeval", "native", "ops.nms", "data.pets",
                  "data.roidb", "data.synthetic", "serving",
                  "utils.export", "utils.model_artifact",
-                 "utils.cuda_graphs", "utils.profiling"):
+                 "utils.cuda_graphs", "utils.profiling", "tools.entry",
+                 "tools.bench", "tools.bench_suite", "tools.probe",
+                 "tools.bench_serving", "tools.tcp_bench_client",
+                 "tools.import_weights", "utils.import_weights"):
         assert f"gossipnet_tpu_torch.{name}" in result["modules"], name
 
 
@@ -118,6 +121,33 @@ def test_serve_cli_without_random_init_names_the_roadmap_item(tmp_path):
     mesh.write_text(yaml.safe_dump({"parallel": {"enable": "on"}}))
     with pytest.raises(SystemExit, match="item 14"):
         main(["-c", str(mesh), "--checkpoint-dir", str(tmp_path / "none")])
+
+
+@pytest.mark.parametrize("tool,argv", [
+    ("entry", []), ("bench", []), ("bench", ["--layout", "blob"]),
+    ("bench_suite", []), ("probe", ["forward"]), ("probe", ["train"]),
+    ("bench_serving", [])])
+def test_measuring_tools_default_to_cuda_and_raise_without_a_card(tool,
+                                                                  argv):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import importlib
+
+    module = importlib.import_module(f"gossipnet_tpu_torch.tools.{tool}")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(argv)
+
+
+def test_tcp_bench_client_imports_neither_torch_nor_the_port(tmp_path):
+    client = ROOT / "gossipnet_tpu_torch" / "tools" / "tcp_bench_client.py"
+    probe = ("import runpy, sys; runpy.run_path(%r); "
+             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('torch', 'gossipnet_tpu_torch', 'jax', 'gossipnet_tpu')))"
+             % str(client))
+    out = subprocess.run([sys.executable, "-c", probe], cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    assert out.stdout.strip() == "[]"
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
