@@ -166,7 +166,24 @@ Phases (each raises on failure; the script then exits non-zero):
    (``--iters 5``) and ``forward`` and ``step`` with ``--impl pallas1``,
    and ``tools.bench_serving`` (subprocess TCP clients); every line names
    the card, and the tools' launches join the kernels' record
-   (``python3 chip_smoke.py --bench`` runs only this phase).
+   (``python3 chip_smoke.py --bench`` runs only this phase);
+17. the reduced-precision knobs: K1/K2's bf16 stream
+   (``pair_elementwise_dtype: bfloat16``, its own instantiation) against
+   its plain versions on the flagship's launch arguments at the bench
+   batch, config 2's batch and ``blob`` B=2 N=256 (m bf16 values, at most
+   one bf16 ulp off in at most 1% of the entries; the backward at bf16's
+   tolerances with dm zero where the best two candidates lie within one
+   ulp; the tie rule, permutation and determinism kernel against kernel),
+   timed against the f32 stream in turns; each knob (the stream,
+   ``model.dtype: bfloat16``, both) served and trained (config 2; config 3
+   with ``model.dtype``) through captured graphs bit-equal to eager, 16 K1
+   a batch and 16 K1 + 16 K2 + 1 K3 a step; the captured forward and step
+   with each knob against the defaults in turns; config 2 trained and the
+   bench's images served with the stream through ``train`` and
+   ``Rescorer``, then ``tools.demo_config1`` and ``tools.quality_demo
+   clustered --steps 20`` (``python3 chip_smoke.py --precision`` runs only
+   this phase). The stream's launches are counted apart in the record
+   (``pair_pool2_fwd_bf16_stream``, ``pair_pool2_bwd_bf16_stream``).
 
 Every path of phases 4-14 runs through captured graphs, as a user's call
 does: a replay adds its graph's launches to each counter, and the eager
@@ -279,6 +296,11 @@ KERNEL_ROWS = {
     "pair_pool_bwd": ("pairwise_bwd.cu",
                       "gossipnet_tpu/ops/pallas/pairwise.py:492"),
     "pair_ablate": ("pair_ablate.cu", "scripts/kernel_ablate.py:19"),
+    # K1 and K2 with the bf16 stream (pair_elementwise_dtype: bfloat16)
+    "pair_pool2_fwd_bf16_stream": ("pairwise2_fwd.cu",
+                                   "gossipnet_tpu/ops/pallas/pairwise2.py:529"),
+    "pair_pool2_bwd_bf16_stream": ("pairwise2_bwd.cu",
+                                   "gossipnet_tpu/ops/pallas/pairwise2.py:657"),
 }
 # the pair kernels' labels in the log: (forward, backward)
 LABELS = {k1: ("K1", "K2"), k5: ("K5", "K6")}
@@ -328,6 +350,21 @@ def random_pair_inputs(rng, b, nr, nc, p, g):
 
 TOL_TEXT = {"float32": f"rtol=atol={F32_TOL['atol']}",
             "bfloat16": "rtol=atol=2e-2, 99% within 1e-4"}
+# K1/K2's bf16 stream: bf16 operands and pair_elementwise_dtype bfloat16.
+# Where a helper takes a dtype, this token stands for both arguments; the
+# backward's tolerances are bf16's.
+STREAM = "bf16 stream"
+
+
+def dt_args(dtype) -> tuple:
+    """The dtype arguments of a pair-kernel call for ``dtype``."""
+    return ("bfloat16", "bfloat16") if dtype == STREAM else (dtype,)
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    mag = x.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
 def within(got, want, dtype) -> bool:
@@ -671,16 +708,22 @@ def near_ties(args, dtype, kern=k1) -> torch.Tensor:
     another column, and the whole dm of that (row, q) moves between two
     columns. That is a property of the max at such inputs, not an error of
     either side (measured: one such flip among config 2's 203,115
-    maxima)."""
+    maxima). With the bf16 stream (``STREAM``) pre2 is a bf16 value and the
+    two sums in different orders may round it one ulp apart, so there a
+    near tie is a maximum whose best two candidates lie within one bf16
+    ulp, exact ties included; the exact-tie rule is held apart, kernel
+    against kernel, by the tie probe (phase 17)."""
     ties = []
-    for _, nb, _, _, pre2 in kern._pair_chunks(*args, dtype):
+    for _, nb, _, _, pre2 in kern._pair_chunks(*args, *dt_args(dtype)):
         v = torch.where(nb[..., None], pre2, torch.full_like(pre2, -1e30))
         if v.shape[2] < 2:
             ties.append(torch.zeros_like(v[:, :, 0], dtype=torch.bool))
             continue
         top = v.topk(2, dim=2).values                       # [B, rc, 2, P]
         best, second = top[:, :, 0], top[:, :, 1]
-        ties.append((best > 0) & (best - second < NEAR_TIE_REL * best))
+        near = (best - second <= bf16_ulp(best) if dtype == STREAM
+                else best - second < NEAR_TIE_REL * best)
+        ties.append((best > 0) & near)
     return torch.cat(ties, dim=1)
 
 
@@ -691,14 +734,14 @@ def check_backward(name, dtype, args, dm, kern=k1):
     where the two sides may rightly differ; the tolerances stay as they
     are."""
     masked = ""
-    if dtype == "bfloat16":
+    if dtype != "float32":
         tie = near_ties(args, dtype, kern)
         dm = torch.where(tie, torch.zeros_like(dm), dm)
         masked = f" ({int(tie.sum().item())} near-tied maxima left out)"
-    m_k = kern.launch_kernel(*args, dtype)
-    m_p = kern._reference_core(*args, dtype)
-    got = kern.launch_backward_kernel(*args, m_k, dm, dtype)
-    want = kern.pair_pool_backward_reference(*args, m_p, dm, dtype)
+    m_k = kern.launch_kernel(*args, *dt_args(dtype))
+    m_p = kern._reference_core(*args, *dt_args(dtype))
+    got = kern.launch_backward_kernel(*args, m_k, dm, *dt_args(dtype))
+    want = kern.pair_pool_backward_reference(*args, m_p, dm, *dt_args(dtype))
     torch.cuda.synchronize()
     errs, ok = grad_errors(got, want, dtype)
     label = LABELS[kern][1]
@@ -718,9 +761,9 @@ def k2_winners(cols, dtype, kern=k1):
     m > 0 (more only at exact ties). A recompute that missed the forward
     kernel's bits would miss winners here."""
     args, dm = pair_args(cols, kern=kern)
-    m = kern.launch_kernel(*args, dtype)
+    m = kern.launch_kernel(*args, *dt_args(dtype))
     db2 = kern.launch_backward_kernel(*args, m, torch.ones_like(dm),
-                                      dtype)[4]
+                                      *dt_args(dtype))[4]
     rows = (m > 0).sum(dim=(0, 1)).float()
     label = LABELS[kern][1]
     log(f"  {label} winners {dtype:<8}: {int(db2.sum().item())} for "
@@ -742,12 +785,16 @@ def k2_tie_probe(cols, dtype, kern=k1, classes=None):
                         else torch.repeat_interleave(classes, 2, dim=1))
     args_d = (geom_d, a2, torch.repeat_interleave(b2, 2, dim=1).contiguous(),
               wg_k, w2, b2bias)
-    m_s = kern.launch_kernel(*args_s, dtype)
-    m_d = kern.launch_kernel(*args_d, dtype)
-    single = kern.launch_backward_kernel(*args_s, m_s, dm, dtype)
-    got = kern.launch_backward_kernel(*args_d, m_d, dm, dtype)
+    if dtype == STREAM:   # the plain comparison, away from near ties
+        dm = torch.where(near_ties(args_s, dtype, kern),
+                         torch.zeros_like(dm), dm)
+    dts = dt_args(dtype)
+    m_s = kern.launch_kernel(*args_s, *dts)
+    m_d = kern.launch_kernel(*args_d, *dts)
+    single = kern.launch_backward_kernel(*args_s, m_s, dm, *dts)
+    got = kern.launch_backward_kernel(*args_d, m_d, dm, *dts)
     plain = kern.pair_pool_backward_reference(
-        *args_d, kern._reference_core(*args_d, dtype), dm, dtype)
+        *args_d, kern._reference_core(*args_d, *dts), dm, *dts)
     torch.cuda.synchronize()
     db_d = got[1]
     want = (2 * single[0], single[1].repeat_interleave(2, dim=1),
@@ -783,15 +830,16 @@ def permutation_probe(cols, dtype, backward=True, seed=7, kern=k1):
     build_cols = k5.pair_columns if kern is k5 else k1.pair_geometry
     geom_p = build_cols(cols, cols[:, :, perm].contiguous(), 0.2)
     args_p = (geom_p, a2, b2[:, perm].contiguous(), wg_k, w2, b2bias)
-    m = kern.launch_kernel(*args, dtype)
-    m_p = kern.launch_kernel(*args_p, dtype)
+    m = kern.launch_kernel(*args, *dt_args(dtype))
+    m_p = kern.launch_kernel(*args_p, *dt_args(dtype))
     torch.cuda.synchronize()
     same_m = torch.equal(m, m_p)
     text = f"m bit-equal {same_m}"
     ok, worst = same_m, 0.0
     if backward:
-        got = kern.launch_backward_kernel(*args, m, dm, dtype)
-        got_p = kern.launch_backward_kernel(*args_p, m_p, dm, dtype)
+        got = kern.launch_backward_kernel(*args, m, dm, *dt_args(dtype))
+        got_p = kern.launch_backward_kernel(*args_p, m_p, dm,
+                                            *dt_args(dtype))
         torch.cuda.synchronize()
         same_db = torch.equal(got_p[1], got[1][:, perm])
         want = (got[0], got[1][:, perm], *got[2:])
@@ -1008,23 +1056,29 @@ def train_config(tmp: Path, name: str, **train_kw):
                   "snapshot_every": 10, "eval_every": 0, **train_kw}})
 
 
-COUNTERS = {"pair_pool2_fwd": (k1, "pair_pool"),
-            "pair_pool2_bwd": (k1, "pair_pool_backward"),
-            "greedy_scan_batched": (k3, "greedy_scan_batched"),
-            "greedy_scan": (k3, "greedy_scan"),
-            "pair_pool_fwd": (k5, "pair_pool"),
-            "pair_pool_bwd": (k5, "pair_pool_backward"),
-            "pair_ablate": (k7, "pair_ablate")}
+# kernel -> (module, counted wrapper, counter); K1's and K2's bf16-stream
+# instantiation (phase 17) is counted apart too, and its launches are also
+# in K1's and K2's own counts
+COUNTERS = {"pair_pool2_fwd": (k1, "pair_pool", "launches"),
+            "pair_pool2_bwd": (k1, "pair_pool_backward", "launches"),
+            "greedy_scan_batched": (k3, "greedy_scan_batched", "launches"),
+            "greedy_scan": (k3, "greedy_scan", "launches"),
+            "pair_pool_fwd": (k5, "pair_pool", "launches"),
+            "pair_pool_bwd": (k5, "pair_pool_backward", "launches"),
+            "pair_ablate": (k7, "pair_ablate", "launches"),
+            "pair_pool2_fwd_bf16_stream": (k1, "pair_pool", "launches_ew"),
+            "pair_pool2_bwd_bf16_stream": (k1, "pair_pool_backward",
+                                           "launches_ew")}
 
 
 def reset_counts():
-    for module, fn in COUNTERS.values():
-        getattr(module, fn).launches = 0
+    for module, fn, attr in COUNTERS.values():
+        setattr(getattr(module, fn), attr, 0)
 
 
 def counts() -> dict:
-    return {name: getattr(module, fn).launches
-            for name, (module, fn) in COUNTERS.items()}
+    return {name: getattr(getattr(module, fn), attr)
+            for name, (module, fn, attr) in COUNTERS.items()}
 
 
 def want_counts(**nonzero) -> dict:
@@ -1335,9 +1389,9 @@ def winner_pairs(args, dtype, kern=k1) -> tuple[int, int]:
     """(pairs that win at least one q, winning (pair, q)) of one pair
     stage, counted with the plain version on its own m: the length of K2's
     (K6's) winner queue over the whole launch, per pass."""
-    m = kern._reference_core(*args, dtype)
+    m = kern._reference_core(*args, *dt_args(dtype))
     pairs = wins = 0
-    for rows, nb, _, _, pre2 in kern._pair_chunks(*args, dtype):
+    for rows, nb, _, _, pre2 in kern._pair_chunks(*args, *dt_args(dtype)):
         win = nb[..., None] & (pre2 == m[:, rows, None, :]) \
             & (m[:, rows, None, :] > 0)
         pairs += win.any(dim=-1).sum().item()
@@ -1357,12 +1411,12 @@ def k2_bound(args, m, dm, dtype, kern=k1) -> tuple[float, str, str]:
     p, k = a2.shape[-1], wg_k.shape[0]
     nb, tested = pair_counts(geom)
     winners = kern.launch_backward_kernel(*args, m, torch.ones_like(dm),
-                                          dtype)[4].sum().item()
+                                          *dt_args(dtype))[4].sum().item()
     fc1 = (k + 6) * p if kern is k1 else 2 * k * p + 4 * p
     mlp = (nb * (2 * p * p + fc1 + 3 * p + 2 * k * p)
            + winners * (4 * p + 1))
     features = nb * FEATURE_OPS if kern is k5 else 0
-    ops_s = mlp / (PEAK_BF16 if dtype == "bfloat16" else PEAK_F32) \
+    ops_s = mlp / (PEAK_F32 if dtype == "float32" else PEAK_BF16) \
         + (tested * IOU_OPS + features) / PEAK_F32
     nbytes = sum(t.numel() * t.element_size() for t in
                  (geom.row, geom.col, a2, b2, wg_k, w2, b2bias, geom.flags,
@@ -2038,7 +2092,7 @@ def k5_bound(args, dtype) -> tuple[float, str, str]:
     p, g = a.shape[-1], wg.shape[0]
     nb, tested = pair_counts(cols)
     mlp = nb * (2 * p * p + 2 * g * p + 4 * p)
-    ops_s = mlp / (PEAK_BF16 if dtype == "bfloat16" else PEAK_F32) \
+    ops_s = mlp / (PEAK_F32 if dtype == "float32" else PEAK_BF16) \
         + (tested * IOU_OPS + nb * FEATURE_OPS) / PEAK_F32
     nbytes = sum(t.numel() * t.element_size() for t in
                  (cols.row, cols.col, a, b, wg, w2, b2bias, cols.flags)) \
@@ -2770,7 +2824,7 @@ def k1_bound(args, dtype) -> tuple[float, str]:
     p, k = a2.shape[-1], wg_k.shape[0]
     nb_pairs, tested = pair_counts(geom)
     ops_s = nb_pairs * (2 * p * p + (k + 6) * p) / (
-        PEAK_BF16 if dtype == "bfloat16" else PEAK_F32) \
+        PEAK_F32 if dtype == "float32" else PEAK_BF16) \
         + tested * IOU_OPS / PEAK_F32
     nbytes = sum(t.numel() * t.element_size() for t in
                  (geom.row, geom.col, a2, b2, wg_k, w2, b2bias, geom.flags)) \
@@ -3378,6 +3432,7 @@ def gate_forward(label: str, cfg, arrays) -> None:
         f"{replayed == eager}; capture {graphs.capture_seconds()}")
     if not equal or replayed != eager or not sum(eager.values()):
         raise AssertionError(f"captured forward differs from eager: {label}")
+    return replayed
 
 
 def train_batches(data: dict, b: int, cfg, count: int) -> list[dict]:
@@ -3391,10 +3446,12 @@ def twin_states(cfg):
         cfg, training.build_model(cfg, "kernel", DEV)) for _ in range(2)]
 
 
-def gate_steps(label: str, cfg, batches: list[dict]) -> StepGraphs:
+def gate_steps(label: str, cfg, batches: list[dict],
+               launches: dict | None = None) -> StepGraphs:
     """Captured micro-steps against eager train_step on twin states: the
     metrics of every step, then the parameters and optimizer slots, bit
-    for bit; each replay launches what an eager step launches."""
+    for bit; each replay launches what an eager step launches (and
+    ``launches``, when given)."""
     eager, stepped = twin_states(cfg)
     graphs = StepGraphs(stepped, cfg, training.step_body)
     worst, per_step = 0.0, None
@@ -3431,6 +3488,9 @@ def gate_steps(label: str, cfg, batches: list[dict]) -> StepGraphs:
         f"= an eager step's")
     if not (params and slots and per_step):
         raise AssertionError(f"{label}: captured steps differ from eager")
+    if launches is not None and per_step != launches:
+        raise AssertionError(f"{label}: launches per step {per_step} != "
+                             f"{launches}")
     return graphs
 
 
@@ -3742,6 +3802,308 @@ def phase_tools(card: str) -> tuple[dict, float]:
     return launches, worst
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the reduced-precision knobs
+# ---------------------------------------------------------------------------
+
+# model overrides of each knob (pair_elementwise_dtype streams K1/K2 in bf16)
+KNOBS = {"bf16 stream": {"pair_elementwise_dtype": "bfloat16"},
+         "model.dtype bf16": {"dtype": "bfloat16"},
+         "both": {"dtype": "bfloat16", "pair_elementwise_dtype": "bfloat16"}}
+PRECISION_STEPS = 5      # captured steps of each knob's gate and run
+STREAM_OFF_SHARE = 0.01  # at most this share of m entries one ulp off
+STREAM_SHAPES = ("bench B=8 N=1024", "config 2 B=8 N=1024", "blob B=2 N=256")
+
+
+def stream_gate(label: str, got, want) -> float:
+    """K1's bf16-stream m against its plain version's on the same launch
+    arguments: every entry a bf16 value, none more than one bf16 ulp away,
+    and at most STREAM_OFF_SHARE of them off at all. The kernel sums FC2
+    on the tensor cores, the plain version in fmaf order; the two sums
+    agree to ~1e-7 relative, so after the stream's rounding they differ
+    only where a sum lies that near a rounding boundary."""
+    diff = (got - want).abs()
+    off = (diff > 0).float().mean().item()
+    exact = torch.equal(got.to(torch.bfloat16).float(), got)
+    near = bool((diff <= bf16_ulp(want)).all())
+    ok = exact and near and off <= STREAM_OFF_SHARE
+    log(f"  K1 {label:<36} {STREAM}: bf16 values {exact}; within one ulp "
+        f"{near}; entries off {off:.2e} (gate {STREAM_OFF_SHARE}), "
+        f"max_abs_err={diff.max().item():.3e} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K1 bf16 stream disagrees with its plain "
+                             f"version: {label}")
+    return diff.max().item()
+
+
+def stream_shape_args() -> dict:
+    """K1's and K2's launch arguments with the bf16 stream as the 16-block
+    flagship models give them (first block's forward, last block's
+    backward, seeded weights): the serving bench batch, config 2's
+    training batch, a blob batch at B=2 N=256."""
+    knob = KNOBS["bf16 stream"]
+    bench = seeded_model(load_config(experiment_path("serving_bucketed"),
+                                     {"model": knob}))
+    cfg2 = seeded_model(load_config(experiment_path("coco_persons_full"), {
+        "data": {"dataset": "synthetic"}, "model": knob}))
+    arrays = training_batch()
+    blob = layout_batch("blob", 2, 256, seed=0)
+    return {
+        STREAM_SHAPES[0]: capture_pair(k1, bench, *sorted_bench_batch(8, 1024)),
+        STREAM_SHAPES[1]: capture_pair(k1, cfg2, arrays["boxes"],
+                                       arrays["scores"], arrays["valid"]),
+        STREAM_SHAPES[2]: capture_pair(
+            k1, seeded_model(flagship(**knob)),
+            *(torch.from_numpy(x).to(DEV)
+              for x in (blob.boxes, blob.scores, blob.valid)))}
+
+
+def phase_stream_gates() -> tuple[float, float, dict]:
+    """17a: K1 and K2 with the bf16 stream against their plain versions on
+    the flagship's launch arguments, the winner queue's length, and the
+    kernel-only properties: the exact-tie rule, column permutation,
+    determinism -> (K1's, K2's worst error, the launch arguments)."""
+    log("phase 17a: K1 and K2 with the bf16 stream (pair_elementwise_dtype "
+        "bfloat16) against their plain versions")
+    shapes = stream_shape_args()
+    k1_err = k2_err = 0.0
+    for label, (fwd, bwd) in shapes.items():
+        args, m, dm = bwd[:6], bwd[6], bwd[7]
+        for block, a6 in (("first block", fwd[:6]), ("last block", args)):
+            got = k1.launch_kernel(*a6, *dt_args(STREAM))
+            want = k1._reference_core(*a6, *dt_args(STREAM))
+            torch.cuda.synchronize()
+            k1_err = max(k1_err, stream_gate(f"{label}, {block}", got, want))
+        k2_err = max(k2_err, check_backward(f"{label}, last block", STREAM,
+                                            args, dm))
+        log_queues(label, args, m, STREAM)
+    log("  K2's winner queue holds one group's winning pairs: at most 16 "
+        "(a bf16 group) of WCAP = 32, whatever the ties")
+    cols_1024 = pf.stack_columns(pf.det_columns(*sorted_bench_batch(8, 1024)))
+    k2_err = max(k2_err,
+                 k2_tie_probe(cols_1024[:2, :, :512].contiguous(), STREAM),
+                 permutation_probe(cols_1024[:2].contiguous(), STREAM))
+    k2_winners(cols_1024, STREAM)
+    bwd = shapes[STREAM_SHAPES[0]][1]
+    args, dm = bwd[:6], bwd[7]
+    m = k1.launch_kernel(*args, *dt_args(STREAM))
+    one = k1.launch_backward_kernel(*args, m, dm, *dt_args(STREAM))
+    two = k1.launch_backward_kernel(*args, m, dm, *dt_args(STREAM))
+    same = all(torch.equal(x, y) for x, y in zip(one, two))
+    log(f"  K2 determinism {STREAM}: two launches bit-identical: {same}")
+    if not same:
+        raise AssertionError("K2 with the bf16 stream is not deterministic")
+    return k1_err, k2_err, shapes
+
+
+def phase_stream_times(shapes: dict, card: str) -> dict:
+    """17b: K1 and K2 with the bf16 stream against their f32-stream
+    instantiations (both bf16 operands), in turns in one call, at the
+    bench batch and config 2's batch; the stream's plain versions and
+    bounds -> the record's times (K1 at the bench batch, K2 at config
+    2's)."""
+    log(f"phase 17b: K1 and K2, bf16 stream against f32 stream, in turns "
+        f"(ms/launch: events, host, host, events; device by the profiler) "
+        f"[{card}]")
+    out = {}
+    for label in STREAM_SHAPES[:2]:
+        fwd, bwd = shapes[label]
+        a6, args, dm = fwd[:6], bwd[:6], bwd[7]
+        m_s = k1.launch_kernel(*args, *dt_args(STREAM))
+        m_b = k1.launch_kernel(*args, "bfloat16")
+        fns = {"K1 bf16 stream": lambda: k1.launch_kernel(
+                   *a6, *dt_args(STREAM)),
+               "K1 f32 stream": lambda: k1.launch_kernel(*a6, "bfloat16"),
+               "K2 bf16 stream": lambda: k1.launch_backward_kernel(
+                   *args, m_s, dm, *dt_args(STREAM)),
+               "K2 f32 stream": lambda: k1.launch_backward_kernel(
+                   *args, m_b, dm, "bfloat16")}
+        runs = in_turns(fns, iters=20)
+        for name, ms in runs.items():
+            dev = device_ms(fns[name])
+            log(f"  {label}, {name}: {', '.join(f'{x:.4f}' for x in ms)} "
+                f"ms; device {f'{dev:.4f} ms' if dev else 'not measured'}")
+        plain1 = cuda_time(lambda: k1._reference_core(*a6, *dt_args(STREAM)),
+                           iters=2, warmup=1)
+        plain2 = cuda_time(lambda: k1.pair_pool_backward_reference(
+            *args, m_s, dm, *dt_args(STREAM)), iters=1, warmup=1)
+        b1, b2 = k1_bound(a6, STREAM), k2_bound(args, m_s, dm, STREAM)
+        log(f"  {label}: plain K1 {plain1:.3f} ms, plain K2 {plain2:.3f} ms;"
+            f" bounds K1 {b1[0]:.5f} ms ({b1[1]}), K2 {b2[0]:.5f} ms "
+            f"({b2[1]}: {b2[2]})")
+        out[label] = (
+            dict(ms=float(np.median(runs["K1 bf16 stream"][0::3])),
+                 plain_ms=plain1, bound_ms=b1[0], bound_by=b1[1]),
+            dict(ms=float(np.median(runs["K2 bf16 stream"][0::3])),
+                 plain_ms=plain2, bound_ms=b2[0], bound_by=b2[1]))
+    return {"pair_pool2_fwd_bf16_stream": out[STREAM_SHAPES[0]][0],
+            "pair_pool2_bwd_bf16_stream": out[STREAM_SHAPES[1]][1]}
+
+
+def knob_config(name: str, knob: dict, tmp: Path):
+    """Config ``name`` on synthetic data with a knob's overrides."""
+    return load_config(experiment_path(name), {
+        "data": {"dataset": "synthetic"}, "model": knob,
+        "train": {"checkpoint_dir": str(tmp / f"prec_{len(knob)}"),
+                  "log_every": 1, "snapshot_every": 0, "eval_every": 0}})
+
+
+def step_launches(cfg) -> dict:
+    """What one step of ``cfg`` launches: a K1 and a K2 per block (16), one
+    K3, and the bf16 stream's K1 and K2 apart."""
+    blocks = cfg.model.num_blocks
+    stream = blocks if cfg.model.pair_elementwise_dtype == "bfloat16" else 0
+    return want_counts(pair_pool2_fwd=blocks, pair_pool2_bwd=blocks,
+                       greedy_scan_batched=1,
+                       pair_pool2_fwd_bf16_stream=stream,
+                       pair_pool2_bwd_bf16_stream=stream)
+
+
+def phase_precision_paths(tmp: Path) -> None:
+    """17c: each knob served (the serving_bucketed model at the bench
+    batch) and trained (config 2; config 3, 80 classes, with model.dtype)
+    through captured graphs, bit-equal to the eager paths at the same
+    padded shapes, with 16 K1 per batch and 16 K1 + 16 K2 + 1 K3 per
+    step."""
+    log("phase 17c: the knobs through captured graphs against eager")
+    bench = packed_layout(8, 1024)
+    for name, knob in KNOBS.items():
+        cfg = load_config(experiment_path("serving_bucketed"),
+                          {"model": knob})
+        got = gate_forward(f"serving_bucketed, {name}", cfg, bench)
+        want = {k: v for k, v in step_launches(cfg).items()
+                if k.startswith("pair_pool2_fwd")}
+        want = want_counts(**want)
+        if got != want:
+            raise AssertionError(f"served batch, {name}: {got} != {want}")
+    for name, knob in KNOBS.items():
+        cfg = knob_config("coco_persons_full", knob, tmp)
+        gate_steps(f"config 2, {name}, {PRECISION_STEPS} steps", cfg,
+                   train_batches(TRAIN_DATA, 8, cfg, PRECISION_STEPS),
+                   launches=step_launches(cfg))
+    knob = KNOBS["model.dtype bf16"]
+    cfg3 = knob_config("coco_multiclass", knob, tmp)
+    gate_steps(f"config 3 (80 classes), model.dtype bf16, {PRECISION_STEPS} "
+               f"steps", cfg3, train_batches(
+                   {**TRAIN_DATA, "num_classes": 80}, 8, cfg3,
+                   PRECISION_STEPS), launches=step_launches(cfg3))
+
+
+def phase_precision_times(tmp: Path, card: str) -> None:
+    """17d: the captured bench forward and config-2 step with each knob
+    against the defaults, in turns in one call."""
+    log(f"phase 17d: captured forward and step, each knob against the "
+        f"defaults, in turns [{card}]")
+    bench = packed_layout(8, 1024)
+    fwds = {}
+    for name, knob in {"defaults": {}, **KNOBS}.items():
+        cfg = load_config(experiment_path("serving_bucketed"),
+                          {"model": knob})
+        graphs = Rescorer(cfg, init_params(cfg.model, seed=0),
+                          device=DEV)._graphs
+        graphs(*bench)
+        fwds[name] = lambda graphs=graphs: graphs(*bench)
+    log_turns("bench forward B=8 N=1024, captured", fwds, per_call=8 * 1024,
+              card=card)
+    steps = {}
+    for name, knob in {"defaults": {}, **KNOBS}.items():
+        cfg = knob_config("coco_persons_full", knob, tmp)
+        batches = train_batches(TRAIN_DATA, 8, cfg, 4)
+        state = training.create_train_state(
+            cfg, training.build_model(cfg, "kernel", DEV))
+        graphs = StepGraphs(state, cfg, training.step_body)
+        for host in batches:
+            graphs(host)            # every shape captured
+        k = iter(range(10 ** 9))
+        steps[name] = (lambda graphs=graphs, batches=batches, k=k:
+                       graphs(batches[next(k) % 4]))
+    log_turns("config-2 step B=8 N=1024 G=112, captured", steps,
+              per_call=8 * 1024, card=card)
+
+
+def phase_precision_main(tmp: Path, card: str) -> dict:
+    """17e: the main path with the bf16 stream through the user's entry
+    points (``train`` of config 2, ``Rescorer.rescore_batch`` of the
+    bench's images), then ``tools.demo_config1`` and ``tools.quality_demo
+    clustered --steps 20`` as a user runs them -> the launches of these
+    runs."""
+    from gossipnet_tpu_torch.tools import demo_config1, quality_demo
+
+    log("phase 17e: config 2 trained and the bench's images served with the "
+        "bf16 stream; then the reference's user scripts")
+    knob = KNOBS["bf16 stream"]
+    reset_counts()
+    cfg = knob_config("coco_persons_full", knob, tmp)
+    state = training.train(cfg, synthetic_roidb(**TRAIN_DATA),
+                           pool_impl="kernel", max_steps=PRECISION_STEPS,
+                           device=DEV)
+    torch.cuda.synchronize()
+    runs = state.step + state.graphs.captures
+    got = counts()
+    want = {name: n * runs for name, n in step_launches(cfg).items()}
+    log(f"  train, {PRECISION_STEPS} steps with the bf16 stream: launches "
+        f"{ {k: v for k, v in got.items() if v} } ({runs} step runs)")
+    if got != want:
+        raise AssertionError(f"training with the bf16 stream: {got} != "
+                             f"{want}")
+    serve = load_config(experiment_path("serving_bucketed"), {"model": knob})
+    rescorer = Rescorer(serve, init_params(serve.model, seed=0), device=DEV)
+    before = counts()
+    images = bench_images()
+    for _ in range(3):
+        out = rescorer.rescore_batch(images)
+    torch.cuda.synchronize()
+    served = {k: v - before[k] for k, v in counts().items()}
+    ok = (served["pair_pool2_fwd"] == served["pair_pool2_fwd_bf16_stream"]
+          and served["pair_pool2_fwd"] % serve.model.num_blocks == 0
+          and served["pair_pool2_fwd"] > 0
+          and all(np.isfinite(s).all() for s in out))
+    log(f"  Rescorer.rescore_batch of the bench's 8 images x 3 with the bf16 "
+        f"stream: K1 {served['pair_pool2_fwd']} launches, all of the stream "
+        f"({served['pair_pool2_fwd_bf16_stream']}); scores finite -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"serving with the bf16 stream: {served}")
+    for label, run in (
+            ("tools.demo_config1", lambda: demo_config1.main(
+                ["--out", str(tmp / "demo_results.json")])),
+            ("tools.quality_demo clustered --steps 20",
+             lambda: quality_demo.main(["clustered", "--steps", "20",
+                                        "--out-prefix", str(tmp / "demo")]))):
+        t0 = time.perf_counter()
+        log(f"  $ python -m gossipnet_tpu_torch.{label}")
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            result = run()
+        ap = result["gossipnet"]["AP"]
+        log(f"  {label}: {time.perf_counter() - t0:.1f} s; gossipnet AP "
+            f"{ap:.4f}, " + (f"raw {result['raw_scores']['AP']:.4f}, "
+                             f"exported {result['exported']}"
+                             if "raw_scores" in result else
+                             f"raw {result['raw']['AP']:.4f}, GreedyNMS "
+                             f"{result['greedy_nms']['AP']:.4f} at "
+                             f"{result['greedy_nms']['thr']}")
+            + f" [{card}]")
+        if not np.isfinite(ap):
+            raise AssertionError(f"{label}: {text.getvalue()[-400:]}")
+    return counts()
+
+
+def phase_precision(card: str) -> tuple[dict, dict, dict]:
+    """Phase 17, the reduced-precision knobs -> (the main path's launches,
+    the stream rows' worst errors, their times)."""
+    t0 = time.perf_counter()
+    k1_err, k2_err, shapes = phase_stream_gates()
+    times = phase_stream_times(shapes, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_precision_paths(Path(tmp))
+        phase_precision_times(Path(tmp), card)
+        launches = phase_precision_main(Path(tmp), card)
+    log(f"  phase 17: {time.perf_counter() - t0:.1f} s; main path launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return launches, {"pair_pool2_fwd_bf16_stream": k1_err,
+                      "pair_pool2_bwd_bf16_stream": k2_err}, times
+
+
 def phase_build(names=KERNELS):
     log(f"phase 2: build {', '.join(names)} from ops/cuda/csrc/, one nvcc "
         f"each, all at once")
@@ -3827,6 +4189,12 @@ def main() -> int:
         phase_tools(card)
         log(card)
         return 0
+    if sys.argv[1:] == ["--precision"]:
+        # Phase 17 alone: the reduced-precision knobs; no result line.
+        phase_build(KERNELS[:3])
+        phase_precision(card)
+        log(card)
+        return 0
     if sys.argv[1:] == ["--k1-stages"]:
         phase_build(KERNELS[:2])
         phase_k1_stages()
@@ -3875,6 +4243,10 @@ def main() -> int:
     tool_launches, blob_worst = phase_tools(card)
     for name, err in blob_worst.items():
         worst[name] = max(worst[name], err)
+    precision_launches, precision_worst, precision_times = \
+        phase_precision(card)
+    worst.update(precision_worst)
+    times.update(precision_times)
     log(f"launches on the main paths: serving K1 {serve_launches} "
         f"(phases 4 and 14); "
         f"training {launches}; config 4 training {crowd_launches}; the "
@@ -3883,7 +4255,8 @@ def main() -> int:
                 "pair_pool_bwd": crowd_launches["pair_pool_bwd"],
                 "pair_ablate": ablate_launches}
     log(f"launches of the measuring tools (phase 16): {tool_launches}")
-    launches = {name: n + tool_launches[name]
+    log(f"launches of phase 17's main paths: {precision_launches}")
+    launches = {name: n + tool_launches[name] + precision_launches[name]
                 for name, n in launches.items()}
 
     log(card)

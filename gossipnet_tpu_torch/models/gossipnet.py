@@ -20,6 +20,15 @@ feature, the class match.
 (``torch.utils.checkpoint``), the JAX model's ``nn.remat``. The kernel
 path sorts detections by Morton key first and unsorts the logits (a pure
 speed transform: the network is permutation-equivariant per detection).
+
+Reduced precision, as the JAX model has it. ``model.dtype: bfloat16``
+rounds boxes and scores to bf16 at the model boundary; the Morton key, the
+detection columns, the dense path's pair tensor, the rank feature and the
+class embedding are then computed in bf16, and ``init_fc``, the blocks and
+the head run in float32 on those values (flax promotes a bf16 input
+against float32 weights). ``pair_elementwise_dtype: bfloat16`` streams K1's
+and K2's h1, pre2 and running max in bf16; the dense path and
+``pair_kernel: 1`` ignore it, as in JAX.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from gossipnet_tpu_torch.ops import ranking
 from gossipnet_tpu_torch.ops.cuda import pairwise, pairwise2
 
 NEG_INF = -1e30
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 PAD_LOGIT = -1e4  # logit assigned to padded detections at the head
 POOL_IMPLS = ("dense", "kernel")
 _CHUNK_ELEMENTS = 1 << 25   # pair activations per row chunk of the dense path
@@ -55,18 +65,13 @@ class PairParams(NamedTuple):
 
 
 def check_supported(cfg: ModelConfig, pool_impl: str) -> None:
-    """Raise on the config values this port cannot honour yet."""
+    """Raise on the config values this port cannot honour."""
     if pool_impl not in POOL_IMPLS:
         raise ValueError(f"unknown pool_impl {pool_impl!r}; "
                          f"options: {POOL_IMPLS}")
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"model.dtype={cfg.dtype!r} is not ported yet (float32 only): "
-            "ROADMAP.md item 16")
-    if pool_impl == "kernel" and cfg.pair_elementwise_dtype != "float32":
-        raise NotImplementedError(
-            "pair_elementwise_dtype=bfloat16 is not ported yet: "
-            "ROADMAP.md item 16")
+    if cfg.dtype not in DTYPES:
+        raise ValueError(f"model.dtype must be one of {tuple(DTYPES)}, "
+                         f"got {cfg.dtype!r}")
 
 
 def resolve_device(device) -> torch.device:
@@ -95,7 +100,9 @@ def pair_pool_dense(a: Tensor, b: Tensor, wg: Tensor, w2: Tensor, b2: Tensor,
     out = torch.empty_like(a)
     for r0 in range(0, n, chunk):
         rows = slice(r0, r0 + chunk)
-        u1 = a[..., rows, None, :] + b[..., None, :, :] + g[..., rows, :, :] @ wg
+        # a bf16 g (model.dtype bfloat16) is promoted against wg, as in JAX
+        u1 = (a[..., rows, None, :] + b[..., None, :, :]
+              + g[..., rows, :, :].to(wg.dtype) @ wg)
         h2 = torch.relu(torch.relu(u1) @ w2 + b2)
         h2 = torch.where(mask[..., rows, :, None], h2,
                          torch.full_like(h2, NEG_INF))
@@ -204,11 +211,15 @@ class GossipNet(nn.Module):
         geom = build(stacked, stacked, cfg.neighbor_iou, classes,
                      block_sparse=cfg.block_sparse)
 
+        # the bf16 stream is K1/K2's alone: K5/K6 ignore it, as v1 does
+        kw = ({"elementwise_dtype": cfg.pair_elementwise_dtype}
+              if cfg.pair_kernel == 2 else {})
+
         def pool_fn(prm: PairParams, a, b):
             return kernel.pair_pool(
                 stacked, stacked, a, b, prm, cfg.neighbor_iou,
                 compute_dtype=cfg.pair_matmul_dtype,
-                block_sparse=cfg.block_sparse, geometry=geom)
+                block_sparse=cfg.block_sparse, geometry=geom, **kw)
         return pool_fn
 
     def forward(self, boxes: Tensor, scores: Tensor, valid: Tensor,
@@ -216,8 +227,9 @@ class GossipNet(nn.Module):
         cfg = self.cfg
         if self.multiclass and classes is None:
             raise ValueError("multi-class model requires `classes`")
-        boxes = boxes.float()
-        scores = scores.float()
+        dtype = DTYPES[cfg.dtype]
+        boxes = boxes.to(dtype)
+        scores = scores.to(dtype)
         valid = valid.bool()
         classes = classes if self.multiclass else None
 
@@ -236,10 +248,16 @@ class GossipNet(nn.Module):
         phi = [scores[..., None]]
         if cfg.score_rank_feature:
             phi.append(ranking.score_rank(scores, valid, classes,
-                                          cfg.num_classes)[..., None])
+                                          cfg.num_classes)
+                       .to(dtype)[..., None])
         if classes is not None:
-            phi.append(self.class_embed(classes.long()))
-        c = self.init_fc(torch.cat(phi, dim=-1))
+            # flax's Embed(dtype=...) casts the table before the lookup, so
+            # its gradient arrives as the bf16 cotangent's sum
+            phi.append(torch.nn.functional.embedding(
+                classes.long(), self.class_embed.weight.to(dtype)))
+        # init_fc and everything after it run in float32 (flax promotes a
+        # bf16 input against float32 weights)
+        c = self.init_fc(torch.cat(phi, dim=-1).float())
 
         pool_fn = self._pool_fn(cols, classes)
         for block in self.blocks:

@@ -18,7 +18,8 @@
 //
 // Why a grouped product: in bf16 mode FC2 (pre2 = W2^T h1 + b2) of a group
 // of 16 pairs is one [16, P] x [P, P] product on the tensor cores
-// (mma.sync.m16n8k16, bf16 operands, f32 accumulator that starts at b2).
+// (mma.sync.m16n8k16, bf16 operands, f32 accumulator that starts at b2;
+// with a bf16 stream, at 0, then rounded, plus bf16(b2), rounded).
 // h1 is produced directly in the A-fragment layout, W2 waits in shared
 // memory packed as the B fragments want it. K2 finds K1's winners by
 // pre2 == m, which holds because both kernels call fc2_mma below with the
@@ -84,6 +85,10 @@ struct Frag {
   static constexpr int W2P_WORDS = KP * LDW;
 };
 
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -117,7 +122,12 @@ __device__ __forceinline__ void mma_m16n8k16_bf16(float (&c)[4],
 
 // pre2 of the group: acc starts at b2 and takes the k blocks in ascending
 // order. The one place FC2 of bf16 mode is computed, for K1, K2, K5, K6.
-template <int P>
+// EW (K1/K2's bf16 stream, the TPU kernel's elementwise_dtype=bfloat16):
+// acc starts at 0, and pre2 = bf16(bf16(acc) + bf16(b2)), as the TPU
+// kernel rounds its f32 dot output to the stream's dtype before adding
+// the bias in that dtype (pairwise2.py::_pair_mlp). Every pre2 is then a
+// bf16 value.
+template <int P, bool EW = false>
 __device__ __forceinline__ void fc2_mma(
     const uint32_t (&a)[Frag<P>::KB][4], const uint32_t* w2p,
     const float* b2s, float (&acc)[Frag<P>::NB][4], int lane) {
@@ -125,8 +135,8 @@ __device__ __forceinline__ void fc2_mma(
   const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
   for (int nb = 0; nb < F::NB; ++nb) {
-    acc[nb][0] = acc[nb][2] = b2s[nb * 8 + tig * 2];
-    acc[nb][1] = acc[nb][3] = b2s[nb * 8 + tig * 2 + 1];
+    acc[nb][0] = acc[nb][2] = EW ? 0.f : b2s[nb * 8 + tig * 2];
+    acc[nb][1] = acc[nb][3] = EW ? 0.f : b2s[nb * 8 + tig * 2 + 1];
   }
 #pragma unroll
   for (int kb = 0; kb < F::KB; ++kb) {
@@ -135,6 +145,16 @@ __device__ __forceinline__ void fc2_mma(
       const uint32_t b0 = w2p[(kb * 8 + tig) * F::LDW + nb * 8 + gid];
       const uint32_t b1 = w2p[(kb * 8 + tig + 4) * F::LDW + nb * 8 + gid];
       mma_m16n8k16_bf16(acc[nb], a[kb], b0, b1);
+    }
+  }
+  if constexpr (EW) {
+#pragma unroll
+    for (int nb = 0; nb < F::NB; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float bias = round_bf16(b2s[nb * 8 + tig * 2 + (e & 1)]);
+        acc[nb][e] = round_bf16(__fadd_rn(round_bf16(acc[nb][e]), bias));
+      }
     }
   }
 }

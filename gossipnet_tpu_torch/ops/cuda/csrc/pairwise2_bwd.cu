@@ -52,7 +52,10 @@
 //
 // BF16 mode rounds the operands the TPU backward feeds its bf16 dots
 // (dpre2, dpre1, g, h1, W2) and sums in f32; d_a' and db2 sum unrounded
-// f32, as the TPU kernel does. Non-BF16 mode is IEEE f32.
+// f32, as the TPU kernel does. Non-BF16 mode is IEEE f32. EW (mode 2, the
+// bf16 stream) recomputes h1 and pre2 as K1's EW instantiation does, so a
+// winner is a pair whose bf16 pre2 equals m (the TPU kernel's _win_grad,
+// bf16 branch); ties are common there, and each gets the full dm.
 
 #include "pairwise2_pair.cuh"
 
@@ -89,9 +92,10 @@ struct Args {
 // ROWSIDE: the block owns rows [own0, own0 + 32) and walks the columns;
 // writes d_a' of its rows and its partials of dWg_k, dW2, db2.
 // !ROWSIDE: the block owns 32 columns and walks the rows; writes d_b'.
-template <int P, bool BF16, bool ROWSIDE>
+template <int P, bool BF16, bool EW, bool ROWSIDE>
 __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
                                                     int img, int split) {
+  static_assert(!EW || BF16, "a bf16 stream needs bf16 operands");
   constexpr int GROUP = group_size<BF16>();
   constexpr int PP = (P + 31) / 32;   // p values per lane in the gradient stage
   constexpr size_t ACC = warp_acc_words<P, ROWSIDE>();
@@ -188,7 +192,7 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
         h1v[r] = dp1[r] = dmv[r] = 0.f;
         if (p < P) {
           const float bv = __ldg(br + p);
-          h1v[r] = h1_value<P, BF16>(__ldg(ar + p),
+          h1v[r] = h1_value<P, BF16, EW>(__ldg(ar + p),
                                      BF16 ? round_bf16(bv) : bv, wgs, g, p);
           dmv[r] = __ldg(dmr + p);
         }
@@ -260,10 +264,10 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
     if constexpr (BF16) {
       uint32_t afr[Frag<P>::KB][4];
       int ij2[2];
-      group_h1_frags<P>(a_img, b_img, wgs, q_ij, q_g, head, n, lane, afr,
-                        ij2);
+      group_h1_frags<P, KMAX, true, EW>(a_img, b_img, wgs, q_ij, q_g, head,
+                                        n, lane, afr, ij2);
       float acc[Frag<P>::NB][4];
-      fc2_mma<P>(afr, w2p, b2s, acc, lane);
+      fc2_mma<P, EW>(afr, w2p, b2s, acc, lane);
       const int gid = lane >> 2, tig = lane & 3;
       unsigned lo[2] = {0u, 0u}, hi[2] = {0u, 0u};
 #pragma unroll
@@ -397,22 +401,23 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
 // Both passes in one grid, so that the column pass fills the
 // multiprocessors the row pass's last blocks leave idle: blockIdx.x counts
 // the row tiles, then the column tiles of 32.
-template <int P, bool BF16>
+template <int P, bool BF16, bool EW>
 __global__ void __launch_bounds__(NTHREADS) pair_pool2_bwd_kernel(Args x) {
   const int NI = (x.NR + TILE_I - 1) / TILE_I;
   if ((int)blockIdx.x < NI)
-    pair_pool2_bwd_pass<P, BF16, true>(x, blockIdx.x, blockIdx.y, blockIdx.z);
+    pair_pool2_bwd_pass<P, BF16, EW, true>(x, blockIdx.x, blockIdx.y,
+                                           blockIdx.z);
   else
-    pair_pool2_bwd_pass<P, BF16, false>(x, blockIdx.x - NI, blockIdx.y,
-                                        blockIdx.z);
+    pair_pool2_bwd_pass<P, BF16, EW, false>(x, blockIdx.x - NI, blockIdx.y,
+                                            blockIdx.z);
 }
 
 // One pass in a grid of its own.
 template <int P, bool BF16, bool ROWSIDE>
 __global__ void __launch_bounds__(NTHREADS)
 pair_pool2_bwd_pass_kernel(Args x) {
-  pair_pool2_bwd_pass<P, BF16, ROWSIDE>(x, blockIdx.x, blockIdx.y,
-                                        blockIdx.z);
+  pair_pool2_bwd_pass<P, BF16, false, ROWSIDE>(x, blockIdx.x, blockIdx.y,
+                                               blockIdx.z);
 }
 
 template <class Kernel>
@@ -434,14 +439,14 @@ int launch_grid(Kernel kernel, const Args& x, int tiles, size_t smem_words,
 // one grid's register count, the larger of the two passes', costs it more
 // occupancy than the shared tail wins (measured 26-40% slower), so it
 // launches the passes one after the other.
-template <int P, bool BF16>
+template <int P, bool BF16, bool EW>
 int launch(const Args& x, cudaStream_t stream) {
   constexpr size_t row_words = smem_words<P, BF16, true>();
   constexpr size_t col_words = smem_words<P, BF16, false>();
   const int ni = (x.NR + TILE_I - 1) / TILE_I;
   const int nc_tiles = (x.NC + TILE_I - 1) / TILE_I;
   if constexpr (BF16) {  // only the grids a mode launches are compiled
-    return launch_grid(pair_pool2_bwd_kernel<P, BF16>, x, ni + nc_tiles,
+    return launch_grid(pair_pool2_bwd_kernel<P, BF16, EW>, x, ni + nc_tiles,
                        row_words > col_words ? row_words : col_words, stream);
   } else {
     const int e = launch_grid(pair_pool2_bwd_pass_kernel<P, BF16, true>, x, ni,
@@ -452,13 +457,13 @@ int launch(const Args& x, cudaStream_t stream) {
   }
 }
 
-template <bool BF16>
+template <bool BF16, bool EW>
 int dispatch_p(int P, const Args& x, cudaStream_t s) {
   switch (P) {
-    case 8: return launch<8, BF16>(x, s);
-    case 16: return launch<16, BF16>(x, s);
-    case 32: return launch<32, BF16>(x, s);
-    case 64: return launch<64, BF16>(x, s);
+    case 8: return launch<8, BF16, EW>(x, s);
+    case 16: return launch<16, BF16, EW>(x, s);
+    case 32: return launch<32, BF16, EW>(x, s);
+    case 64: return launch<64, BF16, EW>(x, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -477,6 +482,7 @@ int gnet_pair_pool2_bwd_tiles() { return TILE_I * 1000 + TILE_J; }
 // da_part [S, B, NR, P] and db_part [S, B, NC, P], whose slices are added
 // in order; unused when S = 1), and per row block dwg_part [S*B*NI, K, P],
 // dw2_part [S*B*NI, P, P], db2_part [S*B*NI, P], which the caller sums.
+// `mode`: 0 f32, 1 bf16 operands, 2 bf16 operands and the bf16 stream.
 int gnet_pair_pool2_bwd(const float* row_cols, const float* col_cols,
                         const float* a, const float* b, const float* wg,
                         const float* w2, const float* b2, const int* flags,
@@ -484,17 +490,19 @@ int gnet_pair_pool2_bwd(const float* row_cols, const float* col_cols,
                         float* db, float* da_part, float* db_part,
                         float* dwg_part, float* dw2_part, float* db2_part,
                         int B, int NR, int NC, int P, int K, int splits,
-                        float thr, int bf16, void* stream) {
+                        float thr, int mode, void* stream) {
   if (B <= 0 || NR <= 0) return 0;
   if ((K != 3 && K != 4) || NC < 0 || NR > MAX_DETS || NC > MAX_DETS ||
-      splits < 1 || splits > 65535)
+      splits < 1 || splits > 65535 || mode < 0 || mode > 2)
     return (int)cudaErrorInvalidValue;
   const bool direct = splits == 1;
   const Args x{row_cols, col_cols, a, b, wg, w2, b2, flags, m, dm,
                direct ? da : da_part, direct ? db : db_part,
                dwg_part, dw2_part, db2_part, B, NR, NC, K, splits, thr};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int e = bf16 ? dispatch_p<true>(P, x, s) : dispatch_p<false>(P, x, s);
+  int e = mode == 2 ? dispatch_p<true, true>(P, x, s)
+          : mode     ? dispatch_p<true, false>(P, x, s)
+                     : dispatch_p<false, false>(P, x, s);
   if (e != 0 || direct) return e;
   return sum_slices(da_part, db_part, da, db, splits, (size_t)B * NR * P,
                     (size_t)B * NC * P, s);

@@ -49,6 +49,12 @@
 // Numerics: pairwise2_pair.cuh and pair_group.cuh, shared with K2, which
 // must recompute pre2 bit for bit.
 //
+// The bf16 stream (mode 2, the TPU kernel's elementwise_dtype=bfloat16 on
+// bf16 operands) is an instantiation of its own (EW): h1 and pre2 are
+// rounded where the TPU kernel's bf16 scratch rounds them (h1_value,
+// fc2_mma), so every pre2, and so every entry of m, is a bf16 value. The
+// integer max stays exact: the merged values are non-negative floats.
+//
 // Build switches, for timing what a stage costs only (the output is wrong
 // with any of them; `chip_smoke.py --k1-stages` builds and times them):
 // GNET_ABLATE_STAGE_B, stage B does nothing; GNET_ABLATE_MERGE, a group's
@@ -73,7 +79,7 @@ constexpr size_t smem_words() {
          + NWARPS * QCAP * QWORDS;                        // queues
 }
 
-template <int P, bool BF16>
+template <int P, bool BF16, bool EW>
 __global__ void __launch_bounds__(NTHREADS)
 pair_pool2_fwd_kernel(const float* __restrict__ row_cols,  // [B, C, NR]
                       const float* __restrict__ col_cols,  // [B, C, NC]
@@ -85,6 +91,7 @@ pair_pool2_fwd_kernel(const float* __restrict__ row_cols,  // [B, C, NR]
                       const int* __restrict__ flags,       // [B, NI, NJ]
                       float* __restrict__ out,  // [B, NR, P], 0 if split
                       int NR, int NC, int K, float thr) {
+  static_assert(!EW || BF16, "a bf16 stream needs bf16 operands");
   constexpr int GROUP = group_size<BF16>();
   constexpr int LD = MXLD<P>;
   extern __shared__ __align__(16) float smem[];
@@ -136,10 +143,10 @@ pair_pool2_fwd_kernel(const float* __restrict__ row_cols,  // [B, C, NR]
     if constexpr (BF16) {
       uint32_t afr[Frag<P>::KB][4];
       int ij2[2];
-      group_h1_frags<P>(a_img, b_img, wgs, q_ij, q_g, head, n, lane, afr,
-                        ij2);
+      group_h1_frags<P, KMAX, true, EW>(a_img, b_img, wgs, q_ij, q_g, head,
+                                        n, lane, afr, ij2);
       float acc[Frag<P>::NB][4];
-      fc2_mma<P>(afr, w2p, b2s, acc, lane);
+      fc2_mma<P, EW>(afr, w2p, b2s, acc, lane);
       const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -198,13 +205,13 @@ pair_pool2_fwd_kernel(const float* __restrict__ row_cols,  // [B, C, NR]
   }
 }
 
-template <int P, bool BF16>
+template <int P, bool BF16, bool EW>
 int launch(const float* row_cols, const float* col_cols, const float* a,
            const float* b, const float* wg, const float* w2, const float* b2,
            const int* flags, float* out, int B, int NR, int NC, int K,
            int splits, float thr, cudaStream_t stream) {
   const size_t smem = smem_words<P, BF16>() * sizeof(float);
-  auto kernel = pair_pool2_fwd_kernel<P, BF16>;
+  auto kernel = pair_pool2_fwd_kernel<P, BF16, EW>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -216,7 +223,7 @@ int launch(const float* row_cols, const float* col_cols, const float* a,
   return (int)cudaGetLastError();
 }
 
-template <bool BF16>
+template <bool BF16, bool EW>
 int dispatch_p(int P, const float* row_cols, const float* col_cols,
                const float* a, const float* b, const float* wg,
                const float* w2, const float* b2, const int* flags, float* out,
@@ -224,16 +231,16 @@ int dispatch_p(int P, const float* row_cols, const float* col_cols,
                cudaStream_t s) {
   switch (P) {
     case 8:
-      return launch<8, BF16>(row_cols, col_cols, a, b, wg, w2, b2, flags, out,
+      return launch<8, BF16, EW>(row_cols, col_cols, a, b, wg, w2, b2, flags, out,
                              B, NR, NC, K, splits, thr, s);
     case 16:
-      return launch<16, BF16>(row_cols, col_cols, a, b, wg, w2, b2, flags,
+      return launch<16, BF16, EW>(row_cols, col_cols, a, b, wg, w2, b2, flags,
                               out, B, NR, NC, K, splits, thr, s);
     case 32:
-      return launch<32, BF16>(row_cols, col_cols, a, b, wg, w2, b2, flags,
+      return launch<32, BF16, EW>(row_cols, col_cols, a, b, wg, w2, b2, flags,
                               out, B, NR, NC, K, splits, thr, s);
     case 64:
-      return launch<64, BF16>(row_cols, col_cols, a, b, wg, w2, b2, flags,
+      return launch<64, BF16, EW>(row_cols, col_cols, a, b, wg, w2, b2, flags,
                               out, B, NR, NC, K, splits, thr, s);
     default:
       return (int)cudaErrorInvalidValue;
@@ -249,15 +256,16 @@ int gnet_pair_pool2_tiles() { return TILE_I * 1000 + TILE_J; }
 
 // Launches K1 on `stream`; returns cudaGetLastError() (0 = launched).
 // `splits` blocks share the work on a row tile; with splits > 1 they merge
-// into `out`, which is zero-filled here first, on the same stream.
+// into `out`, which is zero-filled here first, on the same stream. `mode`:
+// 0 f32, 1 bf16 operands, 2 bf16 operands and the bf16 stream.
 int gnet_pair_pool2_fwd(const float* row_cols, const float* col_cols,
                         const float* a, const float* b, const float* wg,
                         const float* w2, const float* b2, const int* flags,
                         float* out, int B, int NR, int NC, int P, int K,
-                        int splits, float thr, int bf16, void* stream) {
+                        int splits, float thr, int mode, void* stream) {
   if (B <= 0 || NR <= 0) return 0;
   if ((K != 3 && K != 4) || NC < 0 || NR > MAX_DETS || NC > MAX_DETS ||
-      splits < 1 || splits > 65535)
+      splits < 1 || splits > 65535 || mode < 0 || mode > 2)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (splits > 1) {
@@ -265,10 +273,15 @@ int gnet_pair_pool2_fwd(const float* row_cols, const float* col_cols,
         cudaMemsetAsync(out, 0, (size_t)B * NR * P * sizeof(float), s);
     if (e != cudaSuccess) return (int)e;
   }
-  return bf16 ? dispatch_p<true>(P, row_cols, col_cols, a, b, wg, w2, b2,
-                                 flags, out, B, NR, NC, K, splits, thr, s)
-              : dispatch_p<false>(P, row_cols, col_cols, a, b, wg, w2, b2,
+  if (mode == 2)
+    return dispatch_p<true, true>(P, row_cols, col_cols, a, b, wg, w2, b2,
                                   flags, out, B, NR, NC, K, splits, thr, s);
+  return mode ? dispatch_p<true, false>(P, row_cols, col_cols, a, b, wg, w2,
+                                        b2, flags, out, B, NR, NC, K, splits,
+                                        thr, s)
+              : dispatch_p<false, false>(P, row_cols, col_cols, a, b, wg, w2,
+                                         b2, flags, out, B, NR, NC, K, splits,
+                                         thr, s);
 }
 
 }  // extern "C"

@@ -24,6 +24,9 @@
 // the TPU kernel feeds its bf16 dots (features g, b', Wg_k, h1, W2) and
 // accumulates in f32 (on the tensor cores); a' and b2 stay f32. f32 mode
 // is IEEE f32 on CUDA cores, FC2 an fmaf chain over p ascending: no TF32.
+// EW, K1/K2's bf16 stream (elementwise_dtype=bfloat16, BF16 only), also
+// rounds a', the FC1 sum and their sum (h1_value) and the FC2 output and
+// b2 (fc2_mma), where the TPU kernel's bf16 scratch rounds them.
 
 #pragma once
 
@@ -47,10 +50,6 @@ __host__ __device__ constexpr int group_size() { return BF16 ? 16 : 32; }
 
 // Row fields: x1 y1 x2 y2 area inv_w inv_h valid [cls]
 // Col fields: x1 y1 x2 y2 area cx   cy    valid [cls]
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // The neighbour test of the lane's own detection `ri` and detection `cj`
 // of the other side: whether IoU >= thr, and the IoU where it is. The
@@ -210,13 +209,19 @@ __device__ __forceinline__ void stage_small_weights(
 // feature order, rounded to bf16 in BF16 mode. wgs is [NF][P] with zero
 // rows beyond the kernel's feature count (K1's row 3 when K == 3, K5's row
 // 8 when G == 8); K1's b_p is already rounded in BF16 mode, K5's is not.
-template <int P, bool BF16, int NF>
+// EW (the bf16 stream): the dot and a'_p are rounded before the add, the
+// sum after it, as the TPU kernel adds its bf16 scratch a' and the dot's
+// output cast to bf16.
+template <int P, bool BF16, bool EW = false, int NF>
 __device__ __forceinline__ float h1_value(float a_p, float b_p,
                                           const float* wgs,
                                           const float (&g)[NF], int p) {
+  static_assert(!EW || BF16, "a bf16 stream needs bf16 operands");
   float h = b_p;
 #pragma unroll
   for (int k = 0; k < NF; ++k) h = fmaf(wgs[k * P + p], g[k], h);
+  if (EW) return fmaxf(round_bf16(__fadd_rn(round_bf16(a_p), round_bf16(h))),
+                       0.f);
   h = fmaxf(a_p + h, 0.f);
   if (BF16) h = round_bf16(h);
   return h;
@@ -227,8 +232,8 @@ __device__ __forceinline__ float h1_value(float a_p, float b_p,
 // detection 0 and are ignored by the caller. ij2 receives the packed
 // (row, column) of the lane's two slots, gid and gid + 8. NF features per
 // entry; ROUND_B: b_p goes into the bf16 dot rounded (K1's b'), or stays
-// f32 (K5's b).
-template <int P, int NF = KMAX, bool ROUND_B = true>
+// f32 (K5's b); EW: K1/K2's bf16 stream (h1_value).
+template <int P, int NF = KMAX, bool ROUND_B = true, bool EW = false>
 __device__ __forceinline__ void group_h1_frags(
     const float* __restrict__ a_img, const float* __restrict__ b_img,
     const float* wgs, const int* q_ij, const float* q_g, int head, int nvalid,
@@ -260,10 +265,12 @@ __device__ __forceinline__ void group_h1_frags(
         if (p < P) {  // compile-time after unrolling, but for tig
           const float2 av = __ldg(reinterpret_cast<const float2*>(ar + p));
           const float2 bv = __ldg(reinterpret_cast<const float2*>(br + p));
-          lo = h1_value<P, true>(av.x, ROUND_B ? round_bf16(bv.x) : bv.x,
-                                 wgs, g, p);
-          hi = h1_value<P, true>(av.y, ROUND_B ? round_bf16(bv.y) : bv.y,
-                                 wgs, g, p + 1);
+          lo = h1_value<P, true, EW>(av.x,
+                                     ROUND_B ? round_bf16(bv.x) : bv.x, wgs,
+                                     g, p);
+          hi = h1_value<P, true, EW>(av.y,
+                                     ROUND_B ? round_bf16(bv.y) : bv.y, wgs,
+                                     g, p + 1);
         }
         afr[kb][h + 2 * c] = pack_bf16(lo, hi);
       }

@@ -4,7 +4,8 @@ check, one ctypes binding and one partial-sum step serve all four.
 
 A pair kernel's C entry takes the pointers of its tensors, six ints
 (B, NR, NC, P, the features K or G, the splits S of :func:`col_splits`),
-the neighbour threshold, a bf16 flag and the CUDA stream, and returns a
+the neighbour threshold, a mode word (:func:`kernel_mode`) and the CUDA
+stream, and returns a
 CUDA error code. Its ``*_tiles`` function reports the tile shape it was
 built with, checked against :data:`TILE_I` x :data:`TILE_J` once per
 library.
@@ -23,15 +24,33 @@ MAX_DETS = 1 << 15        # an entry packs (row << 16) | column (pair_group.cuh)
 COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
-def check_dtype(compute_dtype: str) -> None:
+def check_dtype(compute_dtype: str,
+                elementwise_dtype: str = "float32") -> None:
+    """The operand dtype of the pair products and the dtype of the
+    streamed pair tensors (``pairwise2.py:933-937`` of the JAX package)."""
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
                          f"got {compute_dtype!r}")
+    if elementwise_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"elementwise_dtype must be one of "
+                         f"{COMPUTE_DTYPES}, got {elementwise_dtype!r}")
+    if elementwise_dtype == "bfloat16" and compute_dtype != "bfloat16":
+        raise ValueError(
+            "elementwise_dtype=bfloat16 requires compute_dtype=bfloat16 "
+            "(config.validate_config enforces the same)")
+
+
+def kernel_mode(compute_dtype: str, elementwise_dtype: str = "float32") -> int:
+    """The mode word a pair kernel's C entry takes: 0 f32, 1 bf16 operands,
+    2 bf16 operands and a bf16 stream (K1/K2 only)."""
+    check_dtype(compute_dtype, elementwise_dtype)
+    return (int(compute_dtype == "bfloat16")
+            + int(elementwise_dtype == "bfloat16"))
 
 
 def _library(name: str, entry: str, tiles: str, n_ptr: int) -> ctypes.CDLL:
     """Kernel library ``name`` with its launch function ``entry`` bound
-    (``n_ptr`` pointers, six ints, the threshold, the bf16 flag, the
+    (``n_ptr`` pointers, six ints, the threshold, the mode word, the
     stream) and the tile shape its ``tiles`` function reports checked."""
     from gossipnet_tpu_torch.ops.cuda import build
 
@@ -53,13 +72,15 @@ def _library(name: str, entry: str, tiles: str, n_ptr: int) -> ctypes.CDLL:
 
 def check_inputs(label: str, geom, a: Tensor, b: Tensor, wg: Tensor,
                  w2: Tensor, b2bias: Tensor, compute_dtype: str,
-                 layouts: tuple, **rows_p: Tensor) -> None:
+                 layouts: tuple, elementwise_dtype: str = "float32",
+                 **rows_p: Tensor) -> None:
     """Device, dtype, shape and contiguity of a pair-kernel launch; raises
-    on anything the kernel does not take. ``geom`` has ``row`` [B, C, NR],
-    ``col`` [B, C, NC] and ``flags``; ``layouts``: the (rows of wg, C)
-    pairs the kernel takes; ``rows_p``: further [B, NR, P] float32 inputs
-    (the backward's m and dm)."""
-    check_dtype(compute_dtype)
+    on anything the kernel does not take, a bf16 stream with f32 operands
+    first. ``geom`` has ``row`` [B, C, NR], ``col`` [B, C, NC] and
+    ``flags``; ``layouts``: the (rows of wg, C) pairs the kernel takes;
+    ``rows_p``: further [B, NR, P] float32 inputs (the backward's m and
+    dm)."""
+    check_dtype(compute_dtype, elementwise_dtype)
     bsz, c, nr = geom.row.shape
     nc = geom.col.shape[2]
     p = a.shape[-1]
@@ -97,12 +118,11 @@ def check_inputs(label: str, geom, a: Tensor, b: Tensor, wg: Tensor,
 
 
 def _launch(name: str, label: str, entry: str, tiles: str, geom,
-            tensors: tuple, p: int, k: int, splits: int,
-            compute_dtype: str) -> None:
+            tensors: tuple, p: int, k: int, splits: int, mode: int) -> None:
     """One launch of ``entry`` of library ``name`` on the current stream
     with the pointers of ``tensors``, the sizes (B, NR, NC, P, K), the
-    splits, geom's threshold and the bf16 flag; raises if the launch is
-    refused."""
+    splits, geom's threshold and the mode word (:func:`kernel_mode`);
+    raises if the launch is refused."""
     lib = _library(name, entry, tiles, len(tensors))
     bsz, _, nr = geom.row.shape
     device = geom.row.device
@@ -110,7 +130,7 @@ def _launch(name: str, label: str, entry: str, tiles: str, geom,
     def call():
         return getattr(lib, entry)(
             *(t.data_ptr() for t in tensors), bsz, nr, geom.col.shape[2], p,
-            k, splits, geom.neighbor_iou, int(compute_dtype == "bfloat16"),
+            k, splits, geom.neighbor_iou, mode,
             torch.cuda.current_stream().cuda_stream)
 
     if torch.cuda.current_device() == device.index:
@@ -149,7 +169,8 @@ def _splits(geom, device) -> int:
 
 def forward_launch(name: str, label: str, entry: str, tiles: str, geom,
                    a: Tensor, b: Tensor, wg: Tensor, w2: Tensor,
-                   b2bias: Tensor, compute_dtype: str) -> Tensor:
+                   b2bias: Tensor, compute_dtype: str,
+                   elementwise_dtype: str = "float32") -> Tensor:
     """A pair-pool forward kernel (K1 or K5) -> m [B, NR, P] float32;
     inputs already checked. Where the kernel splits a row tile over
     several blocks (:func:`col_splits`), its entry zero-fills the output
@@ -159,14 +180,15 @@ def forward_launch(name: str, label: str, entry: str, tiles: str, geom,
                       device=a.device)
     _launch(name, label, entry, tiles, geom,
             (geom.row, geom.col, a, b, wg, w2, b2bias, geom.flags, out),
-            p, wg.shape[0], _splits(geom, a.device), compute_dtype)
+            p, wg.shape[0], _splits(geom, a.device),
+            kernel_mode(compute_dtype, elementwise_dtype))
     return out
 
 
 def backward_launch(name: str, label: str, entry: str, tiles: str, geom,
                     a: Tensor, b: Tensor, wg: Tensor, w2: Tensor,
                     b2bias: Tensor, m: Tensor, dm: Tensor,
-                    compute_dtype: str):
+                    compute_dtype: str, elementwise_dtype: str = "float32"):
     """A pair-pool backward kernel (K2 or K6) -> (d_a, d_b, dWg, dW2,
     db2) float32; inputs already checked.
 
@@ -194,7 +216,7 @@ def backward_launch(name: str, label: str, entry: str, tiles: str, geom,
     _launch(name, label, entry, tiles, geom,
             (geom.row, geom.col, a, b, wg, w2, b2bias, geom.flags, m, dm, da,
              db, *scratch, dwg_part, dw2_part, db2_part), p, k, s,
-            compute_dtype)
+            kernel_mode(compute_dtype, elementwise_dtype))
     return (da, db, dwg_part.sum(dim=0), dw2_part.sum(dim=0),
             db2_part.sum(dim=0))
 

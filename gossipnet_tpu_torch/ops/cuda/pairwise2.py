@@ -128,9 +128,16 @@ def pair_geometry(row_cols: Tensor, col_cols: Tensor, neighbor_iou: float,
                   block_sparse: bool = True) -> PairGeometry:
     """Kernel inputs derived from stacked DetColumns [B, 14, N] (rows and
     columns may differ, as for a row shard). ``col_classes`` defaults to
-    ``classes`` (the square case)."""
+    ``classes`` (the square case).
+
+    The kernel's fields are the columns widened to float32. The fold's
+    ratios -cx/w and -cy/h are divided in the columns' own dtype, as the
+    JAX wrapper folds them: in bf16 for bf16 columns (``model.dtype:
+    bfloat16``), except with classes, whose float32 row promotes the
+    stacked columns before the fold (``pairwise2.py:944-951``)."""
     ci = pf.unstack_columns(row_cols.float())
     cj = pf.unstack_columns(col_cols.float())
+    cr = ci if classes is not None else pf.unstack_columns(row_cols)
     row = [ci.x1, ci.y1, ci.x2, ci.y2, ci.area, 1.0 / ci.w, 1.0 / ci.h,
            ci.valid]
     col = [cj.x1, cj.y1, cj.x2, cj.y2, cj.area, cj.cx, cj.cy, cj.valid]
@@ -140,8 +147,9 @@ def pair_geometry(row_cols: Tensor, col_cols: Tensor, neighbor_iou: float,
         col.append(col_classes.float())
     row_t = torch.stack(row, dim=1).contiguous()
     col_t = torch.stack(col, dim=1).contiguous()
-    i_feats = torch.stack([-ci.cx / ci.w, -ci.cy / ci.h, -ci.log_w,
-                           -ci.log_h, -ci.log_aspect, ci.score], dim=-1)
+    i_feats = torch.stack([(-cr.cx / cr.w).float(), (-cr.cy / cr.h).float(),
+                           -ci.log_w, -ci.log_h, -ci.log_aspect, ci.score],
+                          dim=-1)
     j_feats = torch.stack([cj.log_w, cj.log_h, cj.log_aspect, cj.score],
                           dim=-1)
     if block_sparse and neighbor_iou > 0.0:
@@ -213,7 +221,8 @@ def _fma(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
 
 
 def _pair_chunks(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
-                 w2: Tensor, b2bias: Tensor, compute_dtype: str):
+                 w2: Tensor, b2bias: Tensor, compute_dtype: str,
+                 elementwise_dtype: str = "float32"):
     """Every (row, column) pair in row chunks of at most
     ``_CHUNK_ELEMENTS`` activations, with the kernels' arithmetic: yields
     (rows, nb [B, rc, NC], g [B, rc, NC, K], h1 [B, rc, NC, P],
@@ -221,8 +230,14 @@ def _pair_chunks(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
     their order (csrc/pairwise2_pair.cuh), rounding in bf16 mode where they
     round, so in float32 pre2 equals the kernels' bit for bit and the
     backward finds K1's winners (bf16: the kernels' FC2 runs on the tensor
-    cores, equal to tolerance)."""
+    cores, equal to tolerance).
+
+    ``elementwise_dtype="bfloat16"`` streams h1 and pre2 in bf16 as the
+    TPU kernel's bf16 scratch does (``pairwise2.py::_pair_mlp``): a' and
+    the FC1 sum are rounded before their add and the sum after it; FC2
+    sums from zero, is rounded, and bf16(b2) is added and rounded."""
     rnd = _rounder(compute_dtype)
+    ew = _rounder(elementwise_dtype)
     row, col = geom.row, geom.col
     bsz, _, nr = row.shape
     nc = col.shape[2]
@@ -230,6 +245,9 @@ def _pair_chunks(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
     k = wg_k.shape[0]
     wk, w2r = rnd(wg_k.float()), rnd(w2.float())
     bj = rnd(b2)[:, None, :, :]                          # [B, 1, NC, P]
+    a_ew = ew(a2)
+    fc2_start = (torch.zeros_like(b2bias.float())
+                 if elementwise_dtype == "bfloat16" else b2bias.float())
     thr = torch.tensor(geom.neighbor_iou, dtype=torch.float32,
                        device=row.device)
     cj = col[:, :, None, :]                              # [B, CJ, 1, NC]
@@ -246,21 +264,25 @@ def _pair_chunks(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
         h = bj.expand(bsz, rows.stop - r0, nc, p)
         for f in range(k):
             h = _fma(g[..., f:f + 1], wk[f], h)
-        h1 = rnd(torch.clamp(a2[:, rows, None, :] + h, min=0.0))
-        pre2 = b2bias.float().expand_as(h1)
+        h1 = rnd(torch.clamp(ew(a_ew[:, rows, None, :] + ew(h)), min=0.0))
+        pre2 = fc2_start.expand_as(h1)
         for i in range(p):                               # FC2 input index
             pre2 = _fma(h1[..., i:i + 1], w2r[i], pre2)
+        if elementwise_dtype == "bfloat16":
+            pre2 = ew(ew(pre2) + ew(b2bias.float()))
         yield rows, nb, g, h1, pre2
 
 
 def _reference_core(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
-                    w2: Tensor, b2bias: Tensor,
-                    compute_dtype: str) -> Tensor:
-    """K1's arithmetic in torch -> m [B, NR, P] float32."""
+                    w2: Tensor, b2bias: Tensor, compute_dtype: str,
+                    elementwise_dtype: str = "float32") -> Tensor:
+    """K1's arithmetic in torch -> m [B, NR, P] float32 (every entry a
+    bf16 value when ``elementwise_dtype`` is bfloat16)."""
     bsz, nr, p = a2.shape
     out = torch.empty((bsz, nr, p), dtype=torch.float32, device=a2.device)
     for rows, nb, _, _, pre2 in _pair_chunks(geom, a2, b2, wg_k, w2, b2bias,
-                                             compute_dtype):
+                                             compute_dtype,
+                                             elementwise_dtype):
         pre2 = torch.where(nb[..., None], pre2, torch.zeros_like(pre2))
         out[:, rows] = torch.clamp(pre2.amax(dim=2), min=0.0)
     return out
@@ -268,7 +290,8 @@ def _reference_core(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
 
 def pair_pool_backward_reference(geom: PairGeometry, a2: Tensor, b2: Tensor,
                                  wg_k: Tensor, w2: Tensor, b2bias: Tensor,
-                                 m: Tensor, dm: Tensor, compute_dtype: str):
+                                 m: Tensor, dm: Tensor, compute_dtype: str,
+                                 elementwise_dtype: str = "float32"):
     """K2's arithmetic in torch: the VJP of K1 from its output m ->
     (d_a' [B, NR, P], d_b' [B, NC, P], dWg_k [K, P], dW2 [P, P], db2 [P]).
 
@@ -276,7 +299,11 @@ def pair_pool_backward_reference(geom: PairGeometry, a2: Tensor, b2: Tensor,
     neighbour j with pre2_ij[q] == m_i[q] > 0: each exact tie gets the
     full gradient (``pairwise2.py::_win_grad``). bf16 mode rounds the dots'
     operands (dpre2, dpre1, g, h1, W2) as K2 does; d_a' and db2 sum
-    unrounded. The CPU backward of :class:`PairPool2` and K2's oracle.
+    unrounded. With ``elementwise_dtype`` bfloat16 the recomputed h1 and
+    pre2 are the bf16 stream's (:func:`_pair_chunks`), so a winner is a
+    pair whose bf16 pre2 equals m (``_win_grad``'s bf16 branch); exact
+    ties are common there and each gets the full gradient. The CPU
+    backward of :class:`PairPool2` and K2's oracle.
     """
     rnd = _rounder(compute_dtype)
     f32 = dict(dtype=torch.float32, device=a2.device)
@@ -288,7 +315,8 @@ def pair_pool_backward_reference(geom: PairGeometry, a2: Tensor, b2: Tensor,
     dmg = torch.where(m > 0.0, dm.float(), torch.zeros_like(m))
     w2r = rnd(w2.float())
     for rows, nb, g, h1, pre2 in _pair_chunks(geom, a2, b2, wg_k, w2, b2bias,
-                                              compute_dtype):
+                                              compute_dtype,
+                                              elementwise_dtype):
         win = nb[..., None] & (pre2 == m[:, rows, None, :])
         dp2 = torch.where(win, dmg[:, rows, None, :], torch.zeros_like(pre2))
         dp1 = torch.where(h1 > 0.0, rnd(dp2) @ w2r.T, torch.zeros_like(h1))
@@ -306,20 +334,22 @@ def pair_pool_reference(row_cols: Tensor, col_cols: Tensor, a: Tensor,
                         classes: Tensor | None = None,
                         col_classes: Tensor | None = None,
                         compute_dtype: str = "bfloat16",
-                        geometry: PairGeometry | None = None) -> Tensor:
+                        geometry: PairGeometry | None = None,
+                        elementwise_dtype: str = "float32") -> Tensor:
     """Plain PyTorch K1 on any device -> m [B, NR, P] float32.
 
     Same arguments as :func:`pair_pool`; ``pair_params`` has ``wg``
     [G, P], ``w2`` [P, P] (in, out) and ``b2`` [P]. The CPU path of
     :func:`pair_pool` and the kernel's oracle on the card.
     """
-    check_dtype(compute_dtype)
+    check_dtype(compute_dtype, elementwise_dtype)
     geom = geometry or pair_geometry(row_cols, col_cols, neighbor_iou,
                                      classes, col_classes)
     a2, b2 = fold_separable(pair_params.wg, a, b, geom)
     return _reference_core(geom, a2, b2, _kernel_wg(pair_params.wg,
                                                     geom.multiclass),
-                           pair_params.w2, pair_params.b2, compute_dtype)
+                           pair_params.w2, pair_params.b2, compute_dtype,
+                           elementwise_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -331,50 +361,65 @@ _LAYOUTS = ((3, len(_CI_FIELDS)), (4, len(_CI_FIELDS) + 1))
 
 
 def launch_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
-                  w2: Tensor, b2bias: Tensor, compute_dtype: str) -> Tensor:
+                  w2: Tensor, b2bias: Tensor, compute_dtype: str,
+                  elementwise_dtype: str = "float32") -> Tensor:
     """One K1 launch on the current stream -> m [B, NR, P] float32.
 
     Checks device, dtype, shape and contiguity and raises on anything the
-    kernel does not take; raises if the launch is refused.
+    kernel does not take; raises if the launch is refused. A bf16 stream
+    (``elementwise_dtype="bfloat16"``) is its own instantiation, counted
+    apart in ``pair_pool.launches_ew``.
     """
     check_inputs("K1", geom, a2, b2, wg_k, w2, b2bias, compute_dtype,
-                  _LAYOUTS)
+                  _LAYOUTS, elementwise_dtype=elementwise_dtype)
     check_packable("K1", geom)
     out = forward_launch("pairwise2_fwd", "K1", "gnet_pair_pool2_fwd",
                           "gnet_pair_pool2_tiles", geom, a2, b2, wg_k, w2,
-                          b2bias, compute_dtype)
+                          b2bias, compute_dtype, elementwise_dtype)
     pair_pool.launches += 1
+    if elementwise_dtype == "bfloat16":
+        pair_pool.launches_ew += 1
     return out
 
 
 def launch_backward_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor,
                            wg_k: Tensor, w2: Tensor, b2bias: Tensor,
-                           m: Tensor, dm: Tensor, compute_dtype: str):
+                           m: Tensor, dm: Tensor, compute_dtype: str,
+                           elementwise_dtype: str = "float32"):
     """One K2 launch on the current stream -> (d_a', d_b', dWg_k, dW2, db2)
     float32, as :func:`pair_pool_backward_reference` returns them."""
     check_inputs("K2", geom, a2, b2, wg_k, w2, b2bias, compute_dtype,
-                  _LAYOUTS, m=m, dm=dm)
+                  _LAYOUTS, m=m, dm=dm, elementwise_dtype=elementwise_dtype)
     check_packable("K2", geom)
     grads = backward_launch("pairwise2_bwd", "K2", "gnet_pair_pool2_bwd",
                              "gnet_pair_pool2_bwd_tiles", geom, a2, b2, wg_k,
-                             w2, b2bias, m, dm, compute_dtype)
+                             w2, b2bias, m, dm, compute_dtype,
+                             elementwise_dtype)
     pair_pool_backward.launches += 1
+    if elementwise_dtype == "bfloat16":
+        pair_pool_backward.launches_ew += 1
     return grads
 
 
 def pair_pool_backward(geom: PairGeometry, a2: Tensor, b2: Tensor,
                        wg_k: Tensor, w2: Tensor, b2bias: Tensor, m: Tensor,
-                       dm: Tensor, compute_dtype: str):
+                       dm: Tensor, compute_dtype: str,
+                       elementwise_dtype: str = "float32"):
     """The pair stage's VJP -> (d_a', d_b', dWg_k, dW2, db2): the plain
     version on CPU tensors, K2 on CUDA tensors (or raise)."""
     if a2.device.type == "cpu":
         return pair_pool_backward_reference(geom, a2, b2, wg_k, w2, b2bias,
-                                            m, dm, compute_dtype)
+                                            m, dm, compute_dtype,
+                                            elementwise_dtype)
     return launch_backward_kernel(geom, a2, b2, wg_k, w2, b2bias, m, dm,
-                                  compute_dtype)
+                                  compute_dtype,
+                                  elementwise_dtype=elementwise_dtype)
 
 
-pair_pool_backward.launches = 0   # K2 launches; only launch_backward_kernel adds
+# K2 launches, and those of the bf16-stream instantiation among them; only
+# launch_backward_kernel adds
+pair_pool_backward.launches = 0
+pair_pool_backward.launches_ew = 0
 
 
 class PairPool2(torch.autograd.Function):
@@ -390,12 +435,16 @@ class PairPool2(torch.autograd.Function):
     @staticmethod
     def forward(ctx, geom: PairGeometry, a2: Tensor, b2: Tensor,
                 wg_k: Tensor, w2: Tensor, b2bias: Tensor,
-                compute_dtype: str) -> Tensor:
+                compute_dtype: str,
+                elementwise_dtype: str = "float32") -> Tensor:
         if a2.device.type == "cpu":
-            m = _reference_core(geom, a2, b2, wg_k, w2, b2bias, compute_dtype)
+            m = _reference_core(geom, a2, b2, wg_k, w2, b2bias, compute_dtype,
+                                elementwise_dtype)
         else:
-            m = launch_kernel(geom, a2, b2, wg_k, w2, b2bias, compute_dtype)
+            m = launch_kernel(geom, a2, b2, wg_k, w2, b2bias, compute_dtype,
+                              elementwise_dtype=elementwise_dtype)
         ctx.geom, ctx.compute_dtype = geom, compute_dtype
+        ctx.elementwise_dtype = elementwise_dtype
         ctx.save_for_backward(a2, b2, wg_k, w2, b2bias, m)
         return m
 
@@ -403,8 +452,9 @@ class PairPool2(torch.autograd.Function):
     def backward(ctx, dm: Tensor):
         a2, b2, wg_k, w2, b2bias, m = ctx.saved_tensors
         grads = pair_pool_backward(ctx.geom, a2, b2, wg_k, w2, b2bias, m,
-                                   dm.contiguous(), ctx.compute_dtype)
-        return (None, *grads, None)
+                                   dm.contiguous(), ctx.compute_dtype,
+                                   ctx.elementwise_dtype)
+        return (None, *grads, None, None)
 
 
 def pair_pool(row_cols: Tensor, col_cols: Tensor, a: Tensor, b: Tensor,
@@ -412,7 +462,8 @@ def pair_pool(row_cols: Tensor, col_cols: Tensor, a: Tensor, b: Tensor,
               classes: Tensor | None = None,
               col_classes: Tensor | None = None,
               compute_dtype: str = "bfloat16", block_sparse: bool = True,
-              geometry: PairGeometry | None = None) -> Tensor:
+              geometry: PairGeometry | None = None,
+              elementwise_dtype: str = "float32") -> Tensor:
     """Pair stage m [B, NR, P] float32 of one block, differentiable.
 
     row_cols [B, 14, NR] / col_cols [B, 14, NC]: stacked DetColumns.
@@ -420,20 +471,28 @@ def pair_pool(row_cols: Tensor, col_cols: Tensor, a: Tensor, b: Tensor,
     ``geometry`` (from :func:`pair_geometry`) skips rebuilding the
     detection-only inputs; a model builds it once per forward.
 
+    ``elementwise_dtype="bfloat16"`` (``model.pair_elementwise_dtype``,
+    which needs bf16 operands) streams h1, pre2 and the running max in
+    bf16, as the TPU kernel's bf16 scratch does; m stays float32.
+
     CPU tensors take the plain forward and backward (``block_sparse`` is
     exact, so it changes nothing there). CUDA tensors launch K1, and K2
     in the backward, or raise.
     """
     if a.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"pair_pool runs on cpu or cuda, got {a.device}")
-    check_dtype(compute_dtype)
+    check_dtype(compute_dtype, elementwise_dtype)
     geom = geometry or pair_geometry(row_cols, col_cols, neighbor_iou,
                                      classes, col_classes, block_sparse)
     a2, b2 = fold_separable(pair_params.wg, a, b, geom)
     return PairPool2.apply(geom, a2.contiguous(), b2.contiguous(),
                            _kernel_wg(pair_params.wg, geom.multiclass),
                            pair_params.w2.float().contiguous(),
-                           pair_params.b2.float().contiguous(), compute_dtype)
+                           pair_params.b2.float().contiguous(), compute_dtype,
+                           elementwise_dtype)
 
 
-pair_pool.launches = 0   # K1 launches; only launch_kernel adds to it
+# K1 launches, and those of the bf16-stream instantiation among them; only
+# launch_kernel adds to them
+pair_pool.launches = 0
+pair_pool.launches_ew = 0

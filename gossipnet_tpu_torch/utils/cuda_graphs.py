@@ -43,10 +43,20 @@ from gossipnet_tpu_torch.ops.cuda.matching_scan import split_thresholds
 COUNTED = (pairwise2.pair_pool, pairwise2.pair_pool_backward,
            pairwise.pair_pool, pairwise.pair_pool_backward,
            matching_scan.greedy_scan_batched, matching_scan.greedy_scan)
+# Every counter a graph keeps: each wrapper's ``launches``, and K1's and
+# K2's bf16-stream launches, which are also counted apart.
+_COUNTERS = tuple((fn, "launches") for fn in COUNTED) + (
+    (pairwise2.pair_pool, "launches_ew"),
+    (pairwise2.pair_pool_backward, "launches_ew"))
 
 
 def _counts() -> list[int]:
-    return [fn.launches for fn in COUNTED]
+    return [getattr(fn, attr) for fn, attr in _COUNTERS]
+
+
+def _add_counts(ns) -> None:
+    for (fn, attr), n in zip(_COUNTERS, ns):
+        setattr(fn, attr, getattr(fn, attr) + n)
 
 
 class Captured:
@@ -85,16 +95,14 @@ class Captured:
             if collecting:
                 gc.enable()
             made = _counts()
-            for wrapper, n in zip(COUNTED, start):
-                wrapper.launches = n
+            _add_counts([a - b for a, b in zip(start, made)])
         self.launches = [b - a for a, b in zip(start, made)]
         self.seconds = time.perf_counter() - t0
 
     def replay(self):
         """Replays the graph on the current stream -> its static outputs."""
         self.graph.replay()
-        for wrapper, n in zip(COUNTED, self.launches):
-            wrapper.launches += n
+        _add_counts(self.launches)
         return self.outputs
 
 

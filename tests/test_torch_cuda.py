@@ -15,7 +15,12 @@ N=256, B=1 N=1024, B=2 N=4096) and a coincident batch, where every pair
 is a neighbour (the same checks); ``tools/bench.py``'s captured
 loop body against a host chain, bit for bit; and
 ``AsyncBatch.wait()`` reading back its own batch alone (work enqueued on
-the stream after the dispatch does not delay it).
+the stream after the dispatch does not delay it); and K1/K2 with the bf16
+stream (``pair_elementwise_dtype: bfloat16``) on the flagship's launch
+arguments at the bench batch, config 2's training batch and ``blob`` at
+B=2 N=256: m bf16 values, at most one bf16 ulp from the plain version's in
+at most 1% of the entries; the backward at bf16's tolerances with dm zero
+where the best two candidates lie within one bf16 ulp.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
 without one. The file imports no JAX, so it runs where JAX is not
@@ -1093,10 +1098,10 @@ def blob_args(request):
     launch_fwd, launch_bwd = kern.launch_kernel, kern.launch_backward_kernel
 
     def record(key, launch):
-        def run(*args):
+        def run(*args, **kw):
             seen[key].append([x.clone() if torch.is_tensor(x) else x
                               for x in args])
-            return launch(*args)
+            return launch(*args, **kw)
         return run
 
     kern.launch_kernel = record("fwd", launch_fwd)
@@ -1178,3 +1183,118 @@ def test_captured_bench_loop_body_equals_the_host_chain_on_card(dtype):
     assert torch.equal(got, want)
     assert not torch.equal(two, want)
     assert chain.k.item() == 3.0
+
+
+# ---------------------------------------------------------------------------
+# the bf16 stream (pair_elementwise_dtype: bfloat16) of K1 and K2
+# ---------------------------------------------------------------------------
+
+STREAM = ("bfloat16", "bfloat16")     # compute and elementwise dtype
+
+
+def _stream_batch(name, dev):
+    from gossipnet_tpu_torch import train as training
+    from gossipnet_tpu_torch.data.bucketing import BatchIterator
+    from gossipnet_tpu_torch.data.synthetic import layout_batch, synthetic_roidb
+    from gossipnet_tpu_torch.tools import entry
+
+    if name == "bench":
+        return entry.device_tensors(layout_batch("clustered", 8, 1024, 0), dev)
+    if name == "blob":
+        return entry.device_tensors(layout_batch("blob", 2, 256, 0), dev)
+    roidb = synthetic_roidb(num_images=32, seed=0, num_gt=100, dets_per_gt=8,
+                            num_clutter=200)       # config 2's batch
+    arrays = training.batch_to_device(
+        next(BatchIterator(roidb, 8, (256, 512, 1024))), dev)
+    return arrays["boxes"], arrays["scores"], arrays["valid"]
+
+
+@pytest.fixture(scope="module", params=["bench", "config2", "blob"])
+def stream_args(request):
+    """The first block's forward and the last block's backward launch
+    arguments of the 16-block flagship (128/32/32, seeded weights) with the
+    bf16 stream, and that backward's cotangent."""
+    from gossipnet_tpu_torch.tools import entry
+
+    dev = _card()
+    cfg = entry.flagship_cfg()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, pair_elementwise_dtype="bfloat16"))
+    model = entry.seeded_model(cfg, dev)
+    boxes, scores, valid = _stream_batch(request.param, dev)
+    seen = {"fwd": [], "bwd": []}
+    launch_fwd, launch_bwd = k1.launch_kernel, k1.launch_backward_kernel
+
+    def record(key, launch):
+        def run(*args, **kw):
+            assert kw == {"elementwise_dtype": "bfloat16"}
+            seen[key].append([x.clone() if torch.is_tensor(x) else x
+                              for x in args])
+            return launch(*args, **kw)
+        return run
+
+    k1.launch_kernel = record("fwd", launch_fwd)
+    k1.launch_backward_kernel = record("bwd", launch_bwd)
+    try:
+        logits = model(boxes, scores, valid)
+        cot = torch.randn(logits.shape, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        (logits * cot).sum().backward()
+    finally:
+        k1.launch_kernel, k1.launch_backward_kernel = launch_fwd, launch_bwd
+    torch.cuda.synchronize()
+    assert len(seen["fwd"]) == len(seen["bwd"]) == 16
+    return tuple(seen["fwd"][0][:6]), tuple(seen["bwd"][0][:6]), \
+        seen["bwd"][0][7]
+
+
+def _bf16_ulp(x):
+    mag = x.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+@pytest.mark.cuda
+def test_bf16_stream_k1_within_one_ulp_on_card(stream_args):
+    """K1's bf16 stream against its plain version: every entry a bf16
+    value, at most one bf16 ulp apart (the tensor cores and the fmaf chain
+    sum FC2 in different orders, ~1e-7 apart before the stream rounds), in
+    at most 1% of the entries."""
+    fwd, args, _ = stream_args
+    for a6 in (fwd, args):
+        m = k1.launch_kernel(*a6, *STREAM)
+        m_plain = k1._reference_core(*a6, *STREAM)
+        torch.cuda.synchronize()
+        assert (m > 0).any()
+        assert torch.equal(m.to(torch.bfloat16).float(), m)
+        diff = (m - m_plain).abs()
+        assert bool((diff <= _bf16_ulp(m_plain)).all())
+        assert (diff > 0).float().mean().item() <= 0.01
+        assert not torch.equal(m, k1.launch_kernel(*a6, "bfloat16"))
+
+
+@pytest.mark.cuda
+def test_bf16_stream_k2_matches_plain_backward_on_card(stream_args):
+    """K2's bf16 stream against its plain backward at bf16's tolerances,
+    with dm zero where the best two candidates lie within one bf16 ulp
+    (exact ties included: there one ulp of a differently ordered sum can
+    crown another set); two launches bit-identical; each winner found
+    (dm = 1: db2 counts at least one per positive maximum)."""
+    _, args, dm = stream_args
+    m = k1.launch_kernel(*args, *STREAM)
+    m_plain = k1._reference_core(*args, *STREAM)
+    ties = []
+    for _, nb, _, _, pre2 in k1._pair_chunks(*args, *STREAM):
+        v = torch.where(nb[..., None], pre2, torch.full_like(pre2, -1e30))
+        top = v.topk(2, dim=2).values
+        best, second = top[:, :, 0], top[:, :, 1]
+        ties.append((best > 0) & (best - second <= _bf16_ulp(best)))
+    dm = torch.where(torch.cat(ties, dim=1), torch.zeros_like(dm), dm)
+    got = k1.launch_backward_kernel(*args, m, dm, *STREAM)
+    again = k1.launch_backward_kernel(*args, m, dm, *STREAM)
+    want = k1.pair_pool_backward_reference(*args, m_plain, dm, *STREAM)
+    torch.cuda.synchronize()
+    _assert_grads(got, want, "bfloat16")
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    db2 = k1.launch_backward_kernel(*args, m, torch.ones_like(dm),
+                                    *STREAM)[4]
+    assert bool((db2 >= (m > 0).sum(dim=(0, 1)).float()).all())

@@ -49,7 +49,9 @@ def test_port_and_chip_smoke_import_no_jax():
                  "utils.cuda_graphs", "utils.profiling", "tools.entry",
                  "tools.bench", "tools.bench_suite", "tools.probe",
                  "tools.bench_serving", "tools.tcp_bench_client",
-                 "tools.import_weights", "utils.import_weights"):
+                 "tools.import_weights", "utils.import_weights",
+                 "tools.demo_config1", "tools.quality_demo",
+                 "tools.calibrate"):
         assert f"gossipnet_tpu_torch.{name}" in result["modules"], name
 
 
@@ -126,7 +128,8 @@ def test_serve_cli_without_random_init_names_the_roadmap_item(tmp_path):
 @pytest.mark.parametrize("tool,argv", [
     ("entry", []), ("bench", []), ("bench", ["--layout", "blob"]),
     ("bench_suite", []), ("probe", ["forward"]), ("probe", ["train"]),
-    ("bench_serving", [])])
+    ("bench_serving", []), ("demo_config1", []),
+    ("quality_demo", ["clustered", "--steps", "1"]), ("calibrate", [])])
 def test_measuring_tools_default_to_cuda_and_raise_without_a_card(tool,
                                                                   argv):
     if torch.cuda.is_available():

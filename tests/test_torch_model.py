@@ -128,14 +128,34 @@ def test_shipped_configs_load_like_jax():
     assert tc.data.max_detections == 128
 
 
-@pytest.mark.parametrize("override,pool_impl,item", [
-    ({"pair_elementwise_dtype": "bfloat16"}, "kernel", "item 16"),
-    ({"dtype": "bfloat16"}, "dense", "item 16"),
+@pytest.mark.parametrize("override,pool_impl", [
+    ({"pair_elementwise_dtype": "bfloat16"}, "kernel"),
+    ({"dtype": "bfloat16"}, "dense"),
+    ({"dtype": "bfloat16"}, "kernel"),
+    ({"dtype": "bfloat16", "pair_elementwise_dtype": "bfloat16"}, "kernel"),
 ])
-def test_unported_options_raise(override, pool_impl, item):
-    cfg = t_config.ModelConfig(**override)
-    with pytest.raises(NotImplementedError, match=item):
-        check_supported(cfg, pool_impl)
+def test_precision_knobs_build_and_run(rng, override, pool_impl):
+    """The two reduced-precision knobs (``model.dtype``,
+    ``pair_elementwise_dtype``) are ported: they build, and on CPU tensors
+    run the plain path, forward and backward. Their values against JAX:
+    tests/test_torch_precision.py."""
+    cfg = t_config.ModelConfig(num_blocks=1, feature_dim=16, reduced_dim=8,
+                               pairwise_dim=8, **override)
+    check_supported(cfg, pool_impl)
+    model = GossipNet(cfg, pool_impl=pool_impl, device="cpu")
+    model.load_state_dict(params_from_jax(init_params(cfg)))
+    boxes, scores, valid, _ = _problem(rng, b=1, n=24)
+    logits = model(*[torch.from_numpy(np.array(x))
+                     for x in (boxes, scores, valid)])
+    logits.sum().backward()
+    assert logits.dtype == torch.float32
+    assert torch.isfinite(logits).all()
+    assert all(p.grad is not None for p in model.parameters())
+
+
+def test_unknown_model_dtype_raises():
+    with pytest.raises(ValueError, match="model.dtype"):
+        check_supported(t_config.ModelConfig(dtype="float16"), "dense")
 
 
 @pytest.mark.parametrize("override,pool_impl", [

@@ -79,9 +79,11 @@ def test_activity_equals_the_jax_probe_exactly(capsys, layout):
     assert 0.0 < got["morton 32x64"] <= 1.0
 
 
-def test_elementwise_bfloat16_raises_the_roadmap_error():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        probe.main(["forward", *TINY, "--ew-dtype", "bfloat16"])
+def test_elementwise_bfloat16_runs_the_bf16_stream(capsys):
+    """``--ew-dtype bfloat16`` (pair_elementwise_dtype) is ported: the
+    forward probe runs K1's bf16 stream (its plain version here)."""
+    probe.main(["forward", *TINY, "--ew-dtype", "bfloat16"])
+    assert "forward" in capsys.readouterr().out
 
 
 def test_unknown_impl_raises():
