@@ -183,12 +183,36 @@ Phases (each raises on failure; the script then exits non-zero):
    ``Rescorer``, then ``tools.demo_config1`` and ``tools.quality_demo
    clustered --steps 20`` (``python3 chip_smoke.py --precision`` runs only
    this phase). The stream's launches are counted apart in the record
-   (``pair_pool2_fwd_bf16_stream``, ``pair_pool2_bwd_bf16_stream``).
+   (``pair_pool2_fwd_bf16_stream``, ``pair_pool2_bwd_bf16_stream``);
+18. the device mesh (``python3 chip_smoke.py --mesh`` runs only this):
+   (a) the shard gate, in one process: for n_det 2 and 4, each det
+   shard's rows of the 16-block flagship's launch arguments at the bench
+   batch (K1/K2, f32 and bf16) and of config 4's batch (K5/K6) against
+   every column: the shards' m joined bit-equal to the square launch's,
+   their d_a' joined bit-equal, their summed d_b' and weight gradients
+   within the weight-gradient gate, each shard against its own plain
+   version; the shards' neighbour pairs and ms for information; (b)
+   worlds of 2 and 4 gloo ranks all on cuda:0 (``parallel/world.py
+   run_world``, the rank programs of ``parallel/legs.py``): the 16-block
+   serving_bucketed model through the Rescorer on (1x2), (2x1), (2x2) and
+   (1x4) at the bench batch against one device at the same padded batch
+   (f32 1e-5, bf16 2e-2), 16 K1 per rank and batch; config 2 on (2x1)
+   and (2x2) and config 4 (pair_kernel 1) on (1x2) through train() for 3
+   steps (16 K1 + 16 K2, or K5/K6, + 1 K3 per rank and step, the
+   replicas bit-identical) and step 0's raw closed f32 gradients against
+   one device summing each data rank's images as a batch (rtol 5e-4,
+   atol 5e-6); the evaluation of 64 images on (2x2) against the mesh
+   Rescorer's scores; the TcpServer on a (2x2) f32 Rescorer, JSON and
+   binary replies within 1e-5 of one device; dryrun_multichip(4); (c)
+   for information, labelled as one card's time-sliced ranks and no
+   multi-GPU figure: each rank's ms of the sharded forward beside one
+   device's eager forward, and the phase's seconds. The mesh's launches,
+   summed over the ranks, join the record.
 
 Every path of phases 4-14 runs through captured graphs, as a user's call
-does: a replay adds its graph's launches to each counter, and the eager
-run before each capture launches them too, so the launch checks count
-replays plus captures.
+does (phase 18's mesh paths step eagerly): a replay adds its graph's
+launches to each counter, and the eager run before each capture launches
+them too, so the launch checks count replays plus captures.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device it prints no result
@@ -223,7 +247,11 @@ from gossipnet_tpu_torch import native
 from gossipnet_tpu_torch import serving
 from gossipnet_tpu_torch import train as training
 from gossipnet_tpu_torch.api import Rescorer
-from gossipnet_tpu_torch.config import load_config, experiment_path
+from gossipnet_tpu_torch.config import (
+    config_to_dict,
+    experiment_path,
+    load_config,
+)
 from gossipnet_tpu_torch.data.bucketing import (
     BatchIterator,
     bucket_for,
@@ -243,10 +271,15 @@ from gossipnet_tpu_torch.ops import order
 from gossipnet_tpu_torch.ops import pair_features as pf
 from gossipnet_tpu_torch.ops.cuda import ablate as k7
 from gossipnet_tpu_torch.ops.cuda import build
+from gossipnet_tpu_torch.ops.cuda import launch
 from gossipnet_tpu_torch.ops.cuda import matching_scan as k3
 from gossipnet_tpu_torch.ops.cuda import pairwise as k5
 from gossipnet_tpu_torch.ops.cuda import pairwise2 as k1
-from gossipnet_tpu_torch.params import as_state_dict, init_params
+from gossipnet_tpu_torch.params import (
+    as_state_dict,
+    flatten_paths,
+    init_params,
+)
 from gossipnet_tpu_torch.serving import serve_stream
 from gossipnet_tpu_torch.tools import kernel_ablate
 from gossipnet_tpu_torch.utils import model_artifact
@@ -4104,6 +4137,460 @@ def phase_precision(card: str) -> tuple[dict, dict, dict]:
                       "pair_pool2_bwd_bf16_stream": k2_err}, times
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the device mesh
+# ---------------------------------------------------------------------------
+
+MESH_DETS = (2, 4)
+# scores of a mesh against one device at the same padded batch: f32 at
+# F32_TOL's 1e-5; bf16 at the pair kernels' bf16 gate, BF16_TOL (ROADMAP
+# §3 (d) measured 7.9e-3 between two batch compositions in bf16)
+MESH_TOL = {"float32": 1e-5, "bfloat16": BF16_TOL["atol"]}
+MESH_CARD = "one card, time-sliced ranks: no multi-GPU figure"
+MESH_DEV = f"{DEV}:0"   # every rank of a world on the one card
+
+
+def shard_args(args, rows: slice, kern):
+    """Launch arguments of rows ``rows`` of a square launch against all of
+    its columns, as the det-sharded forward builds them: the rows' fields
+    and a, the tile flags of those rows, every column."""
+    geom = args[0]
+    row = geom.row[:, :, rows].contiguous()
+    if kern is k1:
+        flags = k1.tile_activity(row, geom.col)
+        geom = geom._replace(row=row, flags=flags.contiguous(),
+                             i_feats=geom.i_feats[:, rows].contiguous())
+    else:
+        flags = k1.tile_activity(row, geom.col, valid_field=k5._VALID)
+        geom = geom._replace(row=row, flags=flags.contiguous())
+    return (geom, args[1][:, rows].contiguous(), *args[2:6])
+
+
+def shard_gate(label: str, kern, args, dm, dtype, n_det: int
+               ) -> tuple[float, float]:
+    """Each of ``n_det`` row shards launched against every column, in one
+    process: the joined m bit-equal to the square launch's (bf16 within
+    the phase 3 gate where not), the joined d_a' bit-equal, the sum over
+    shards of d_b' and of the weight gradients within the weight-gradient
+    gate; each shard against its own plain version -> the worst errors
+    of the forward and the backward against their plain versions."""
+    fname, bname = LABELS[kern]
+    dt = dt_args(dtype)
+    n = args[1].shape[1]
+    rows_per = n // n_det
+    m_sq = kern.launch_kernel(*args, *dt)
+    g_sq = kern.launch_backward_kernel(*args, m_sq, dm, *dt)
+    ms, grads, pairs, shards = [], [], [], []
+    fwd_err = bwd_err = 0.0
+    for r in range(n_det):
+        rows = slice(r * rows_per, (r + 1) * rows_per)
+        sa = shard_args(args, rows, kern)
+        m = kern.launch_kernel(*sa, *dt)
+        grads.append(kern.launch_backward_kernel(
+            *sa, m_sq[:, rows].contiguous(), dm[:, rows].contiguous(), *dt))
+        want = kern._reference_core(*sa, *dt)
+        torch.cuda.synchronize()
+        err = (m - want).abs().max().item()
+        if not within(m, want, dtype):
+            raise AssertionError(f"{fname} shard {r}/{n_det} disagrees with "
+                                 f"its plain version: {label} {dtype} {err}")
+        fwd_err = max(fwd_err, err)
+        bwd_err = max(bwd_err, check_backward(
+            f"{label} shard {r}/{n_det}", dtype, sa,
+            dm[:, rows].contiguous(), kern))
+        ms.append(m)
+        pairs.append(pair_counts(sa[0])[0])
+        shards.append((sa, m_sq[:, rows].contiguous(),
+                       dm[:, rows].contiguous()))
+    splits = launch._splits(sa[0], m_sq.device, whole_matrix=True)
+    own = launch._splits(sa[0], m_sq.device)
+    m_equal = torch.equal(torch.cat(ms, 1), m_sq)
+    da = torch.cat([g[0] for g in grads], 1)
+    da_equal = torch.equal(da, g_sq[0])
+    da_err = (da - g_sq[0]).abs().max().item()
+    sums = {}
+    for i, name in enumerate(("d_b'", "dWg", "dW2", "db2"), start=1):
+        total = torch.stack([g[i] for g in grads]).sum(0)
+        sums[name] = (total - g_sq[i]).abs().max().item() / max(
+            g_sq[i].abs().max().item(), 1e-30)
+    m_err = (torch.cat(ms, 1) - m_sq).abs().max().item()
+    log(f"  (a) {label} {dtype} n_det={n_det} (NR={rows_per} NC={n}): "
+        f"{fname} m of the shards joined == square launch: {m_equal} "
+        f"(max |diff| {m_err:.2e}); {bname} d_a' joined == square: "
+        f"{da_equal} (max |diff| {da_err:.2e}; {bname} splits {splits}, "
+        f"the whole matrix's; {fname} {own}, a shard's own row tiles'); "
+        f"sum over shards "
+        f"against square, of its largest "
+        f"entry: " + ", ".join(f"{k} {v:.2e}" for k, v in sums.items())
+        + f" (gate {WEIGHT_GRAD_REL})")
+    times = shard_times(kern, [(args, m_sq, dm), *shards], dt, splits)
+    for r, (sa, m, dm_r) in enumerate(shards, start=1):
+        fb = k1_bound(sa, dtype)[:2] if kern is k1 else k5_bound(sa, dtype)
+        bb = k2_bound(sa, m, dm_r, dtype, kern=kern)
+        log(f"      shard {r - 1}/{n_det}: {pairs[r - 1]} neighbour pairs; "
+            f"ms/launch (events) {fname} {times[r, 'fwd', 'own']:.4f} at "
+            f"{own} splits (its own row tiles', this rule) / "
+            f"{times[r, 'fwd', 'whole']:.4f} at {splits} (the whole "
+            f"matrix's), bound {fb[0]:.5f} ({fb[1]}); {bname} "
+            f"{times[r, 'bwd', 'own']:.4f} at {own} / "
+            f"{times[r, 'bwd', 'whole']:.4f} at {splits} (this rule), "
+            f"bound {bb[0]:.5f} ({bb[1]})")
+    fwd = [times[r, "fwd", "own"] for r in range(1, n_det + 1)]
+    bwd = [times[r, "bwd", "whole"] for r in range(1, n_det + 1)]
+    log(f"      square launch at {splits} splits: {fname} "
+        f"{times[0, 'fwd', 'own']:.4f}, {bname} "
+        f"{times[0, 'bwd', 'own']:.4f} ms/launch; largest / mean shard: "
+        f"pairs {max(pairs) / (sum(pairs) / n_det):.3f}, {fname} "
+        f"{max(fwd) / (sum(fwd) / n_det):.3f}, {bname} "
+        f"{max(bwd) / (sum(bwd) / n_det):.3f}")
+    if not m_equal and (dtype == "float32" or not within(
+            torch.cat(ms, 1), m_sq, dtype)):
+        raise AssertionError(f"{fname} shards differ from the square launch: "
+                             f"{label} {dtype} n_det={n_det}")
+    if not da_equal or max(sums.values()) > WEIGHT_GRAD_REL:
+        raise AssertionError(f"{bname} shards differ from the square "
+                             f"launch: {label} {dtype} n_det={n_det}: "
+                             f"d_a' equal {da_equal}, {sums}")
+    return fwd_err, bwd_err
+
+
+@contextlib.contextmanager
+def forced_splits(n: int):
+    """Every pair-kernel launch in the block splits its row tiles ``n``
+    ways."""
+    keep = launch._splits
+    launch._splits = lambda geom, device, whole_matrix=False: n
+    try:
+        yield
+    finally:
+        launch._splits = keep
+
+
+def shard_times(kern, launches: list, dt: tuple, whole: int,
+                rounds: int = 4) -> dict:
+    """ms/launch from CUDA events of each (args, m, dm) of ``launches``
+    (the square launch first, then the shards): its forward and backward
+    at the split count of its own row tiles and at ``whole``, the whole
+    matrix's. Each is warmed before it is timed, in turns, their order
+    reversed at each round -> {(index, "fwd" or "bwd", "own" or "whole"):
+    the median over the rounds}."""
+    fns = {}
+    for i, (sa, m, dm) in enumerate(launches):
+        own = launch._splits(sa[0], m.device)
+        for rule, n in (("own", own), ("whole", whole)):
+            fns[i, "fwd", rule] = (n, lambda sa=sa: kern.launch_kernel(
+                *sa, *dt))
+            fns[i, "bwd", rule] = (n, lambda sa=sa, m=m, dm=dm:
+                                   kern.launch_backward_kernel(*sa, m, dm,
+                                                               *dt))
+    runs = {k: [] for k in fns}
+    order = list(fns)
+    for _ in range(rounds):
+        for k in order:
+            n, fn = fns[k]
+            with forced_splits(n):
+                runs[k].append(cuda_time(fn, 10, warmup=2))
+        order.reverse()
+    return {k: float(np.median(v)) for k, v in runs.items()}
+
+
+def phase_shard_gate() -> dict:
+    """Phase 18 (a): the det shards' launches in one process, no
+    collectives -> the worst error of each kernel against its plain
+    version."""
+    log("phase 18 (a): the shard gate -- each det shard's rows against "
+        "every column, K1/K2 at the 16-block flagship's bench batch (B=8 "
+        "N=1024), K5/K6 at config 4's batch (B=2 N=4096)")
+    bench = seeded_model(load_config(experiment_path("serving_bucketed")))
+    _, bwd1 = capture_pair(k1, bench, *sorted_bench_batch(8, 1024))
+    _, bwd5 = k5_shape_args()[K5_SHAPES[1]]
+    worst = {}
+    for kern, bwd, name, fwd_name, bwd_name in (
+            (k1, bwd1, "bench", "pair_pool2_fwd", "pair_pool2_bwd"),
+            (k5, bwd5, "config 4", "pair_pool_fwd", "pair_pool_bwd")):
+        b, n, _ = bwd[1].shape
+        label = f"{name} B={b} N={n}"
+        for n_det in MESH_DETS:
+            for dtype in ("float32", "bfloat16"):
+                errs = shard_gate(label, kern, bwd[:6], bwd[7], dtype,
+                                  n_det)
+                for name, err in zip((fwd_name, bwd_name), errs):
+                    worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
+def mesh_ov(cfg, n_data: int, n_det: int, **train) -> dict:
+    """``cfg`` as overrides, on an (n_data x n_det) mesh."""
+    ov = config_to_dict(cfg)
+    ov["parallel"] = {"enable": "on", "data_axis": n_data,
+                      "det_axis": n_det}
+    ov["train"] = {**ov["train"], **train}
+    return ov
+
+
+def rank_launches(world, legs_: tuple) -> dict:
+    """The launches of ``legs_`` summed over the ranks, by record name."""
+    names = {"K1": "pair_pool2_fwd", "K2": "pair_pool2_bwd",
+             "K3": "greedy_scan_batched", "K5": "pair_pool_fwd",
+             "K6": "pair_pool_bwd"}
+    out = {n: 0 for n in names.values()}
+    for rank in world:
+        for leg in legs_:
+            for k, v in rank[leg]["launches"].items():
+                out[names[k]] += v
+    return out
+
+
+def check_rank_launches(world, leg: str, per_rank: dict) -> None:
+    for r, rank in enumerate(world):
+        got = {k: v for k, v in rank[leg]["launches"].items() if v}
+        if got != per_rank:
+            raise AssertionError(f"{leg}: rank {r} launched {got}, "
+                                 f"expected {per_rank}")
+
+
+def local_grads(cfg, arrays: dict, n_data: int = 1) -> dict:
+    """One device's gradient of the loss on ``arrays`` (numpy by name):
+    the mean of the gradients of its ``n_data`` equal parts, each a
+    batch of its own, which is the batch's gradient (the loss is a mean
+    over images) summed at the batch composition a data rank has."""
+    model = training.build_model(cfg, "kernel", DEV)
+    model.load_state_dict(as_state_dict(init_params(cfg.model, seed=0)))
+    rows = len(arrays["boxes"]) // n_data
+    for d in range(n_data):
+        loss, _ = training.loss_and_metrics(model, {
+            k: torch.from_numpy(np.ascontiguousarray(
+                v[d * rows:(d + 1) * rows])).to(DEV)
+            for k, v in arrays.items()}, cfg)
+        loss.backward()
+    return {k: p.grad.cpu().numpy() / n_data
+            for k, p in model.named_parameters()}
+
+
+def grad_ratio(got: dict, want: dict) -> float:
+    """The worst |got - want| / (5e-6 + 5e-4 |want|): at most 1 is within
+    rtol 5e-4, atol 5e-6."""
+    return max(float(np.max(np.abs(got[k] - want[k])
+                            / (5e-6 + 5e-4 * np.abs(want[k]))))
+               for k in want)
+
+
+def check_grads(label: str, cfg, arrays: dict, got: dict,
+                n_data: int) -> None:
+    """Step 0's raw closed grads of a mesh against one device's, rtol 5e-4
+    and atol 5e-6, the one device summing each data rank's images as a
+    batch of its own; against the whole batch at once for information
+    (ROADMAP §3 (d): an f32 sum at another batch composition)."""
+    want = local_grads(cfg, arrays, n_data)
+    whole = grad_ratio(got, local_grads(cfg, arrays)) if n_data > 1 \
+        else None
+    log(f"  (b) {label}: raw closed grads against one device, {len(want)} "
+        f"tensors: worst |diff| / (5e-6 + 5e-4 |want|) = "
+        f"{grad_ratio(got, want):.3f} (<= 1 passes; the device summing "
+        f"each data rank's {len(arrays['boxes']) // n_data} images as a "
+        f"batch)" + ("" if whole is None else
+                     f"; against the batch of {len(arrays['boxes'])} at "
+                     f"once, for information: {whole:.3f}"))
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=5e-4, atol=5e-6,
+                                   err_msg=f"{label} {k}")
+
+
+def check_replicated(label: str, world, leg: str) -> None:
+    first = world[0][leg]["result"][0]
+    same = all(np.array_equal(rank[leg]["result"][0][k], first[k])
+               for rank in world[1:] for k in first)
+    log(f"  (b) {label}: parameters bit-identical on every rank after the "
+        f"steps: {same}; steps {[r[leg]['result'][1] for r in world]}")
+    if not same:
+        raise AssertionError(f"{label}: ranks disagree after the steps")
+
+
+def phase_mesh_worlds(tmp: Path) -> dict:
+    """Phase 18 (b): worlds of gloo ranks sharing the card, through the
+    port's entry points at full width -> the main paths' launches summed
+    over the ranks."""
+    from gossipnet_tpu_torch.parallel import legs
+    from gossipnet_tpu_torch.parallel.world import run_world
+
+    log(f"phase 18 (b): worlds of gloo ranks, every rank on {MESH_DEV} (" +
+        MESH_CARD + ")")
+    images = bench_images()
+    serve = {dt: load_config(experiment_path("serving_bucketed"),
+                             {"model": {"pair_matmul_dtype": dt}})
+             for dt in ("bfloat16", "float32")}
+    params = flatten_paths(init_params(serve["float32"].model, seed=0))
+    cfg2 = load_config(experiment_path("coco_persons_full"),
+                       {"data": {"dataset": "synthetic"}})
+    cfg2_f32 = dataclasses.replace(cfg2, model=dataclasses.replace(
+        cfg2.model, pair_matmul_dtype="float32"))
+    cfg4 = crowd_config()
+    cfg4_f32 = dataclasses.replace(cfg4, model=dataclasses.replace(
+        cfg4.model, pair_matmul_dtype="float32"))
+    batch2 = train_batches(TRAIN_DATA, 8, cfg2, 1)[0]
+    batch4 = train_batches(CROWD_DATA, 2, cfg4, 1)[0]
+    eval_roidb = evaluate.load_roidb(cfg2)
+    eval_images = [(r.det_boxes, r.det_scores, None) for r in eval_roidb]
+    bench_arrays = dict(zip(("boxes", "scores", "valid", "classes"),
+                            packed_layout(8, 1024)))
+
+    # the TCP server warms up every (batch, bucket) it can reach: the
+    # bench images' bucket alone
+    tcp_ov = mesh_ov(serve["float32"], 2, 2)
+    tcp_ov["data"]["bucket_sizes"] = [1024]
+
+    def rescore_legs(shapes):
+        return [(f"rescore_{dt}_{d}x{t}", legs.rescore, dict(
+            overrides=mesh_ov(serve[dt], d, t), params=params,
+            images=images)) for dt in serve for d, t in shapes]
+
+    def train_leg(name, cfg, d, t, data):
+        return (name, legs.train_run, dict(
+            overrides=mesh_ov(cfg, d, t, max_steps=3, log_every=1,
+                              snapshot_every=0, eval_every=0,
+                              checkpoint_dir=str(tmp / name)),
+            data=data, metrics=True))
+
+    def grads_leg(name, cfg, d, t, arrays):
+        return (name, legs.grads, dict(
+            overrides=config_to_dict(cfg), params=flatten_paths(
+                init_params(cfg.model, seed=0)), arrays=arrays,
+            shape=(d, t)))
+
+    def ms_leg(name, d, t):
+        return (name, legs.forward_ms, dict(
+            overrides=config_to_dict(serve["bfloat16"]), params=params,
+            arrays=bench_arrays, shape=(d, t)))
+
+    plans = {
+        2: [*rescore_legs([(1, 2), (2, 1)]),
+            train_leg("train2_2x1", cfg2, 2, 1, TRAIN_DATA),
+            grads_leg("grads2_2x1", cfg2_f32, 2, 1, batch2),
+            train_leg("train4_1x2", cfg4, 1, 2, CROWD_DATA),
+            grads_leg("grads4_1x2", cfg4_f32, 1, 2, batch4),
+            ms_leg("ms_1x2", 1, 2), ms_leg("ms_2x1", 2, 1)],
+        4: [*rescore_legs([(2, 2), (1, 4)]),
+            train_leg("train2_2x2", cfg2, 2, 2, TRAIN_DATA),
+            grads_leg("grads2_2x2", cfg2_f32, 2, 2, batch2),
+            ("eval_2x2", legs.evaluate, dict(
+                overrides=config_to_dict(cfg2), params=flatten_paths(
+                    init_params(cfg2.model, seed=0)),
+                data=dict(num_images=64, seed=123), shape=(2, 2),
+                batch_size=cfg2.train.batch_size)),
+            ("rescore_eval_2x2", legs.rescore, dict(
+                overrides=mesh_ov(cfg2, 2, 2), params=flatten_paths(
+                    init_params(cfg2.model, seed=0)), images=eval_images,
+                batch_size=cfg2.train.batch_size)),
+            ("tcp_2x2", legs.tcp, dict(
+                overrides=tcp_ov, params=params,
+                images=[im[:2] for im in images])),
+            ms_leg("ms_2x2", 2, 2), ms_leg("ms_1x4", 1, 4)],
+    }
+    worlds = {}
+    for size, plan in plans.items():
+        t0 = time.perf_counter()
+        worlds[size] = run_world(legs.run_legs, size, "gloo", MESH_DEV,
+                                 timeout_s=600, args=(plan,))
+        log(f"  (b) a world of {size} ranks on {MESH_DEV}: {len(plan)} "
+            f"legs in {time.perf_counter() - t0:.1f} s")
+
+    # the Rescorer on each mesh shape against one device, same padded batch
+    for dt, cfg in serve.items():
+        want = Rescorer(cfg, params, device=DEV, mesh=None) \
+            .rescore_batch(images)
+        for size, shapes in ((2, [(1, 2), (2, 1)]), (4, [(2, 2), (1, 4)])):
+            for d, t in shapes:
+                leg = f"rescore_{dt}_{d}x{t}"
+                (got,) = worlds[size][0][leg]["result"]
+                err = max(float(np.abs(g - w).max())
+                          for g, w in zip(got, want))
+                check_rank_launches(worlds[size], leg,
+                                    {"K1": cfg.model.num_blocks})
+                log(f"  (b) Rescorer on ({d}x{t}), {dt}, bench batch: max "
+                    f"|diff| against one device {err:.2e} (tol "
+                    f"{MESH_TOL[dt]}); {cfg.model.num_blocks} K1 launches "
+                    f"per rank at NR={1024 // t}")
+                if err > MESH_TOL[dt]:
+                    raise AssertionError(f"mesh Rescorer ({d}x{t}) {dt}: "
+                                         f"{err}")
+    # training: launches per rank and step, replicas, step 0's gradients
+    for size, leg, cfg, batch, fb, n_data in (
+            (2, "train2_2x1", cfg2_f32, batch2, ("K1", "K2"), 2),
+            (4, "train2_2x2", cfg2_f32, batch2, ("K1", "K2"), 2),
+            (2, "train4_1x2", cfg4_f32, batch4, ("K5", "K6"), 1)):
+        blocks = cfg.model.num_blocks
+        check_rank_launches(worlds[size], leg, {fb[0]: 3 * blocks,
+                                                fb[1]: 3 * blocks, "K3": 3})
+        check_replicated(leg, worlds[size], leg)
+        losses = worlds[size][0][leg]["result"][2]
+        if len(losses) != 3 or not np.isfinite(losses).all():
+            raise AssertionError(f"{leg}: losses {losses}")
+        grads_name = leg.replace("train", "grads")
+        check_grads(grads_name, cfg, batch,
+                    worlds[size][0][grads_name]["result"][0], n_data)
+        log(f"  (b) {leg}: 3 steps, losses "
+            f"{' '.join(f'{x:.4f}' for x in losses)}, {blocks} {fb[0]} + "
+            f"{blocks} {fb[1]} + 1 K3 per rank and step")
+    # the evaluation's scores against the mesh Rescorer's
+    ev = worlds[4][0]["eval_2x2"]["result"]
+    (served,) = worlds[4][0]["rescore_eval_2x2"]["result"]
+    err = max(float(np.abs(ev["scores"][r.image_id] - s).max())
+              for r, s in zip(eval_roidb, served))
+    log(f"  (b) evaluation on (2x2), {len(eval_roidb)} images: AP "
+        f"{ev['stats']['AP']:.4f}; scores against the mesh Rescorer's: max "
+        f"|diff| {err:.2e} (tol 1e-5)")
+    if err > 1e-5 or not math.isfinite(ev["stats"]["AP"]):
+        raise AssertionError("mesh evaluation differs from the mesh Rescorer")
+    # the TCP server on the (2x2) Rescorer, against one device in f32
+    want = Rescorer(serve["float32"], params, device=DEV, mesh=None) \
+        .rescore_batch(images)
+    tcp = worlds[4][0]["tcp_2x2"]["result"]
+    errs = {kind: max(float(np.abs(tcp[kind][i] - want[i]).max())
+                      for i in range(len(images))) for kind in tcp}
+    log(f"  (b) TcpServer on the (2x2) Rescorer, f32: {len(images)} JSON "
+        f"and {len(images)} binary replies; max |diff| against one device "
+        f"{errs} (tol 1e-5)")
+    if max(errs.values()) > 1e-5:
+        raise AssertionError(f"TCP replies on the mesh: {errs}")
+    # for information: the sharded forward per rank against one device
+    model = Rescorer(serve["bfloat16"], params, device=DEV, mesh=None).model
+    arrays = device_arrays(packed_layout(8, 1024))
+    with torch.no_grad():   # as the sharded inference runs
+        eager = host_ms(lambda: model(*arrays[:3]), 5)
+    for size, shapes in ((2, ("1x2", "2x1")), (4, ("2x2", "1x4"))):
+        for s in shapes:
+            per_rank = [round(rank[f"ms_{s}"]["result"], 3)
+                        for rank in worlds[size]]
+            log(f"  (c) sharded forward on ({s}), bench batch, bf16: "
+                f"{per_rank} ms per rank (host, synchronized; "
+                f"{MESH_CARD}); one device, eager: {eager:.3f} ms")
+    main_legs = {2: [leg for leg, _, _ in plans[2]
+                     if leg.startswith(("rescore", "train"))],
+                 4: [leg for leg, _, _ in plans[4]
+                     if leg.startswith(("rescore", "train", "eval", "tcp"))]}
+    total = {}
+    for size, names in main_legs.items():
+        for k, v in rank_launches(worlds[size], names).items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_mesh(card: str) -> tuple[dict, dict]:
+    """Phase 18 -> (the main paths' launches summed over the ranks, the
+    shard gate's worst errors)."""
+    from gossipnet_tpu_torch.tools import entry as entry_tool
+
+    t0 = time.perf_counter()
+    worst = phase_shard_gate()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = phase_mesh_worlds(Path(tmp))
+    log("phase 18 (b): dryrun_multichip(4), every rank on cuda:0")
+    entry_tool.dryrun_multichip(4, DEV)
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s ({MESH_CARD}); "
+        f"main-path launches over the ranks {launches}; {card}")
+    return launches, worst
+
+
 def phase_build(names=KERNELS):
     log(f"phase 2: build {', '.join(names)} from ops/cuda/csrc/, one nvcc "
         f"each, all at once")
@@ -4195,6 +4682,12 @@ def main() -> int:
         phase_precision(card)
         log(card)
         return 0
+    if sys.argv[1:] == ["--mesh"]:
+        # Phase 18 alone: the device mesh; no result line.
+        phase_build(KERNELS[:5])
+        phase_mesh(card)
+        log(card)
+        return 0
     if sys.argv[1:] == ["--k1-stages"]:
         phase_build(KERNELS[:2])
         phase_k1_stages()
@@ -4247,6 +4740,9 @@ def main() -> int:
         phase_precision(card)
     worst.update(precision_worst)
     times.update(precision_times)
+    mesh_launches, mesh_worst = phase_mesh(card)
+    for name, err in mesh_worst.items():
+        worst[name] = max(worst[name], err)
     log(f"launches on the main paths: serving K1 {serve_launches} "
         f"(phases 4 and 14); "
         f"training {launches}; config 4 training {crowd_launches}; the "
@@ -4256,7 +4752,10 @@ def main() -> int:
                 "pair_ablate": ablate_launches}
     log(f"launches of the measuring tools (phase 16): {tool_launches}")
     log(f"launches of phase 17's main paths: {precision_launches}")
+    log(f"launches of phase 18's main paths, over the ranks: "
+        f"{mesh_launches}")
     launches = {name: n + tool_launches[name] + precision_launches[name]
+                + mesh_launches.get(name, 0)
                 for name, n in launches.items()}
 
     log(card)

@@ -14,6 +14,12 @@ of this package wrote. On
 CUDA the default pool path is the pair kernel of ``model.pair_kernel`` (K1
 or K5); there is no CPU fallback —
 ``device="cpu"`` must be asked for.
+
+With a mesh (``cfg.parallel``, or ``mesh=`` a ``parallel.world.Mesh``),
+each batch runs the sharded forward over the ('data', 'det') mesh. Every
+rank of the world holds a Rescorer; the main rank (rank 0) serves, and
+the others call :meth:`Rescorer.follow`, which runs each batch the main
+rank broadcasts until :meth:`Rescorer.close`.
 """
 
 from __future__ import annotations
@@ -29,6 +35,10 @@ from gossipnet_tpu_torch.config import Config
 from gossipnet_tpu_torch.data.bucketing import bucket_for
 from gossipnet_tpu_torch.models.gossipnet import resolve_device
 from gossipnet_tpu_torch.params import as_state_dict
+from gossipnet_tpu_torch.parallel.sharding import (
+    make_sharded_inference,
+    mesh_from_config,
+)
 from gossipnet_tpu_torch.utils.cuda_graphs import forward_graphs
 
 
@@ -80,8 +90,13 @@ class _HostCopy:
         return self._host.numpy()
 
 
+# what the main rank of a mesh broadcasts before each exchange
+_STOP, _FORWARD, _RELOAD = 0, 1, 2
+_PACKED = 7   # x1 y1 x2 y2, score, valid, class id (exact in float32)
+
+
 class Rescorer:
-    """Bucketed detection rescorer on one device.
+    """Bucketed detection rescorer on one device or a device mesh.
 
     A batch dispatches at its padded shape (``_pad_batch``: the next power
     of two, as the reference pads), and on the card each (padded batch,
@@ -89,22 +104,40 @@ class Rescorer:
     (``utils/cuda_graphs.py::ForwardGraphs``, kept on the model), as the
     reference compiles one executable per shape; :meth:`warmup` captures
     the whole set.
+
+    ``mesh``: ``"config"`` (default) builds what ``cfg.parallel`` asks
+    for (``parallel.sharding.mesh_from_config``), None forces one device.
+    On a mesh a batch runs the sharded forward eagerly, whatever
+    ``pool_impl`` says (a gloo collective cannot be captured), with its
+    rows padded to a multiple of the data axis. So ``enable: "on"`` at
+    1 x 1 trades the captured graphs for eager steps; in a process that
+    belongs to no world it also makes one, a ``torch.distributed`` default
+    group of one rank that stays for the life of the process.
     """
 
     def __init__(self, cfg: Config, params, pool_impl: str | None = None,
-                 device="cuda"):
+                 device="cuda", mesh="config"):
         from gossipnet_tpu_torch.train import build_model
 
         self.cfg = cfg
         self.device = resolve_device(device)
+        if mesh == "config":
+            mesh = mesh_from_config(cfg, self.device, for_training=False)
+        self.mesh = mesh
         if pool_impl is None:
             pool_impl = "kernel" if self.device.type == "cuda" else "dense"
         self.model = build_model(cfg, pool_impl, self.device).eval()
-        self._graphs = forward_graphs(self.model)
+        if mesh is None:
+            self._graphs = forward_graphs(self.model)
+        else:
+            self._sharded = make_sharded_inference(mesh)
+            self._closed = False
         # held while a batch's forward is enqueued and while reload copies:
         # a batch never runs on a mix of old and new weights
         self._lock = threading.Lock()
         self._load(params)
+        if mesh is not None:   # every rank serves the main rank's weights
+            self._sync_state()
 
     # --- constructors ---
     @staticmethod
@@ -144,8 +177,13 @@ class Rescorer:
         """The padded batch a b-image group dispatches at: the next power
         of two, so the set of captured shapes stays (log2(batch_size) + 1)
         x buckets (``gossipnet_tpu/api.py:164``). Overridden by
-        ``ArtifactRescorer``, whose shape set is fixed at export time."""
-        return 1 << max(b - 1, 0).bit_length()
+        ``ArtifactRescorer``, whose shape set is fixed at export time. On a
+        mesh the rows also tile the data axis (``api.py:164-173``)."""
+        b_pad = 1 << max(b - 1, 0).bit_length()
+        if self.mesh is not None:
+            n_data = self.mesh.shape["data"]
+            b_pad = -(-b_pad // n_data) * n_data
+        return b_pad
 
     def _dispatch(self, boxes_a, scores_a, valid_a, classes_a):
         """Enqueue one padded batch on the device; returns (a
@@ -166,8 +204,69 @@ class Rescorer:
             valid_a = np.pad(valid_a, pad + ((0, 0),))
             classes_a = np.pad(classes_a, pad + ((0, 0),))
         with self._lock:
+            if self.mesh is not None:
+                return _HostCopy(self._mesh_dispatch(
+                    boxes_a, scores_a, valid_a, classes_a)), b
             return _HostCopy(self._graphs(boxes_a, scores_a, valid_a,
                                           classes_a)), b
+
+    # --- the mesh: the main rank leads, the others follow ---
+    def _header(self, op: int = 0, b: int = 0, n: int = 0) -> tuple:
+        """(op, b, n) from the main rank to every rank. A follower waits
+        here between requests, on the mesh's idle group, whose timeout an
+        idle server does not reach (``Mesh.announce``); the arrays and the
+        forward that follow keep the world's."""
+        return self.mesh.announce(op, b, n)
+
+    def _mesh_dispatch(self, boxes_a, scores_a, valid_a, classes_a):
+        """The main rank's batch: the header, the packed arrays, then the
+        sharded forward that every rank runs with it."""
+        if self._closed:
+            raise RuntimeError("this mesh Rescorer is closed")
+        b, n = scores_a.shape
+        self._header(_FORWARD, b, n)
+        packed = np.concatenate(
+            [boxes_a, scores_a[..., None], valid_a[..., None],
+             classes_a[..., None]], axis=-1).astype(np.float32)
+        return self._mesh_forward(torch.from_numpy(packed).to(self.device))
+
+    def _mesh_forward(self, packed: torch.Tensor) -> torch.Tensor:
+        packed = self.mesh.broadcast_(packed)
+        return self._sharded(self.model, {
+            "boxes": packed[..., :4], "scores": packed[..., 4],
+            "valid": packed[..., 5] > 0, "classes": packed[..., 6].int()})
+
+    def follow(self) -> None:
+        """A rank other than the main one: run every batch and reload the
+        main rank broadcasts, until it calls :meth:`close`."""
+        if self.mesh is None or self.mesh.is_main:
+            raise RuntimeError("follow() is for the other ranks of a mesh")
+        while True:
+            op, b, n = self._header()
+            if op == _STOP:
+                return
+            if op == _RELOAD:
+                self._sync_state()
+                continue
+            self._mesh_forward(torch.empty((b, n, _PACKED),
+                                           dtype=torch.float32,
+                                           device=self.device))
+
+    def close(self) -> None:
+        """The main rank of a mesh: release the followers (their
+        :meth:`follow` returns). Nothing to do on one device."""
+        if self.mesh is None or not self.mesh.is_main:
+            return
+        with self._lock:
+            if not self._closed:
+                self._header(_STOP)
+                self._closed = True
+
+    def _sync_state(self) -> None:
+        """Every rank's weights from the main rank's, in place."""
+        with torch.no_grad():
+            for t in self.model.state_dict().values():
+                self.mesh.broadcast_(t)
 
     def _run(self, boxes_a, scores_a, valid_a, classes_a) -> np.ndarray:
         """Dispatch one padded batch and block for the result."""
@@ -186,18 +285,20 @@ class Rescorer:
         enqueued and no batch runs on a mix of old and new weights. It is
         ordered on the device's stream after every batch already
         dispatched, so those finish on the old weights, and every later
-        dispatch uses the new ones.
+        dispatch uses the new ones. On a mesh, call it on the main rank:
+        the new weights reach every rank.
         """
         if (params is None) == (checkpoint_dir is None):
             raise ValueError("pass exactly one of params / checkpoint_dir")
         if checkpoint_dir is not None:
             params = self.load_checkpoint_params(self.cfg, checkpoint_dir,
                                                  best=best)
-        self._load(params)
+        self._load(params, reload=True)
 
-    def _load(self, params) -> None:
+    def _load(self, params, reload: bool = False) -> None:
         """Copy ``params`` into the live model under the dispatch lock,
-        after checking that every name and shape matches."""
+        after checking that every name and shape matches; a ``reload`` on
+        a mesh's main rank sends them to the other ranks."""
         sd = as_state_dict(params)
         want = self.model.state_dict()
         got_shapes = {k: tuple(v.shape) for k, v in sd.items()}
@@ -212,6 +313,12 @@ class Rescorer:
                 f"{missing[:5]}, unexpected {extra[:5]}, shape {bad[:5]}")
         with self._lock, torch.no_grad():
             self.model.load_state_dict(sd)
+            if reload and self.mesh is not None:
+                if not self.mesh.is_main:
+                    raise RuntimeError("reload a mesh Rescorer on its main "
+                                       "rank: the others follow it")
+                self._header(_RELOAD)   # the followers load it too
+                self._sync_state()
 
     def warmup(self, batch_size: int = 8) -> None:
         """Dispatch every (batch, bucket) shape reachable for requests

@@ -21,8 +21,9 @@ module-level cache, and read its parameters as they stand, so a training
 run's periodic evaluation sees the weights its steps update in place.
 ``forward_fn`` is the hook for another forward: ``--artifact`` evaluates
 a serving artifact through ``ArtifactRescorer.forward`` at its exported
-batch sizes. Not ported yet and refused by the CLI: evaluation over a
-device mesh (``parallel.enable: "on"``, ROADMAP.md item 14).
+batch sizes, and :func:`sharded_forward_fn` runs the forward over a device
+mesh (``parallel.enable: "on"``; the CLI under ``torchrun`` or in a world
+of one), every rank evaluating the same batches.
 """
 
 from __future__ import annotations
@@ -52,6 +53,34 @@ def _local_forward(params, model: GossipNet):
 
     def forward(boxes, scores, valid, classes):
         return graphs(boxes, scores, valid, classes).cpu().numpy()
+
+    return forward
+
+
+def sharded_forward_fn(mesh, model: GossipNet):
+    """(boxes, scores, valid, classes) numpy -> sigmoid scores numpy over
+    the mesh (``parallel.sharding.make_sharded_inference``) with
+    ``model``'s parameters as they stand: the ``forward_fn`` of
+    :func:`rescore_roidb` for the eval CLI and a training run's periodic
+    evaluation on a mesh (``gossipnet_tpu/evaluate.py:27-60``). Every rank
+    of the mesh calls it on the same batches; the batch size must tile the
+    data axis (evaluation batches are full)."""
+    import torch
+
+    from gossipnet_tpu_torch.parallel.sharding import make_sharded_inference
+
+    fn = make_sharded_inference(mesh)
+
+    def forward(boxes, scores, valid, classes):
+        n_data = mesh.shape["data"]
+        if boxes.shape[0] % n_data:
+            raise ValueError(
+                f"eval batch size {boxes.shape[0]} does not tile the "
+                f"mesh data axis ({n_data})")
+        arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(mesh.device)
+                  for k, v in (("boxes", boxes), ("scores", scores),
+                               ("valid", valid), ("classes", classes))}
+        return fn(model, arrays).cpu().numpy()
 
     return forward
 
@@ -215,6 +244,8 @@ def main(argv=None) -> dict:
     import argparse
 
     from gossipnet_tpu_torch.config import load_config
+    from gossipnet_tpu_torch.parallel.sharding import mesh_from_config
+    from gossipnet_tpu_torch.parallel.world import is_main, world_from_env
 
     p = argparse.ArgumentParser(
         description="Evaluate GossipNet rescoring (PyTorch/CUDA)")
@@ -251,10 +282,7 @@ def main(argv=None) -> dict:
         cfg = load_config(args.config)
     else:
         cfg = artifact.cfg
-    if cfg.parallel.enable == "on":
-        raise SystemExit("evaluation over a device mesh (parallel.enable: "
-                         "'on') is not ported yet: ROADMAP.md item 14")
-    device = resolve_device(args.device)
+    device = resolve_device(world_from_env(args.device))
     roidb = load_roidb(cfg)
 
     batch_size = cfg.train.batch_size
@@ -274,6 +302,11 @@ def main(argv=None) -> dict:
               f"({len(artifact.meta['shapes'])} shapes)")
     else:
         model = _restore_model(args, cfg, device)
+        mesh = mesh_from_config(cfg, device, for_training=False)
+        if mesh is not None:
+            fwd = sharded_forward_fn(mesh, model)
+            if mesh.is_main:
+                print(f"evaluating on mesh {mesh.shape}")
     out = {
         "gossipnet": evaluate_model(
             None, model, roidb,
@@ -287,7 +320,8 @@ def main(argv=None) -> dict:
     best = max(evaluate_greedy_nms_sweep(roidb, [float(t) for t in thrs]),
                key=lambda ts: ts[1]["AP"])
     out["greedy_nms"] = {"iou_threshold": best[0], **best[1]}
-    print(json.dumps(out, indent=2))
+    if is_main():
+        print(json.dumps(out, indent=2))
     return out
 
 

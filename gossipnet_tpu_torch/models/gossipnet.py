@@ -148,11 +148,13 @@ class GossipBlock(nn.Module):
         return PairParams(self.pair_wa, self.pair_wb, self.pair_wg,
                           self.pair_b1, self.pair_w2, self.pair_b2)
 
-    def forward(self, c: Tensor, pool_fn) -> Tensor:
+    def forward(self, c: Tensor, pool_fn, gather=None) -> Tensor:
+        """``gather`` joins this rank's rows of r into every detection's
+        (a det-sharded forward; None: c holds every row)."""
         r = torch.relu(self.reduce(c))
         prm = self.pair_params()
         a = r @ prm.wa + prm.b1
-        b = r @ prm.wb
+        b = (r if gather is None else gather(r)) @ prm.wb
         e = pool_fn(prm, a, b)
         for name in self.expand_names:
             e = torch.relu(getattr(self, name)(e))
@@ -195,20 +197,24 @@ class GossipNet(nn.Module):
             GossipBlock(cfg, num_g, device) for _ in range(cfg.num_blocks))
         self.head = _linear(cfg.feature_dim, 1, device)
 
-    def _pool_fn(self, cols: pf.DetColumns, classes: Tensor | None):
-        """The pair stage of every block on these detections."""
+    def _pool_fn(self, cols: pf.DetColumns, classes: Tensor | None,
+                 pool_impl: str, own):
+        """The pair stage of every block: the rows ``own`` keeps of these
+        detections against all of them."""
         cfg = self.cfg
-        if self.pool_impl == "dense":
+        if pool_impl == "dense":
             g, mask = pf.dense_pair_tensor(cols, cfg.neighbor_iou, classes)
 
             def pool_fn(prm: PairParams, a, b):
                 return pair_pool_dense(a, b, prm.wg, prm.w2, prm.b2, g, mask)
             return pool_fn
-        stacked = pf.stack_columns(cols)
+        col = pf.stack_columns(cols)
+        row = own(col, 2).contiguous()
         kernel, build = ((pairwise2, pairwise2.pair_geometry)
                          if cfg.pair_kernel == 2
                          else (pairwise, pairwise.pair_columns))
-        geom = build(stacked, stacked, cfg.neighbor_iou, classes,
+        geom = build(row, col, cfg.neighbor_iou,
+                     None if classes is None else own(classes), classes,
                      block_sparse=cfg.block_sparse)
 
         # the bf16 stream is K1/K2's alone: K5/K6 ignore it, as v1 does
@@ -217,13 +223,21 @@ class GossipNet(nn.Module):
 
         def pool_fn(prm: PairParams, a, b):
             return kernel.pair_pool(
-                stacked, stacked, a, b, prm, cfg.neighbor_iou,
+                row, col, a, b, prm, cfg.neighbor_iou,
                 compute_dtype=cfg.pair_matmul_dtype,
                 block_sparse=cfg.block_sparse, geometry=geom, **kw)
         return pool_fn
 
     def forward(self, boxes: Tensor, scores: Tensor, valid: Tensor,
-                classes: Tensor | None = None) -> Tensor:
+                classes: Tensor | None = None, *, mesh=None) -> Tensor:
+        """``mesh`` (a ``parallel.world.Mesh``) shards the pair stage's
+        rows over its 'det' axis: this rank keeps NR = N / n_det rows of
+        every per-detection tensor and pools them against all N
+        detections through the pair kernel, whatever ``pool_impl`` says;
+        each block gathers r, and the logits are gathered at the end, so
+        every det rank returns the same [B, N] (``parallel/spmd.py``).
+        The inputs are then the same on every det rank. At one shard, or
+        with no mesh, nothing is sliced or gathered."""
         cfg = self.cfg
         if self.multiclass and classes is None:
             raise ValueError("multi-class model requires `classes`")
@@ -232,9 +246,24 @@ class GossipNet(nn.Module):
         scores = scores.to(dtype)
         valid = valid.bool()
         classes = classes if self.multiclass else None
+        pool_impl = self.pool_impl if mesh is None else "kernel"
+        shards = 1 if mesh is None else mesh.shape["det"]
+        n = scores.shape[-1]
+        if n % shards:
+            raise ValueError(f"{n} detections do not split over {shards} "
+                             "det shards")
+        rows = n // shards
+        start = 0 if mesh is None else mesh.det_rank * rows
 
+        def own(x: Tensor, dim: int = 1) -> Tensor:
+            return x if shards == 1 else x.narrow(dim, start, rows)
+
+        gather = None if shards == 1 else mesh.gather_rows
+
+        # a mesh sorts the replicated inputs: every rank finds the same
+        # permutation, so the row slices agree
         inv_perm = None
-        if self.pool_impl == "kernel" and cfg.sort_detections:
+        if pool_impl == "kernel" and cfg.sort_detections:
             key = ordering.morton_sort_key(boxes, valid)
             perm = torch.argsort(key, dim=-1, stable=True)
             inv_perm = torch.argsort(perm, dim=-1)
@@ -245,29 +274,35 @@ class GossipNet(nn.Module):
                 classes = torch.gather(classes, -1, perm)
 
         cols = pf.det_columns(boxes, scores, valid)
-        phi = [scores[..., None]]
+        phi = [own(scores)[..., None]]
         if cfg.score_rank_feature:
-            phi.append(ranking.score_rank(scores, valid, classes,
-                                          cfg.num_classes)
+            # the rank runs over every detection, then keeps the own rows
+            phi.append(own(ranking.score_rank(scores, valid, classes,
+                                              cfg.num_classes))
                        .to(dtype)[..., None])
         if classes is not None:
             # flax's Embed(dtype=...) casts the table before the lookup, so
             # its gradient arrives as the bf16 cotangent's sum
             phi.append(torch.nn.functional.embedding(
-                classes.long(), self.class_embed.weight.to(dtype)))
+                own(classes).long(), self.class_embed.weight.to(dtype)))
         # init_fc and everything after it run in float32 (flax promotes a
         # bf16 input against float32 weights)
         c = self.init_fc(torch.cat(phi, dim=-1).float())
 
-        pool_fn = self._pool_fn(cols, classes)
+        pool_fn = self._pool_fn(cols, classes, pool_impl, own)
         for block in self.blocks:
             if self.remat and torch.is_grad_enabled():
-                c = checkpoint(block, c, pool_fn, use_reentrant=False)
+                # the recompute gathers again
+                c = checkpoint(block, c, pool_fn, gather,
+                               use_reentrant=False)
             else:
-                c = block(c, pool_fn)
+                c = block(c, pool_fn, gather)
 
         logits = self.head(c)[..., 0]
-        logits = torch.where(valid, logits, torch.full_like(logits, PAD_LOGIT))
+        logits = torch.where(own(valid), logits,
+                             torch.full_like(logits, PAD_LOGIT))
+        if gather is not None:
+            logits = gather(logits)
         if inv_perm is not None:
             logits = torch.gather(logits, -1, inv_perm)
         return logits

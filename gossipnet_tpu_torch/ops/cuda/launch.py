@@ -162,8 +162,19 @@ def col_splits(blocks: int, nj: int, sms: int) -> int:
     return max(1, min(want, 8 * nj))
 
 
-def _splits(geom, device) -> int:
+def _splits(geom, device, whole_matrix: bool = False) -> int:
+    """:func:`col_splits` for a launch, its blocks counted over its own
+    row tiles, or with ``whole_matrix`` over those of the whole pair
+    matrix, max(NR, NC) rows. The backwards (K2, K6) take the whole
+    matrix's: a row shard of the det-sharded forward (NR = N / n_det
+    against NC = N) then splits as the square launch does, so it adds each
+    row's partial d_a in the same order, and the shards' d_a joined equals
+    the square launch's bit for bit. The forwards (K1, K5) keep their own:
+    their max is order-free, and a shard's fewer row tiles want more
+    splits to fill the card."""
     nb, ni, nj = geom.flags.shape
+    if whole_matrix:
+        ni = -(-max(geom.row.shape[2], geom.col.shape[2]) // TILE_I)
     return col_splits(nb * ni, nj, _sm_count(device.index or 0))
 
 
@@ -203,7 +214,7 @@ def backward_launch(name: str, label: str, entry: str, tiles: str, geom,
     bsz, nr, p = a.shape
     nc, k, ni = b.shape[1], wg.shape[0], geom.flags.shape[1]
     f32 = dict(dtype=torch.float32, device=a.device)
-    s = _splits(geom, a.device)
+    s = _splits(geom, a.device, whole_matrix=True)
     da = torch.empty((bsz, nr, p), **f32)
     db = torch.empty((bsz, nc, p), **f32)
     # scratch: one slice per split, added in order by the kernel's last

@@ -27,6 +27,10 @@ serving artifact, ``utils/model_artifact.py``) or, for smoke tests, from
 weights on SIGHUP without downtime (``Rescorer.reload``) and drains on
 SIGTERM. The model runs on the CUDA device and the CLI raises when there
 is none, unless ``--device cpu`` asks for the plain PyTorch path.
+
+On a device mesh (``parallel.enable: "on"``; under ``torchrun`` NCCL on
+``cuda:LOCAL_RANK``) rank 0 serves every mode over the sharded Rescorer
+and the other ranks follow it (``Rescorer.follow``) until it closes.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from gossipnet_tpu_torch.config import load_config
 from gossipnet_tpu_torch.data.bucketing import bucket_for
 from gossipnet_tpu_torch.models.gossipnet import resolve_device
 from gossipnet_tpu_torch.params import init_params
+from gossipnet_tpu_torch.parallel.world import world_from_env
 
 __all__ = ["TcpServer", "serve_stream", "serve_file", "main"]
 
@@ -93,10 +98,7 @@ def _build(args) -> Rescorer:
         return ArtifactRescorer(args.artifact,
                                 device=resolve_device(args.device))
     cfg = load_config(args.config) if args.config else load_config(None)
-    if cfg.parallel.enable == "on":
-        raise SystemExit("serving over a device mesh (parallel.enable: "
-                         "'on') is not ported yet: ROADMAP.md item 14")
-    device = resolve_device(args.device)
+    device = resolve_device(world_from_env(args.device))
     if args.random_init:
         return Rescorer(cfg, init_params(cfg.model, seed=0), device=device)
     return Rescorer.from_checkpoint(cfg, args.checkpoint_dir, device=device)
@@ -789,6 +791,18 @@ def main(argv=None):
                    help="cuda (default; raises without a card) or cpu")
     args = p.parse_args(argv)
     rescorer = _build(args)
+    mesh = rescorer.mesh
+    if mesh is not None and not mesh.is_main:
+        rescorer.follow()   # rank 0 serves; this rank runs its batches
+        return
+    try:
+        _serve(args, rescorer)
+    finally:
+        rescorer.close()
+
+
+def _serve(args, rescorer: Rescorer) -> None:
+    """The CLI's mode (TCP, file or stdin stream) on ``rescorer``."""
     if args.tcp is not None:
         import signal
 

@@ -20,8 +20,16 @@ runs on the card and raises without one; ``--profile DIR`` writes a
 ``torch.profiler`` trace of steps 10-15. When ``eval_every`` fires with a
 validation set, the COCO AP of the rescored detections
 (``evaluate.evaluate_model``) is logged as ``val_*`` and the best
-checkpoint follows ``val_AP``. Not ported yet, and raising where a run
-reaches it: ``parallel.enable: "on"`` (ROADMAP.md item 14).
+checkpoint follows ``val_AP``.
+
+On a device mesh (``parallel.enable: "on"``, or ``auto`` in a world of
+several CUDA ranks; ``parallel/sharding.py``) each batch is one SPMD step
+of every rank, run eagerly, and ``steps_per_call`` falls back to single
+steps. Every rank restores the checkpoint; rank 0 alone writes
+checkpoints and metrics, and the ranks wait for each write. Under
+``torchrun`` the CLI joins its world (NCCL, ``cuda:LOCAL_RANK``):
+
+    torchrun --nproc-per-node 4 -m gossipnet_tpu_torch.train -c cfg.yaml
 """
 
 from __future__ import annotations
@@ -41,6 +49,10 @@ from gossipnet_tpu_torch.losses import matching_loss
 from gossipnet_tpu_torch.models.gossipnet import GossipNet, resolve_device
 from gossipnet_tpu_torch.ops.matching import Thresholds
 from gossipnet_tpu_torch.params import as_state_dict, init_params
+from gossipnet_tpu_torch.parallel.sharding import (
+    make_sharded_train_step,
+    mesh_from_config,
+)
 from gossipnet_tpu_torch.utils.checkpoint import CheckpointManager
 from gossipnet_tpu_torch.utils.cuda_graphs import StepGraphs
 from gossipnet_tpu_torch.utils.metrics import MetricsLogger, StepTimer
@@ -402,14 +414,18 @@ def train(
     ``stop``: a zero-arg callable polled once per drawn batch; when it
     returns True, queued batches flush as single steps, a checkpoint is
     written and the state returns, and a later ``train()`` on the same
-    checkpoint dir resumes bit-exactly. ``params`` seeds the model (a
-    state_dict or a JAX tree; default ``init_params``).
+    checkpoint dir resumes bit-exactly (on a mesh every rank passes one,
+    and rank 0's answer counts). ``params`` seeds the model (a state_dict
+    or a JAX tree; default ``init_params``).
+
+    ``cfg.parallel`` puts the run on a mesh (``mesh_from_config``), whose
+    steps run eagerly, not as captured graphs. ``enable: "on"`` at 1 x 1 in
+    a process that belongs to no world makes one, a ``torch.distributed``
+    default group of one rank that stays for the life of the process.
     """
-    if cfg.parallel.enable == "on":
-        raise NotImplementedError(
-            "parallel.enable='on' (a device mesh) is not ported yet: "
-            "ROADMAP.md item 14")
     device = resolve_device(device)
+    mesh = mesh_from_config(cfg, device)
+    main = mesh is None or mesh.is_main
     t = cfg.train
     max_steps = max_steps if max_steps is not None else t.max_steps
     model = build_model(cfg, pool_impl, device)
@@ -424,21 +440,56 @@ def train(
             it.set_state(host_state["iterator"])
         print(f"resumed from step {state.step}", flush=True)
 
-    # captured after the restore above, so they read the restored tensors
-    steps = state.graphs = StepGraphs(state, cfg, step_body)
-    logger = MetricsLogger(metrics_path, tb_dir=tb_dir)
+    if mesh is None:
+        # captured after the restore above, so they read the restored
+        # tensors
+        steps = state.graphs = StepGraphs(state, cfg, step_body)
+    else:
+        sharded_step = make_sharded_train_step(cfg, mesh)
+        if main:
+            print(f"training on mesh {mesh.shape}", flush=True)
+
+        def steps(arrays: dict) -> dict:
+            return sharded_step(state, {
+                k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in arrays.items()})[1]
+
+    def save(step: int) -> None:
+        """Rank 0 writes; on a mesh every rank waits for the write."""
+        if main:
+            ckpt.save(step, state, {"iterator": it.get_state()})
+        if mesh is not None:
+            mesh.barrier()
+
+    def should_stop() -> bool:
+        if stop is None:
+            return False
+        flag = bool(stop())
+        if mesh is not None:   # every rank stops at rank 0's batch
+            flag = bool(mesh.broadcast_(torch.tensor(
+                [int(flag)], device=device)).item())
+        return flag
+
+    logger = MetricsLogger(metrics_path if main else None, echo=main,
+                           tb_dir=tb_dir if main else None)
     timer = StepTimer()
     profiler = StepProfiler(profile_dir or "profile",
-                            enabled=bool(profile_dir))
+                            enabled=bool(profile_dir) and main)
 
     def default_eval(st):
         if val_roidb is None:
             return {}
-        from gossipnet_tpu_torch.evaluate import evaluate_model
+        from gossipnet_tpu_torch.evaluate import (
+            evaluate_model,
+            sharded_forward_fn,
+        )
 
+        # periodic evaluation runs on the training mesh
+        fwd = None if mesh is None else sharded_forward_fn(mesh, st.model)
         return evaluate_model(
             None, st.model, val_roidb,
             batch_size=t.batch_size, bucket_sizes=cfg.data.bucket_sizes,
+            forward_fn=fwd,
         )
 
     eval_fn = eval_fn or default_eval
@@ -469,7 +520,7 @@ def train(
 
     preempted = False
     while planned_steps() < max_steps:
-        if stop is not None and stop():
+        if should_stop():
             preempted = True
             break
         batch = next(it)
@@ -493,19 +544,21 @@ def train(
         if t.snapshot_every and step % t.snapshot_every < spc:
             state = flush_queues(state)
             step = state.step
-            ckpt.save(step, state, {"iterator": it.get_state()})
+            save(step)
         if t.eval_every and step % t.eval_every < spc:
             stats = eval_fn(state)
             if stats:
                 logger.log(step, **{f"val_{k}": v for k, v in stats.items()})
-                if "AP" in stats:
+                if "AP" in stats and main:
                     ckpt.maybe_save_best(stats["AP"], state)
+                if mesh is not None:
+                    mesh.barrier()
 
     # Tail: batches drawn but still queued train as single steps before the
     # final save; the preemption path exits through the same code.
     state = flush_queues(state)
     profiler.close()
-    ckpt.save(state.step, state, {"iterator": it.get_state()})
+    save(state.step)
     if preempted:
         print(f"preempted: snapshot at step {state.step}; rerun to resume",
               flush=True)
@@ -548,6 +601,7 @@ def main(argv: list[str] | None = None) -> None:
     import threading
 
     from gossipnet_tpu_torch.config import load_config
+    from gossipnet_tpu_torch.parallel.world import world_from_env
 
     p = argparse.ArgumentParser(description="Train GossipNet (PyTorch/CUDA)")
     p.add_argument("-c", "--config", default=None, help="YAML config")
@@ -561,10 +615,13 @@ def main(argv: list[str] | None = None) -> None:
                         "DIR/trace.json")
     p.add_argument("--tensorboard", default=None, metavar="DIR",
                    help="also mirror scalars to TensorBoard summaries")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card; under "
+                        "torchrun cuda:LOCAL_RANK) or cpu")
     args = p.parse_args(argv)
 
     cfg = load_config(args.config)
-    device = resolve_device("cuda")
+    device = resolve_device(world_from_env(args.device))
     roidb, val = _datasets(cfg)
     # Preemption: the first SIGTERM/SIGINT finishes the in-flight group,
     # flushes, checkpoints (iterator cursor included) and exits 0; rerunning

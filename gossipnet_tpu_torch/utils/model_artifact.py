@@ -124,8 +124,9 @@ class ArtifactRescorer(Rescorer):
         cfg_dict["data"] = {**cfg_dict["data"], "bucket_sizes":
                             sorted({n for _, n in self._shapes})}
         cfg = load_config(None, overrides=cfg_dict)
+        # one device: an artifact serves its exported shapes, no mesh
         super().__init__(cfg, params, pool_impl=meta["pool_impl"],
-                         device=resolve_device(device))
+                         device=resolve_device(device), mesh=None)
 
     def _pad_batch(self, b: int) -> int:
         """Smallest exported batch size that fits the group."""

@@ -20,7 +20,10 @@ stream (``pair_elementwise_dtype: bfloat16``) on the flagship's launch
 arguments at the bench batch, config 2's training batch and ``blob`` at
 B=2 N=256: m bf16 values, at most one bf16 ulp from the plain version's in
 at most 1% of the entries; the backward at bf16's tolerances with dm zero
-where the best two candidates lie within one bf16 ulp.
+where the best two candidates lie within one bf16 ulp; and K1/K2 and
+K5/K6 on the row shards of a det-sharded forward (parallel/spmd.py)
+against the square launch: m and d_a' bit for bit, the shards' summed
+d_b' and weight gradients within the weight-gradient gate.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
 without one. The file imports no JAX, so it runs where JAX is not
@@ -1298,3 +1301,58 @@ def test_bf16_stream_k2_matches_plain_backward_on_card(stream_args):
     db2 = k1.launch_backward_kernel(*args, m, torch.ones_like(dm),
                                     *STREAM)[4]
     assert bool((db2 >= (m > 0).sum(dim=(0, 1)).float()).all())
+
+
+def _row_shard(kern, args, rows: slice) -> tuple:
+    """A square launch's arguments cut to the rows ``rows`` against every
+    column, as the det-sharded forward builds them (parallel/spmd.py)."""
+    geom = args[0]
+    row = geom.row[:, :, rows].contiguous()
+    if kern is k1:
+        geom = geom._replace(
+            row=row, i_feats=geom.i_feats[:, rows].contiguous(),
+            flags=k1.tile_activity(row, geom.col).contiguous())
+    else:
+        geom = geom._replace(row=row, flags=k1.tile_activity(
+            row, geom.col, valid_field=pf.NUM_COLUMNS - 1).contiguous())
+    return (geom, args[1][:, rows].contiguous(), *args[2:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_det", [2, 4])
+@pytest.mark.parametrize("kernel", ["K1", "K5"])
+def test_det_shards_match_the_square_launch_on_card(kernel, n_det, dtype):
+    """The launches of a det-sharded forward: each shard's N / n_det rows
+    against all N columns. Joined, the shards' m and d_a' equal the square
+    launch's bit for bit; d_b' and the weight gradients summed over the
+    shards are within the weight-gradient gate (1e-4 of the largest
+    entry). B=4 N=1024: a shard has half or a quarter of the square's row
+    tiles there, so it would split its columns differently if the split
+    count followed its own row tiles."""
+    from gossipnet_tpu_torch.ops.cuda import pairwise as k5
+
+    dev = _card()
+    rng = np.random.default_rng(n_det)
+    if kernel == "K1":
+        kern, (args, dm, _) = k1, _pair_args(rng, 4, 1024, dev)
+    else:
+        kern, (args, dm) = k5, _k5_args(rng, 4, 1024, dev)
+    m = kern.launch_kernel(*args, dtype)
+    grads = kern.launch_backward_kernel(*args, m, dm, dtype)
+    rows = 1024 // n_det
+    ms, parts = [], []
+    for r in range(n_det):
+        sl = slice(r * rows, (r + 1) * rows)
+        shard = _row_shard(kern, args, sl)
+        ms.append(kern.launch_kernel(*shard, dtype))
+        parts.append(kern.launch_backward_kernel(
+            *shard, m[:, sl].contiguous(), dm[:, sl].contiguous(), dtype))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(ms, 1), m)
+    assert torch.equal(torch.cat([g[0] for g in parts], 1), grads[0])
+    for i in range(1, 5):
+        total = torch.stack([g[i] for g in parts]).sum(0)
+        np.testing.assert_allclose(
+            total.cpu().numpy(), grads[i].cpu().numpy(), rtol=0,
+            atol=1e-4 * grads[i].abs().max().item())

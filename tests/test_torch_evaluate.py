@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from gossipnet_tpu import config as j_config
@@ -217,17 +218,27 @@ def test_cli_refusals_and_random_init(tmp_path, capsys):
     with pytest.raises(ValueError, match="JAX/TPU artifact"):
         t_eval.main(["-c", str(cfg_file), "--artifact", str(jax_art),
                      "--device", "cpu"])
-    ov = yaml.safe_load(cfg_file.read_text())
-    ov["parallel"]["enable"] = "on"
-    mesh_file = tmp_path / "mesh.yaml"
-    mesh_file.write_text(yaml.safe_dump(ov))
-    with pytest.raises(SystemExit, match="item 14"):
-        t_eval.main(["-c", str(mesh_file), "--device", "cpu"])
     capsys.readouterr()
     out = t_eval.main(["-c", str(cfg_file), "--random-init", "--device",
                        "cpu"])
     assert "--random-init" in capsys.readouterr().out
     assert np.isfinite(out["gossipnet"]["AP"])
+    # a device mesh is no longer refused: `on` with the default axes
+    # evaluates on a 1 x 1 mesh (a world of one here), the same stats
+    ov = yaml.safe_load(cfg_file.read_text())
+    ov["parallel"]["enable"] = "on"
+    mesh_file = tmp_path / "mesh.yaml"
+    mesh_file.write_text(yaml.safe_dump(ov))
+    try:
+        on_mesh = t_eval.main(["-c", str(mesh_file), "--random-init",
+                               "--device", "cpu"])
+    finally:
+        torch.distributed.destroy_process_group()
+    assert "evaluating on mesh {'data': 1, 'det': 1}" in \
+        capsys.readouterr().out
+    for k, v in out["gossipnet"].items():
+        np.testing.assert_allclose(on_mesh["gossipnet"][k], v, rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
     t_eval.main(["-c", str(cfg_file), "--device", "cpu"])
     assert "WARNING: no checkpoint" in capsys.readouterr().out
 

@@ -51,7 +51,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "tools.bench_serving", "tools.tcp_bench_client",
                  "tools.import_weights", "utils.import_weights",
                  "tools.demo_config1", "tools.quality_demo",
-                 "tools.calibrate"):
+                 "tools.calibrate", "parallel", "parallel.world",
+                 "parallel.spmd", "parallel.sharding", "parallel.legs"):
         assert f"gossipnet_tpu_torch.{name}" in result["modules"], name
 
 
@@ -113,16 +114,51 @@ def test_train_cli_raises_without_a_card(tmp_path):
 
 
 def test_serve_cli_without_random_init_names_the_roadmap_item(tmp_path):
-    """Serving over a device mesh is what the serve CLI still refuses,
-    naming the roadmap item, before it looks for a card or a checkpoint."""
+    """Serving over a device mesh (roadmap item 14) was refused until it
+    was ported (the test keeps its name): with ``parallel.enable: "on"``
+    the serve CLI answers on a 1 x 1 mesh, a world of its own process, on
+    the CPU when asked; without a card and without ``--device cpu`` it
+    still raises before it answers."""
     import yaml
 
-    from gossipnet_tpu_torch.serving import main
-
     mesh = tmp_path / "mesh.yaml"
-    mesh.write_text(yaml.safe_dump({"parallel": {"enable": "on"}}))
-    with pytest.raises(SystemExit, match="item 14"):
-        main(["-c", str(mesh), "--checkpoint-dir", str(tmp_path / "none")])
+    mesh.write_text(yaml.safe_dump({
+        "model": {"num_blocks": 1, "feature_dim": 16, "reduced_dim": 8,
+                  "pairwise_dim": 8},
+        "data": {"bucket_sizes": [32]}, "parallel": {"enable": "on"}}))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    req = json.dumps({"id": 1, "boxes": [[0, 0, 5, 5], [1, 1, 6, 6]],
+                      "scores": [0.5, 0.4]})
+    cmd = [sys.executable, "-m", "gossipnet_tpu_torch.serve", "-c",
+           str(mesh), "--random-init", "--sync"]
+    out = subprocess.run(cmd + ["--device", "cpu"], input=req + "\n",
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    reply = json.loads(out.stdout)
+    assert reply["id"] == 1 and len(reply["new_scores"]) == 2
+    if not torch.cuda.is_available():
+        out = subprocess.run(cmd, input=req + "\n", cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0 and "no CUDA device" in out.stderr
+        assert out.stdout == ""
+
+
+def test_world_ranks_import_no_jax():
+    """The spawned ranks of a world start from a fresh interpreter: the
+    port's rank programs bring no JAX in, though this process has it."""
+    from gossipnet_tpu_torch.parallel import legs
+    from gossipnet_tpu_torch.parallel.world import run_world
+
+    out = run_world(legs.run_legs, 2, timeout_s=120, args=(
+        [("modules", legs.imported_modules, {"prefixes": FORBIDDEN}),
+         ("gather", legs.gather_exact, {"shape": (1, 2)}),
+         ("after", legs.imported_modules, {"prefixes": FORBIDDEN})],))
+    assert "jax" in sys.modules
+    for rank in out:
+        assert rank["modules"]["result"] == []
+        assert rank["gather"]["result"]
+        assert rank["after"]["result"] == []
 
 
 @pytest.mark.parametrize("tool,argv", [

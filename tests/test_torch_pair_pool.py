@@ -456,7 +456,7 @@ def test_backward_launch_scratch_and_sums(rng, monkeypatch, splits):
             t.fill_(0.5)
 
     monkeypatch.setattr(launch, "_launch", fake_launch)
-    monkeypatch.setattr(launch, "_splits", lambda geom_, device: splits)
+    monkeypatch.setattr(launch, "_splits", lambda geom_, device, **kw: splits)
     t = lambda *s: torch.zeros(*s)
     da, db, dwg, dw2, db2 = launch.backward_launch(
         "pairwise2_bwd", "K2", "e", "t", geom, t(b, nr, p), t(b, nc, p),
@@ -500,7 +500,7 @@ def test_k6_launch_keeps_its_row_tile_partial(rng, monkeypatch, splits):
             t.fill_(0.25)
 
     monkeypatch.setattr(launch, "_launch", fake_launch)
-    monkeypatch.setattr(launch, "_splits", lambda geom_, device: splits)
+    monkeypatch.setattr(launch, "_splits", lambda geom_, device, **kw: splits)
     t = lambda *s: torch.zeros(*s)
     _, db, dwg, *_ = launch.backward_launch(
         "pairwise_bwd", "K6", "e", "t", geom, t(b, nr, p), t(b, nc, p),
@@ -536,7 +536,7 @@ def test_forward_launch_hands_the_kernel_its_splits(monkeypatch, label, k,
                     label=label_, out=tuple(tensors[-1].shape))
 
     monkeypatch.setattr(launch, "_launch", fake_launch)
-    monkeypatch.setattr(launch, "_splits", lambda geom_, device: splits)
+    monkeypatch.setattr(launch, "_splits", lambda geom_, device, **kw: splits)
     t = lambda *s: torch.zeros(*s)
     out = launch.forward_launch("lib", label, "e", "t", geom, t(b, nr, p),
                                 t(b, nc, p), t(k, p), t(p, p), t(p),

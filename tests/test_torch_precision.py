@@ -340,7 +340,7 @@ def test_bf16_stream_launches_its_own_instantiation(rng, monkeypatch):
         seen.append((label, mode))
 
     monkeypatch.setattr(launch, "_launch", fake_launch)
-    monkeypatch.setattr(launch, "_splits", lambda geom_, device: 1)
+    monkeypatch.setattr(launch, "_splits", lambda geom_, device, **kw: 1)
     monkeypatch.setattr(launch, "check_inputs", lambda *a, **kw: None)
     monkeypatch.setattr(k1, "check_inputs", lambda *a, **kw: None)
     boxes, scores, valid, _, a, bb, _ = _case(rng, b=1, n=16, p=8)

@@ -296,12 +296,13 @@ def test_remat_blocks_give_the_same_gradients():
     ({"data": {"dataset": "coco"}}, "item 10"),
 ])
 def test_unported_training_options_raise(tmp_path, override, match):
-    """``parallel.enable: "on"`` is not ported and says which roadmap item
-    it waits for, with or without ``--profile``. ``dataset: coco``
-    (roadmap item 10) and ``--profile`` (item 13), since ported (the test
-    keeps its name and ids), no longer raise NotImplementedError: the COCO
-    loaders fail only on the annotation file that is not there, and a
-    profiled run trains."""
+    """``dataset: coco`` (roadmap item 10), ``--profile`` (item 13) and
+    ``parallel.enable: "on"`` (item 14), since ported (the test keeps its
+    name and ids), no longer raise NotImplementedError: the COCO loaders
+    fail only on the annotation file that is not there, a profiled run
+    trains, and ``on`` with the default axes trains on a 1 x 1 mesh (a
+    world of one in this process, taken down after) to the parameters of
+    the run off the mesh (1e-6)."""
     if "data" in override:
         override = {"data": {"dataset": "coco",
                              "ann_file": str(tmp_path / "missing.json"),
@@ -312,17 +313,23 @@ def test_unported_training_options_raise(tmp_path, override, match):
     if "data" in override:
         with pytest.raises(FileNotFoundError, match="missing.json"):
             t_train._datasets(cfg)
-    else:
-        with pytest.raises(NotImplementedError, match=match):
-            t_train.train(cfg, roidb, max_steps=1, device="cpu")
-    if "data" in override:
         state = t_train.train(cfg, roidb, max_steps=1, device="cpu",
                               profile_dir=str(tmp_path / "p"))
         assert state.step == 1
-    else:
-        with pytest.raises(NotImplementedError, match=match):
-            t_train.train(cfg, roidb, max_steps=1, device="cpu",
-                          profile_dir=str(tmp_path / "p"))
+        return
+    local = t_train.train(t_config.load_config(None, _overrides(
+        checkpoint_dir=str(tmp_path / "local"))), roidb, max_steps=2,
+        device="cpu")
+    try:
+        state = t_train.train(cfg, roidb, max_steps=2, device="cpu",
+                              profile_dir=str(tmp_path / "p"))
+        assert torch.distributed.get_world_size() == 1
+    finally:
+        torch.distributed.destroy_process_group()
+    assert state.step == local.step == 2
+    want = local.model.state_dict()
+    for k, v in state.model.state_dict().items():
+        torch.testing.assert_close(v, want[k], rtol=1e-6, atol=1e-6)
 
 
 def test_default_eval_with_a_validation_set_raises(tmp_path):
