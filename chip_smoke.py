@@ -207,7 +207,27 @@ Phases (each raises on failure; the script then exits non-zero):
    for information, labelled as one card's time-sliced ranks and no
    multi-GPU figure: each rank's ms of the sharded forward beside one
    device's eager forward, and the phase's seconds. The mesh's launches,
-   summed over the ranks, join the record.
+   summed over the ranks, join the record;
+19. the scale drill (``gossipnet_tpu_torch/tools/scale_drill.py``;
+   ``python3 chip_smoke.py --drill`` runs only this): (a) the drill's
+   generators at 50 images and 20 PETS frames write files whose sha256
+   equal the reference generator's (constants pinned by
+   tests/test_torch_scale_drill.py); (b) ``gen()`` at 5,000 images, timed,
+   with its counts and file sizes; (c) from those files and the ``run``
+   arm's own YAMLs, in this process: config 2 trained 20 steps through
+   ``train()`` at 16 K1 + 16 K2 + 1 K3 a step, config 3 (80 classes, the
+   non-contiguous category ids remapped by the loader) 5 steps through the
+   class-aware K3, then ``evaluate.main`` on config 2's checkpoint over
+   the 5,000 images at 16 K1 a batch, its AP beside the raw-score and
+   GreedyNMS baselines; K1 and K2 on the trained model's launch arguments
+   at the drill's batch and K3 on config 3's class-aware scan input
+   against their plain versions; (d) ``eval5k()`` (the numpy evaluator
+   under 60 s); (e) the ``run`` arm through its five CLI subprocesses
+   (config-1 evaluation, config-2 training of 300 steps and its
+   evaluation, config-3 training and its evaluation), each one's wall time
+   and peak RSS, none building a kernel; in the full script on a
+   1,000-image set (the time limit), with ``--drill`` on the 5,000 images.
+   The in-process launches join the record.
 
 Every path of phases 4-14 runs through captured graphs, as a user's call
 does (phase 18's mesh paths step eagerly): a replay adds its graph's
@@ -224,6 +244,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import io
 import json
 import math
@@ -282,6 +303,7 @@ from gossipnet_tpu_torch.params import (
 )
 from gossipnet_tpu_torch.serving import serve_stream
 from gossipnet_tpu_torch.tools import kernel_ablate
+from gossipnet_tpu_torch.tools import scale_drill
 from gossipnet_tpu_torch.utils import model_artifact
 from gossipnet_tpu_torch.utils import profiling
 from gossipnet_tpu_torch.utils.checkpoint import CheckpointManager
@@ -343,6 +365,21 @@ CROWD_DATA = dict(num_images=2, seed=0, num_gt=400, dets_per_gt=8,
                   num_clutter=600, num_classes=1)
 CROWD_STEPS = 5
 DEV = "cuda"
+# phase 19: the drill's files at this size, as the reference's generator
+# writes them from its default seeds (tests/test_torch_scale_drill.py pins
+# the digests against scripts/scale_drill.py)
+DRILL_IMAGES = 50
+DRILL_FRAMES = 20
+DRILL_SHA256 = {
+    "annotations.json":
+        "af7bb40de756c3f2a273d1b05aa8acf09db223823928c41d148134b8b2c1d467",
+    "detections.json":
+        "f08f3d5a414b3085fa04669ffd0f707800981c522b55f3023e6fb6fa5a406c94",
+    "pets_gt.xml":
+        "84cb7ff8375fd4be3099d57e8ebb381e231a9454238bb787471f768eb8197c40",
+    "pets_dets.csv":
+        "31e3bce5f1ead74535034c29c24d7100067be5743359e93af3b90e320dbced34",
+}
 
 
 def log(*a):
@@ -4591,6 +4628,227 @@ def phase_mesh(card: str) -> tuple[dict, dict]:
     return launches, worst
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the scale drill (tools/scale_drill.py) on the card
+# ---------------------------------------------------------------------------
+
+DRILL_TRAIN_STEPS = 20        # config 2 from the drill's files, as phase 6
+DRILL_MC_STEPS = 5            # config 3, as phase 11
+DRILL_RUN_IMAGES = 1000       # the `run` arm's set in the full script
+
+
+def file_mb(path: Path) -> str:
+    return f"{path.name} {path.stat().st_size / 1e6:.1f} MB"
+
+
+def drill_train(label: str, path: str, steps: int, tmp: Path):
+    """``train()`` on the files and YAML of the drill's ``run`` arm, with
+    its launches counted -> (state, roidb, launches)."""
+    cfg = load_config(path)
+    t0 = time.perf_counter()
+    roidb, _ = training._datasets(cfg)
+    load_s = time.perf_counter() - t0
+    dets = np.array([r.num_dets for r in roidb])
+    det_cls = np.concatenate([r.det_classes for r in roidb])
+    gt_cls = np.concatenate([r.gt_classes for r in roidb])
+    crowd = np.concatenate([r.gt_crowd for r in roidb])
+    log(f"  {label}: {path}; build_roidb {load_s:.1f} s: {len(roidb)} "
+        f"images, detections an image mean {dets.mean():.1f} max "
+        f"{dets.max()} (buckets {cfg.data.bucket_sizes}), "
+        f"{crowd.mean():.3f} of the GT crowds, labels "
+        f"[{min(det_cls.min(), gt_cls.min())}, "
+        f"{max(det_cls.max(), gt_cls.max())}] of {roidb.num_classes} "
+        f"classes (category ids {roidb.cat_ids[:4]}...{roidb.cat_ids[-2:]})")
+    # the 80 non-contiguous ids reach a launch as contiguous labels only
+    if not (0 <= min(det_cls.min(), gt_cls.min())
+            and max(det_cls.max(), gt_cls.max()) < cfg.model.num_classes
+            and roidb.num_classes == cfg.model.num_classes):
+        raise AssertionError(f"{label}: class labels outside [0, "
+                             f"{cfg.model.num_classes})")
+    metrics = tmp / f"{Path(path).stem}_metrics.jsonl"
+    reset_counts()
+    t0 = time.perf_counter()
+    state = training.train(cfg, roidb, pool_impl="kernel",
+                           metrics_path=str(metrics), max_steps=steps,
+                           device=DEV)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts()
+    blocks = cfg.model.num_blocks
+    runs = state.step + state.graphs.captures
+    want = want_counts(pair_pool2_fwd=blocks * runs,
+                       pair_pool2_bwd=blocks * runs, greedy_scan_batched=runs)
+    losses = [json.loads(x)["loss"] for x in metrics.read_text().splitlines()]
+    log(f"  {label}: {state.step} steps in {run_s:.1f} s "
+        f"({state.graphs.captures} captured shapes); launches {launches} "
+        f"= {blocks} K1 + {blocks} K2 + 1 K3 x ({state.step} replays + "
+        f"{state.graphs.captures} eager steps before a capture); loss logged "
+        f"(log_every {cfg.train.log_every}) "
+        f"{' '.join(f'{x:.4f}' for x in losses)}")
+    if launches != want or state.step != steps or not losses \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: launches {launches} != {want} or "
+                             f"losses {losses}")
+    return state, roidb, launches
+
+
+def drill_kernel_checks(cfg2, state2, roidb2, cfg3, state3, roidb3
+                        ) -> tuple[float, float]:
+    """K1 and K2 on the launch arguments of the trained config-2 model at
+    the drill's first batch, K3 on the class-aware scan input of the
+    trained config-3 model, each against its plain version -> K1's and
+    K2's worst errors."""
+    dev = torch.device(DEV)
+    arrays = training.batch_to_device(next(BatchIterator(
+        roidb2, 8, cfg2.data.bucket_sizes)), dev)
+    model = training.build_model(cfg2, "kernel", DEV)
+    model.load_state_dict(state2.model.state_dict())
+    fwd, bwd = capture_pair(k1, model, arrays["boxes"], arrays["scores"],
+                            arrays["valid"])
+    dtype = fwd[6]
+    got = k1.launch_kernel(*fwd[:6], dtype)
+    want = k1._reference_core(*fwd[:6], dtype)
+    torch.cuda.synchronize()
+    k1_err = (got - want).abs().max().item()
+    log(f"  K1 on the trained config-2 model's first launch at the drill's "
+        f"batch (B, NR, P = {tuple(fwd[1].shape)}, {dtype}): "
+        f"max_abs_err={k1_err:.3e} tol {TOL_TEXT[dtype]}")
+    if not within(got, want, dtype):
+        raise AssertionError(f"K1 disagrees with its plain version on the "
+                             f"drill's batch: {k1_err}")
+    k2_err = check_backward("drill config 2, last block", dtype, bwd[:6],
+                            bwd[7])
+    arrays = training.batch_to_device(next(BatchIterator(
+        roidb3, 8, cfg3.data.bucket_sizes)), dev)
+    with torch.no_grad():
+        logits = state3.model(arrays["boxes"], arrays["scores"],
+                              arrays["valid"], arrays["classes"])
+    iou, thr = capture(k3, "greedy_scan_batched", lambda: (
+        matching.greedy_match_batch(
+            arrays["boxes"], logits, arrays["valid"], arrays["gt_boxes"],
+            arrays["gt_valid"], arrays["gt_crowd"], cfg3.matching.thresholds,
+            arrays["classes"], arrays["gt_classes"])))[:2]
+    compare_scan("drill config 3, classes", iou, tuple(thr.tolist()))
+    return k1_err, k2_err
+
+
+def drill_cli_stats(rec: dict) -> str:
+    """The AP lines of an evaluate phase's printed record."""
+    text = "\n".join(rec["tail"])
+    out = json.loads(text[text.index("{"):])
+    return "; ".join(f"{k} AP {v['AP']:.4f} AP50 {v['AP50']:.4f}"
+                     for k, v in out.items())
+
+
+def phase_drill(card: str, run_images: int) -> tuple[dict, float, float]:
+    """Phase 19 -> (the launches of its in-process training and evaluation,
+    K1's and K2's worst errors)."""
+    t_phase = time.perf_counter()
+    log("phase 19: the scale drill (tools/scale_drill.py): configs 1-3 from "
+        "real-format COCO files")
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        same = tmp / "same"
+        scale_drill.gen(n_images=DRILL_IMAGES, data_dir=same)
+        scale_drill.gen_pets(n_frames=DRILL_FRAMES, data_dir=same)
+        digests = {name: hashlib.sha256((same / name).read_bytes())
+                   .hexdigest() for name in DRILL_SHA256}
+        log(f"  (a) gen({DRILL_IMAGES} images), gen_pets({DRILL_FRAMES} "
+            f"frames), numpy {np.__version__}: sha256 equal to the "
+            f"reference generator's: "
+            f"{ {n: digests[n] == DRILL_SHA256[n] for n in digests} }")
+        if digests != DRILL_SHA256:
+            raise AssertionError(f"the drill's files differ from the "
+                                 f"reference's bytes: {digests}")
+
+        data = tmp / "5k"
+        t0 = time.perf_counter()
+        made = scale_drill.gen(data_dir=data)
+        log(f"  (b) gen(): {time.perf_counter() - t0:.1f} s, {made}, "
+            f"{file_mb(data / 'annotations.json')}, "
+            f"{file_mb(data / 'detections.json')}")
+
+        log(f"  (c) configs 2 and 3 in this process, from {data}")
+        _, y2, y3 = scale_drill.run_yamls(data_dir=data)
+        state2, roidb2, launches = drill_train(
+            "config 2 (persons)", y2, DRILL_TRAIN_STEPS, tmp)
+        state3, roidb3, mc_launches = drill_train(
+            "config 3 (80 classes)", y3, DRILL_MC_STEPS, tmp)
+        cfg2 = load_config(y2)
+        batches = list(eval_batches(roidb2, cfg2.train.batch_size,
+                                    cfg2.data.bucket_sizes))
+        shapes = len({(b.batch_size, b.padded_n) for b in batches})
+        reset_counts()
+        t0 = time.perf_counter()
+        out = evaluate.main(["-c", y2, "--device", DEV])
+        eval_s = time.perf_counter() - t0
+        ev_launches = counts()
+        want = want_counts(pair_pool2_fwd=cfg2.model.num_blocks
+                           * (len(batches) + shapes))
+        log(f"  evaluate.main on config 2's checkpoint (step "
+            f"{state2.step}) over {len(roidb2)} images: {eval_s:.1f} s "
+            f"(COCO matching: "
+            f"{'native C++' if native.available() else 'numpy'}); "
+            f"launches {ev_launches} = {cfg2.model.num_blocks} K1 x "
+            f"({len(batches)} batches + {shapes} eager forward before a "
+            f"capture); GossipNet AP {out['gossipnet']['AP']:.4f} AP50 "
+            f"{out['gossipnet']['AP50']:.4f}, raw scores AP "
+            f"{out['raw_scores']['AP']:.4f} AP50 "
+            f"{out['raw_scores']['AP50']:.4f}, GreedyNMS at "
+            f"{out['greedy_nms']['iou_threshold']:.2f} AP "
+            f"{out['greedy_nms']['AP']:.4f} AP50 "
+            f"{out['greedy_nms']['AP50']:.4f}")
+        if ev_launches != want or not all(
+                0.0 <= s["AP"] <= 1.0 for s in out.values()) \
+                or out["raw_scores"]["AP"] <= 0.0:
+            raise AssertionError(f"drill evaluation: launches {ev_launches}"
+                                 f" != {want} or stats {out}")
+        for more in (mc_launches, ev_launches):
+            for name, n in more.items():
+                launches[name] += n
+        k1_err, k2_err = drill_kernel_checks(
+            cfg2, state2, roidb2, load_config(y3), state3, roidb3)
+
+        t0 = time.perf_counter()
+        five = scale_drill.eval5k(data)
+        log(f"  (d) eval5k: {five} ({time.perf_counter() - t0:.1f} s with "
+            f"build_roidb; the evaluations above match in "
+            f"{'native C++' if native.available() else 'numpy'})")
+
+        run_dir = tmp / "run"
+        if run_images == scale_drill.N_IMAGES:
+            run_dir.mkdir()
+            for name in ("annotations.json", "detections.json"):
+                (run_dir / name).symlink_to(data / name)
+        else:
+            log(f"  (e) cut: the run arm on gen(n_images={run_images}) "
+                f"(the full script's time limit); steps and widths as the "
+                f"arm sets them")
+            scale_drill.gen(n_images=run_images, data_dir=run_dir)
+        libraries = sorted(build.BUILD_DIR.glob("lib*.so"))
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            phases = scale_drill.run(device=DEV, data_dir=run_dir)
+        (tmp / "run.log").write_text(printed.getvalue())
+        log(f"  (e) the run arm, {run_images} images, five CLI "
+            f"subprocesses: {time.perf_counter() - t0:.1f} s; {card}")
+        for name, rec in phases.items():
+            stats = (f"; {drill_cli_stats(rec)}" if name.endswith("eval")
+                     else "")
+            log(f"    {name}: wall {rec['wall_s']} s, peak RSS "
+                f"{rec['peak_rss_gb']} GB, kernels built "
+                f"{rec['built']}{stats}")
+        if any(rec["built"] for rec in phases.values()) \
+                or sorted(build.BUILD_DIR.glob("lib*.so")) != libraries:
+            raise AssertionError("a CLI phase built a kernel library")
+        if not all(0 < rec["peak_rss_gb"] for rec in phases.values()):
+            raise AssertionError("a CLI phase's peak RSS was not read")
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s; launches of its "
+        f"in-process paths {launches}; {card}")
+    return launches, k1_err, k2_err
+
+
 def phase_build(names=KERNELS):
     log(f"phase 2: build {', '.join(names)} from ops/cuda/csrc/, one nvcc "
         f"each, all at once")
@@ -4688,6 +4946,12 @@ def main() -> int:
         phase_mesh(card)
         log(card)
         return 0
+    if sys.argv[1:] == ["--drill"]:
+        # Phase 19 alone, the run arm at the drill's full 5,000 images
+        phase_build(KERNELS[:3])
+        phase_drill(card, scale_drill.N_IMAGES)
+        log(card)
+        return 0
     if sys.argv[1:] == ["--k1-stages"]:
         phase_build(KERNELS[:2])
         phase_k1_stages()
@@ -4743,6 +5007,10 @@ def main() -> int:
     mesh_launches, mesh_worst = phase_mesh(card)
     for name, err in mesh_worst.items():
         worst[name] = max(worst[name], err)
+    drill_launches, drill_k1_err, drill_k2_err = phase_drill(
+        card, DRILL_RUN_IMAGES)
+    worst["pair_pool2_fwd"] = max(worst["pair_pool2_fwd"], drill_k1_err)
+    worst["pair_pool2_bwd"] = max(worst["pair_pool2_bwd"], drill_k2_err)
     log(f"launches on the main paths: serving K1 {serve_launches} "
         f"(phases 4 and 14); "
         f"training {launches}; config 4 training {crowd_launches}; the "
@@ -4754,8 +5022,9 @@ def main() -> int:
     log(f"launches of phase 17's main paths: {precision_launches}")
     log(f"launches of phase 18's main paths, over the ranks: "
         f"{mesh_launches}")
+    log(f"launches of phase 19's main paths: {drill_launches}")
     launches = {name: n + tool_launches[name] + precision_launches[name]
-                + mesh_launches.get(name, 0)
+                + mesh_launches.get(name, 0) + drill_launches[name]
                 for name, n in launches.items()}
 
     log(card)

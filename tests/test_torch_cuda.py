@@ -23,7 +23,9 @@ at most 1% of the entries; the backward at bf16's tolerances with dm zero
 where the best two candidates lie within one bf16 ulp; and K1/K2 and
 K5/K6 on the row shards of a det-sharded forward (parallel/spmd.py)
 against the square launch: m and d_a' bit for bit, the shards' summed
-d_b' and weight gradients within the weight-gradient gate.
+d_b' and weight gradients within the weight-gradient gate; and config 2
+trained and evaluated from the scale drill's real-format files, with its
+launches counted.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
 without one. The file imports no JAX, so it runs where JAX is not
@@ -1356,3 +1358,43 @@ def test_det_shards_match_the_square_launch_on_card(kernel, n_det, dtype):
         np.testing.assert_allclose(
             total.cpu().numpy(), grads[i].cpu().numpy(), rtol=0,
             atol=1e-4 * grads[i].abs().max().item())
+
+
+@pytest.mark.cuda
+def test_drill_files_train_and_evaluate_config2_on_card(tmp_path):
+    """The scale drill's real-format files (``tools/scale_drill.py gen``, 64
+    images) through config 2 as the drill's ``run`` arm writes it:
+    ``train()`` for 3 steps at 16 K1 + 16 K2 + 1 K3 a step (the eager step
+    before each capture counts as a replay does), then ``evaluate.main`` on
+    its checkpoint at 16 K1 a batch and no other kernel."""
+    from gossipnet_tpu_torch import evaluate
+    from gossipnet_tpu_torch import train as training
+    from gossipnet_tpu_torch.config import load_config
+    from gossipnet_tpu_torch.data.bucketing import eval_batches
+    from gossipnet_tpu_torch.ops.cuda import matching_scan as k3
+    from gossipnet_tpu_torch.tools import scale_drill
+
+    dev = _card()
+    scale_drill.gen(n_images=64, data_dir=tmp_path)
+    _, path, _ = scale_drill.run_yamls(train_steps=3, data_dir=tmp_path)
+    cfg = load_config(path)
+    roidb, _ = training._datasets(cfg)
+    counters = (k1.pair_pool, k1.pair_pool_backward, k3.greedy_scan_batched)
+    before = [c.launches for c in counters]
+    state = training.train(cfg, roidb, device=dev,
+                           metrics_path=str(tmp_path / "m.jsonl"))
+    torch.cuda.synchronize()
+    runs = state.step + state.graphs.captures
+    assert state.step == 3
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        16 * runs, 16 * runs, runs]
+
+    batches = list(eval_batches(roidb, cfg.train.batch_size,
+                                cfg.data.bucket_sizes))
+    shapes = len({(b.batch_size, b.padded_n) for b in batches})
+    before = [c.launches for c in counters]
+    out = evaluate.main(["-c", path])
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        16 * (len(batches) + shapes), 0, 0]
+    assert 0.0 <= out["gossipnet"]["AP"] <= 1.0
+    assert out["raw_scores"]["AP"] > 0.0

@@ -51,7 +51,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "tools.bench_serving", "tools.tcp_bench_client",
                  "tools.import_weights", "utils.import_weights",
                  "tools.demo_config1", "tools.quality_demo",
-                 "tools.calibrate", "parallel", "parallel.world",
+                 "tools.calibrate", "tools.scale_drill",
+                 "tools.prepare_data", "parallel", "parallel.world",
                  "parallel.spmd", "parallel.sharding", "parallel.legs"):
         assert f"gossipnet_tpu_torch.{name}" in result["modules"], name
 
@@ -165,7 +166,8 @@ def test_world_ranks_import_no_jax():
     ("entry", []), ("bench", []), ("bench", ["--layout", "blob"]),
     ("bench_suite", []), ("probe", ["forward"]), ("probe", ["train"]),
     ("bench_serving", []), ("demo_config1", []),
-    ("quality_demo", ["clustered", "--steps", "1"]), ("calibrate", [])])
+    ("quality_demo", ["clustered", "--steps", "1"]), ("calibrate", []),
+    ("scale_drill", ["run"])])
 def test_measuring_tools_default_to_cuda_and_raise_without_a_card(tool,
                                                                   argv):
     if torch.cuda.is_available():
