@@ -227,7 +227,20 @@ Phases (each raises on failure; the script then exits non-zero):
    evaluation, config-3 training and its evaluation), each one's wall time
    and peak RSS, none building a kernel; in the full script on a
    1,000-image set (the time limit), with ``--drill`` on the 5,000 images.
-   The in-process launches join the record.
+   The in-process launches join the record;
+20. the pair kernels' skip tile (``ops/cuda/launch.py`` TILES: FI in {32,
+   64} rows x TJ in {16, 32, 64, 128} columns of a flag; ``python3
+   chip_smoke.py --tiles`` runs only this): K1/K2 and K5/K6 on the
+   16-block models' launch arguments at the bench batch, config 4's batch
+   and ``blob`` B=8 N=1024, at every tile, against their plain versions
+   (computed once a shape: they read no flags): f32 m and winners
+   bit-equal, bf16 and the gradients at the gates of phases 3 and 3b; f32
+   m bit-equal across the eight tiles; two det shards joined against the
+   square launch at every tile (m, and d_a' bit-equal: F4's gate); each
+   tile's ms/launch (events and the profiler) with its IoU tests and
+   bounds at the bench batch and config 4; then ``tools.tile_sweep`` (2
+   regimes x 8 tiles, the flagship at B=2 N=4096) and the phase's
+   seconds. Phases 1-19 run at the default tile.
 
 Every path of phases 4-14 runs through captured graphs, as a user's call
 does (phase 18's mesh paths step eagerly): a replay adds its graph's
@@ -1352,21 +1365,24 @@ def k1_geometry(geom):
     if isinstance(geom, k5.PairColumns):
         n = pf.NUM_COLUMNS
         return k1.pair_geometry(geom.row[:, :n], geom.col[:, :n],
-                                geom.neighbor_iou)._replace(flags=geom.flags)
+                                geom.neighbor_iou)._replace(
+                                    flags=geom.flags, tile=geom.tile)
     return geom
 
 
 def pair_counts(geom) -> tuple[int, int]:
     """(neighbour pairs, IoU tests) of one pair stage on this run's data:
     the valid pairs with IoU >= the threshold, and the valid pairs of the
-    active tiles. ``geom`` is K1's geometry or K5's columns."""
+    active tiles at the geometry's skip tile. ``geom`` is K1's geometry or
+    K5's columns."""
     geom = k1_geometry(geom)
     rv, cv = geom.row[:, 7] > 0, geom.col[:, 7] > 0
     pair_valid = rv[:, :, None] & cv[:, None, :]
     nb = neighbour_mask(geom).sum().item()
     nr, nc = geom.row.shape[2], geom.col.shape[2]
-    active = geom.flags.repeat_interleave(k1.TILE_I, 1)[:, :nr] \
-        .repeat_interleave(k1.TILE_J, 2)[:, :, :nc] > 0
+    fi, tj = geom.tile
+    active = geom.flags.repeat_interleave(fi, 1)[:, :nr] \
+        .repeat_interleave(tj, 2)[:, :, :nc] > 0
     return nb, (active & pair_valid).sum().item()
 
 
@@ -1406,20 +1422,21 @@ def group_fill(geom, group: int, side: str = "rows", splits: int = 1):
     K6: ``geom`` as for :func:`pair_counts`) on this run's data, counted
     from the masks as the kernels queue them: a block owns 32 rows
     (``side="rows"``; the backward's column pass owns 32 columns), warp
-    w of its four takes 16 of each 64 detections of the other side in steps
-    of two, the ``splits`` blocks that share the own detections take the
-    steps round robin, and a warp pops groups of ``group`` pairs; only its
-    last group can be short.
+    w of its four takes a quarter of each TJ detections of the other side
+    (the geometry's skip tile) in steps of two, the ``splits`` blocks that
+    share the own detections take the steps round robin, and a warp pops
+    groups of ``group`` pairs; only its last group can be short.
     pairs / slots is the share of stage B's lanes on a real pair."""
     nb = neighbour_mask(k1_geometry(geom))
+    tj = geom.tile[1]
     if side == "cols":
         nb = nb.transpose(1, 2)
     bsz, nown, noth = nb.shape
     per_tile = torch.nn.functional.pad(nb, (0, 0, 0, -nown % k1.TILE_I)) \
         .view(bsz, -1, k1.TILE_I, noth).sum(dim=2)           # [B, NT, NOTH]
     j = torch.arange(noth, device=nb.device)
-    item = j // k1.TILE_J * 8 + j % 16 // 2    # a step of two tests
-    key = item % splits * 4 + j % k1.TILE_J // 16
+    item = j // tj * (tj // 8) + j % (tj // 4) // 2   # a step of two tests
+    key = item % splits * 4 + j % tj // (tj // 4)
     counts = torch.zeros(bsz, per_tile.shape[1], splits * 4,
                          dtype=per_tile.dtype, device=nb.device)
     counts.index_add_(2, key, per_tile)
@@ -1437,8 +1454,10 @@ def log_queues(label, args, m, dtype, kern=k1) -> None:
     geom = args[0]
     fwd, bwd = LABELS[kern]
     splits = col_splits(
-        geom.flags.shape[0] * geom.flags.shape[1], geom.flags.shape[2],
-        torch.cuda.get_device_properties(0).multi_processor_count)
+        geom.flags.shape[0] * -(-geom.row.shape[2] // k1.TILE_I),
+        geom.flags.shape[2],
+        torch.cuda.get_device_properties(0).multi_processor_count,
+        geom.tile[1])
     for dt, group in (("bfloat16", 16), ("float32", 32)):
         fills = [group_fill(geom, group, "rows", splits),
                  group_fill(geom, group, "cols", splits),
@@ -2778,7 +2797,7 @@ def phase_k1_stages():
             build.NVCC_FLAGS = flags + extra
             build._loaded.pop("pairwise2_fwd", None)
             if splits is not None:
-                launch.col_splits = lambda blocks, nj, sms: splits
+                launch.col_splits = lambda blocks, nj, sms, tj=64: splits
             cells = []
             for fwd, _ in shapes.values():
                 cells.append("/".join(
@@ -4190,15 +4209,17 @@ MESH_DEV = f"{DEV}:0"   # every rank of a world on the one card
 def shard_args(args, rows: slice, kern):
     """Launch arguments of rows ``rows`` of a square launch against all of
     its columns, as the det-sharded forward builds them: the rows' fields
-    and a, the tile flags of those rows, every column."""
+    and a, the tile flags of those rows at the launch's skip tile, every
+    column."""
     geom = args[0]
     row = geom.row[:, :, rows].contiguous()
     if kern is k1:
-        flags = k1.tile_activity(row, geom.col)
+        flags = k1.tile_activity(row, geom.col, *geom.tile)
         geom = geom._replace(row=row, flags=flags.contiguous(),
                              i_feats=geom.i_feats[:, rows].contiguous())
     else:
-        flags = k1.tile_activity(row, geom.col, valid_field=k5._VALID)
+        flags = k1.tile_activity(row, geom.col, *geom.tile,
+                                 valid_field=k5._VALID)
         geom = geom._replace(row=row, flags=flags.contiguous())
     return (geom, args[1][:, rows].contiguous(), *args[2:6])
 
@@ -4849,6 +4870,220 @@ def phase_drill(card: str, run_images: int) -> tuple[dict, float, float]:
     return launches, k1_err, k2_err
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the pair kernels' skip tile
+# ---------------------------------------------------------------------------
+
+TILE_SHAPES = ("bench B=8 N=1024", "config 4 B=2 N=4096", "blob B=8 N=1024")
+TILE_TIMED = TILE_SHAPES[:2]   # the shapes phase 20 times every tile at
+
+
+def at_tile(args, tile):
+    """Launch arguments ``args`` with the geometry's flags rebuilt at skip
+    tile ``tile``, by the model's rule (``tile_activity`` at that shape),
+    and the tile the launches then take."""
+    geom = args[0]
+    valid = k5._VALID if isinstance(geom, k5.PairColumns) else k1._VALID
+    flags = k1.tile_activity(geom.row, geom.col, *tile, valid_field=valid)
+    return (geom._replace(flags=flags.contiguous(), tile=tuple(tile)),
+            *args[1:])
+
+
+def tile_shape_args(kern) -> dict:
+    """The last block's backward launch arguments (args, m, dm) of the
+    16-block models through ``kern`` (K1/K2 with ``pair_kernel: 2``,
+    K5/K6 with 1; seeded weights, bf16) at the serving bench batch,
+    config 4's training batch and the flagship on ``blob`` B=8 N=1024."""
+    pk = 2 if kern is k1 else 1
+    serving = seeded_model(load_config(experiment_path("serving_bucketed"),
+                                       {"model": {"pair_kernel": pk}}))
+    cfg4 = crowd_config(pair_kernel=pk)
+    crowd = training.batch_to_device(next(BatchIterator(
+        synthetic_roidb(**CROWD_DATA), 2, cfg4.data.bucket_sizes)),
+        torch.device(DEV))
+    blob = layout_batch("blob", 8, 1024, seed=0)
+    return {
+        TILE_SHAPES[0]: capture_pair(kern, serving,
+                                     *sorted_bench_batch(8, 1024))[1],
+        TILE_SHAPES[1]: capture_pair(kern, seeded_model(cfg4), crowd["boxes"],
+                                     crowd["scores"], crowd["valid"])[1],
+        TILE_SHAPES[2]: capture_pair(
+            kern, seeded_model(flagship(pair_kernel=pk)),
+            *(torch.from_numpy(x).to(DEV)
+              for x in (blob.boxes, blob.scores, blob.valid)))[1]}
+
+
+def tile_gate(kern, label: str, args, dm) -> tuple[float, float]:
+    """The forward and backward kernel at every skip tile against their
+    plain versions on one shape's launch arguments, which read no flags
+    and so run once for all the tiles: f32 m and winners bit-equal, bf16 m
+    at phase 3's tolerance, the gradients at phase 3b's (bf16: dm zero at
+    the near-tied maxima); f32 m bit-equal across the tiles -> the worst
+    errors of the forward and the backward."""
+    fname, bname = LABELS[kern]
+    if not torch.equal(at_tile(args, launch.DEFAULT_TILE)[0].flags,
+                       args[0].flags):
+        raise AssertionError(f"phase 20: the flags rebuilt at the default "
+                             f"tile differ from the model's ({label})")
+    t0 = time.perf_counter()
+    plain = {}
+    for dt in ("float32", "bfloat16"):
+        dmd = dm if dt == "float32" else torch.where(
+            near_ties(args, dt, kern), torch.zeros_like(dm), dm)
+        m = kern._reference_core(*args, dt)
+        plain[dt] = (m, dmd, kern.pair_pool_backward_reference(*args, m, dmd,
+                                                               dt))
+    ones = torch.ones_like(dm)
+    wins = kern.pair_pool_backward_reference(*args, plain["float32"][0],
+                                             ones, "float32")[4]
+    torch.cuda.synchronize()
+    log(f"  {label}: the plain {fname} and {bname}, f32 and bf16, and the "
+        f"winners, once for the eight tiles: "
+        f"{time.perf_counter() - t0:.1f} s; {int(wins.sum().item())} "
+        f"winners")
+    worst_f = worst_b = 0.0
+    m32 = {}
+    for tile in launch.TILES:
+        ta = at_tile(args, tile)
+        cells = []
+        for dt in ("float32", "bfloat16"):
+            want_m, dmd, want_g = plain[dt]
+            m = kern.launch_kernel(*ta, dt)
+            got = kern.launch_backward_kernel(*ta, m, dmd, dt)
+            ok_w = True
+            if dt == "float32":
+                m32[tile] = m
+                ok_w = torch.equal(kern.launch_backward_kernel(
+                    *ta, m, ones, "float32")[4], wins)
+            torch.cuda.synchronize()
+            err = (m - want_m).abs().max().item()
+            ok_m = (torch.equal(m, want_m) if dt == "float32"
+                    else within(m, want_m, dt))
+            errs, ok_g = grad_errors(got, want_g, dt)
+            worst_f, worst_b = max(worst_f, err), max(worst_b,
+                                                      max(errs.values()))
+            equal = " (bit-equal)" if torch.equal(m, want_m) else ""
+            wins_text = ", winners bit-equal" if dt == "float32" else ""
+            cells.append(f"{dt} m {err:.2e}{equal}{wins_text}, grads "
+                         + " ".join(f"{n}={e:.1e}" for n, e in errs.items()))
+            if not (ok_m and ok_g and ok_w):
+                raise AssertionError(
+                    f"phase 20: {fname}/{bname} at tile {tile} disagree with "
+                    f"their plain versions: {label} {dt}: m ok {ok_m}, "
+                    f"winners ok {ok_w}, {errs}")
+        log(f"  {fname}/{bname} {label} tile {tile[0]}x{tile[1]}: "
+            + "; ".join(cells) + " -> ok")
+    same = all(torch.equal(m, m32[launch.DEFAULT_TILE]) for m in m32.values())
+    log(f"  {fname} {label}: f32 m bit-equal across the eight tiles {same}")
+    if not same:
+        raise AssertionError(f"phase 20: {fname} f32 m moves with the tile: "
+                             f"{label}")
+    return worst_f, worst_b
+
+
+def tile_shard_gate(kern, label: str, args, dm) -> None:
+    """Two det shards (n_det = 2: each half of the rows against every
+    column, as the det-sharded forward launches them) at every skip tile:
+    the forward's m joined bit-equal to the square launch's at the same
+    tile (bf16: within phase 3's tolerance where not), the backward's d_a'
+    joined bit-equal (F4's gate), f32 and bf16."""
+    fname, bname = LABELS[kern]
+    half = args[1].shape[1] // 2
+    for tile in launch.TILES:
+        ta = at_tile(args, tile)
+        cells = []
+        for dt in ("float32", "bfloat16"):
+            m_sq = kern.launch_kernel(*ta, dt)
+            da_sq = kern.launch_backward_kernel(*ta, m_sq, dm, dt)[0]
+            ms, das = [], []
+            for r in range(2):
+                rows = slice(r * half, (r + 1) * half)
+                sa = shard_args(ta, rows, kern)
+                ms.append(kern.launch_kernel(*sa, dt))
+                das.append(kern.launch_backward_kernel(
+                    *sa, m_sq[:, rows].contiguous(),
+                    dm[:, rows].contiguous(), dt)[0])
+            m_sh, da_sh = torch.cat(ms, 1), torch.cat(das, 1)
+            torch.cuda.synchronize()
+            m_eq, da_eq = torch.equal(m_sh, m_sq), torch.equal(da_sh, da_sq)
+            cells.append(f"{dt} m {m_eq}, d_a' {da_eq}")
+            if not da_eq or not (m_eq or (dt != "float32"
+                                          and within(m_sh, m_sq, dt))):
+                raise AssertionError(
+                    f"phase 20: two det shards differ from the square launch "
+                    f"at tile {tile}: {label} {dt}: {fname} m equal {m_eq}, "
+                    f"{bname} d_a' equal {da_eq}")
+        log(f"  two det shards, {label}, tile {tile[0]}x{tile[1]}: joined "
+            f"== square launch: " + "; ".join(cells) + " -> ok")
+
+
+def tile_times(kern, label: str, args, dm, dtype: str) -> dict:
+    """ms per launch of the forward and backward kernel at every skip tile
+    (CUDA events around a chain, and the device time of one launch from
+    the profiler) beside the stage-A tests and the bounds -> {tile:
+    (fwd events, bwd events, fwd device, bwd device)}."""
+    fname, bname = LABELS[kern]
+    out = {}
+    for tile in launch.TILES:
+        ta = at_tile(args, tile)
+        m = kern.launch_kernel(*ta, dtype)
+
+        def fwd_call():
+            return kern.launch_kernel(*ta, dtype)
+
+        def bwd_call():
+            return kern.launch_backward_kernel(*ta, m, dm, dtype)
+
+        row = (cuda_time(fwd_call, iters=20), cuda_time(bwd_call, iters=10),
+               device_ms(fwd_call, reps=5), device_ms(bwd_call, reps=5))
+        out[tile] = row
+        nb, tests = pair_counts(ta[0])
+        fb = (k1_bound(ta, dtype) if kern is k1 else k5_bound(ta, dtype))[:2]
+        bb = k2_bound(ta, m, dm, dtype, kern=kern)[:2]
+        d1, d2 = (f"{d:.4f}" if d else "not measured" for d in row[2:])
+        log(f"  {label} {dtype} tile {tile[0]}x{tile[1]}: {tests} IoU tests "
+            f"for {nb} neighbour pairs; {fname} {row[0]:.4f} ms/launch "
+            f"(events), {d1} on the device, bound {fb[0]:.5f} ({fb[1]}); "
+            f"{bname} {row[1]:.4f} (events), {d2} on the device, bound "
+            f"{bb[0]:.5f} ({bb[1]})")
+    return out
+
+
+def phase_tiles(card: str) -> dict:
+    """Phase 20: the pair kernels' skip tile (``launch.TILES``). For K1/K2
+    and K5/K6 at the bench batch, config 4's and blob B=8 N=1024, every
+    tile against the plain versions (computed once a shape) and f32 m
+    across the tiles; two det shards against the square launch at every
+    tile (K1/K2 at the bench batch, K5/K6 at config 4); each tile timed at
+    the bench batch and config 4; then ``tools.tile_sweep`` as a user runs
+    it -> the worst errors by kernel."""
+    from gossipnet_tpu_torch.tools import tile_sweep
+
+    t0 = time.perf_counter()
+    log(f"phase 20: the skip tile (FI x TJ) of K1, K2, K5 and K6 at every "
+        f"tile of {launch.TILES} (default {launch.DEFAULT_TILE}); "
+        + "; ".join(TILE_SHAPES))
+    worst = {}
+    for kern, shard_shape in ((k1, TILE_SHAPES[0]), (k5, TILE_SHAPES[1])):
+        fwd_name, bwd_name = ("pair_pool2_fwd", "pair_pool2_bwd") \
+            if kern is k1 else ("pair_pool_fwd", "pair_pool_bwd")
+        for label, bwd in tile_shape_args(kern).items():
+            args, dm = bwd[:6], bwd[7]
+            ef, eb = tile_gate(kern, label, args, dm)
+            worst[fwd_name] = max(worst.get(fwd_name, 0.0), ef)
+            worst[bwd_name] = max(worst.get(bwd_name, 0.0), eb)
+            if label == shard_shape:
+                tile_shard_gate(kern, label, args, dm)
+            if label in TILE_TIMED:
+                tile_times(kern, label, args, dm, bwd[-1])
+    log(f"  gates and times: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    tile_sweep.main([])
+    log(f"  tools.tile_sweep: {time.perf_counter() - t1:.1f} s; {card}")
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s")
+    return worst
+
+
 def phase_build(names=KERNELS):
     log(f"phase 2: build {', '.join(names)} from ops/cuda/csrc/, one nvcc "
         f"each, all at once")
@@ -4952,6 +5187,12 @@ def main() -> int:
         phase_drill(card, scale_drill.N_IMAGES)
         log(card)
         return 0
+    if sys.argv[1:] == ["--tiles"]:
+        # Phase 20 alone: every skip tile gated, timed and swept.
+        phase_build(PAIR_KERNELS)
+        phase_tiles(card)
+        log(card)
+        return 0
     if sys.argv[1:] == ["--k1-stages"]:
         phase_build(KERNELS[:2])
         phase_k1_stages()
@@ -5011,6 +5252,8 @@ def main() -> int:
         card, DRILL_RUN_IMAGES)
     worst["pair_pool2_fwd"] = max(worst["pair_pool2_fwd"], drill_k1_err)
     worst["pair_pool2_bwd"] = max(worst["pair_pool2_bwd"], drill_k2_err)
+    for name, err in phase_tiles(card).items():
+        worst[name] = max(worst[name], err)
     log(f"launches on the main paths: serving K1 {serve_launches} "
         f"(phases 4 and 14); "
         f"training {launches}; config 4 training {crowd_launches}; the "

@@ -44,9 +44,11 @@ class ModelConfig:
     # a clustered image skip.
     block_sparse: bool = True
     sort_detections: bool = True
-    # The TPU kernel's tile shape. Accepted and ignored: the CUDA kernels
-    # have their own tile (ops/cuda/launch.py TILE_I x TILE_J), and the
-    # result does not depend on the tile.
+    # The TPU kernel's block shape. Accepted and ignored: a TPU block of 128
+    # or 256 is no card tile. The CUDA kernels' skip tile is chosen where
+    # the model is built (GossipNet(pair_tile=...), train.build_model; one
+    # of ops/cuda/launch.py TILES, default DEFAULT_TILE), and the result
+    # does not depend on it.
     pair_tile_i: int = 128
     pair_tile_j: int = 128
     # Pair-kernel generation: 2 = the separable-fold kernel K1/K2

@@ -45,6 +45,7 @@ from gossipnet_tpu_torch.ops import order as ordering
 from gossipnet_tpu_torch.ops import pair_features as pf
 from gossipnet_tpu_torch.ops import ranking
 from gossipnet_tpu_torch.ops.cuda import pairwise, pairwise2
+from gossipnet_tpu_torch.ops.cuda.launch import check_tile
 
 NEG_INF = -1e30
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -170,12 +171,19 @@ class GossipNet(nn.Module):
     with ``load_state_dict`` (see ``params.py``). ``remat`` rematerialises
     each block in the backward (trades recompute for activation memory;
     with the kernel path the recompute launches the pair kernel again).
+    ``pair_tile``: the pair kernels' skip tile (FI, TJ), one of
+    ``ops/cuda/launch.py`` TILES (``None``: ``launch.DEFAULT_TILE``); the
+    flags are built at it and every launch takes it, the det-sharded
+    forward's row shards too. The result does not depend on it. The
+    config's ``pair_tile_i/j`` are the TPU kernel's block and do not reach
+    the card.
     """
 
     def __init__(self, cfg: ModelConfig, pool_impl: str = "dense",
-                 device="cuda", remat: bool = False):
+                 device="cuda", remat: bool = False, pair_tile=None):
         super().__init__()
         check_supported(cfg, pool_impl)
+        self.pair_tile = check_tile(pair_tile)
         device = resolve_device(device)
         # "float32" means IEEE f32, as the JAX side forces with
         # Precision.HIGHEST: no TF32 in matmuls or convolutions.
@@ -215,7 +223,7 @@ class GossipNet(nn.Module):
                          else (pairwise, pairwise.pair_columns))
         geom = build(row, col, cfg.neighbor_iou,
                      None if classes is None else own(classes), classes,
-                     block_sparse=cfg.block_sparse)
+                     block_sparse=cfg.block_sparse, tile=self.pair_tile)
 
         # the bf16 stream is K1/K2's alone: K5/K6 ignore it, as v1 does
         kw = ({"elementwise_dtype": cfg.pair_elementwise_dtype}

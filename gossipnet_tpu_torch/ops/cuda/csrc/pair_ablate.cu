@@ -88,8 +88,8 @@ using gnet::TILE_I;
 constexpr int P = 32;      // pairwise_dim of the probe
 constexpr int G = 8;       // pair features
 constexpr int C = 14;      // DetColumns fields (class-agnostic)
-constexpr int PANEL = gnet::TILE_J;  // column fields are staged in panels
-                                     // of 64, the stride col() reads with
+constexpr int PANEL = gnet::unfolded::K7_PANEL;  // column fields are
+                                                 // staged in panels of 64, col()'s stride
 constexpr int GROUP = 16;                        // rows of an mma tile
 constexpr int ROW_GROUPS = TILE_I / GROUP;       // 2
 constexpr int COL_SPLITS = NWARPS / ROW_GROUPS;  // warps per row group: 2

@@ -42,7 +42,11 @@
 //   d_b'. Every sum is local to a block, so no [B, NI, NC, P] partial of
 //   d_b' is written, zero-filled or reduced; the price is a second
 //   recompute, which the tensor cores made cheap. In bf16 mode the two
-//   passes are one grid (see launch below).
+//   passes are one grid (see launch below). The column pass reads which
+//   of its tiles of rows can hold a neighbour from bits it finds once at
+//   the start (stage_column_activity): at the skip tile FI x TJ a tile of
+//   rows and 32 columns overlap up to four flags, and reading them at
+//   every step cost K2 up to 3% and K6 up to 8% at 32 x 64.
 // Deterministic, with no float atomics: a warp adds its winners in queue
 // order, which depends only on the inputs; the four warps' sums meet in
 // order; the wrapper sums the row blocks' weight partials. Two launches
@@ -77,7 +81,8 @@ constexpr size_t smem_words() {
          + P * P                                          // W2^T for W2 dpre2
          + KMAX * P + P                                   // wgs, b2s
          + NWARPS * (QCAP * QWORDS + WCAP * WWORDS)       // queues
-         + NWARPS * warp_acc_words<P, ROWSIDE>();
+         + NWARPS * warp_acc_words<P, ROWSIDE>()
+         + (ROWSIDE ? 0 : ACT_WORDS);  // the column pass's tile bits
 }
 
 struct Args {
@@ -87,6 +92,7 @@ struct Args {
   float *da, *db, *dwg_part, *dw2_part, *db2_part;
   int B, NR, NC, K, splits;
   float thr;
+  Tile tile;  // the flags' skip tile
 };
 
 // ROWSIDE: the block owns rows [own0, own0 + 32) and walks the columns;
@@ -107,6 +113,8 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
   float* b2s = wgs + KMAX * P;                         // [P]
   float* qbase = b2s + P;
   float* accbase = qbase + NWARPS * (QCAP * QWORDS + WCAP * WWORDS);
+  unsigned* act_bits =  // [ACT_WORDS], the column pass's (!ROWSIDE)
+      reinterpret_cast<unsigned*>(accbase + NWARPS * ACC);
 
   const int K = x.K;
   const int C = K == 4 ? 9 : 8;
@@ -114,8 +122,8 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int NI = (NR + TILE_I - 1) / TILE_I;
-  const int NJ = (NC + TILE_J - 1) / TILE_J;
+  const int NI = (NR + TILE_I - 1) / TILE_I;        // row blocks
+  const int NFR = x.tile.rows(NR), NFC = x.tile.cols(NC);  // the flags
   const int own0 = tile * TILE_I;
   const int NOWN = ROWSIDE ? NR : NC;
   const int NOTH = ROWSIDE ? NC : NR;
@@ -144,6 +152,10 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
   }
   stage_small_weights<P, BF16>(x.wg, x.b2, K, wgs, b2s, tid);
   for (int e = tid; e < (int)(NWARPS * ACC); e += NTHREADS) accbase[e] = 0.f;
+  const int* fl = x.flags + (size_t)img * NFR * NFC;
+  if (!ROWSIDE)
+    stage_column_activity(fl, NFR, NFC, x.tile, own0, NR, act_bits, lane,
+                          warp);
   __syncthreads();
 
   const float* own_fields =
@@ -160,7 +172,6 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
   const float* b_img = x.b + (size_t)img * NC * P;
   const float* m_img = x.m + (size_t)img * NR * P;
   const float* dm_img = x.dm + (size_t)img * NR * P;
-  const int* fl = x.flags + (size_t)img * NI * NJ;
 
   // The warp's sums of dWg_k[:, p] and db2[p] for this lane's p values stay
   // in registers: every winner adds to them.
@@ -337,17 +348,17 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
     gradients(nwin);
   };
 
-  // Whether tile t of the other side can hold a neighbour of this block.
+  // Whether tile t of the other side (TJ detections) can hold a neighbour
+  // of this block: in the row pass the flag in column t of the own rows'
+  // flag row; in the column pass, bit t of stage_column_activity's.
+  const int* own_flags =
+      ROWSIDE ? fl + (size_t)(own0 >> x.tile.fi_shift) * NFC : fl;
   auto active = [&](int t) {
-    if (ROWSIDE) return fl[(size_t)tile * NJ + t] != 0;
-    // 64 rows are row tiles 2t, 2t + 1; the own columns sit in column
-    // tile tile / 2
-    const int tj = tile * TILE_I / TILE_J;
-    return fl[(size_t)(2 * t) * NJ + tj] != 0 ||
-           (2 * t + 1 < NI && fl[(size_t)(2 * t + 1) * NJ + tj] != 0);
+    return ROWSIDE ? own_flags[t] != 0
+                   : ((act_bits[t >> 5] >> (t & 31)) & 1u) != 0u;
   };
   run_stages<BF16, GROUP>(ri, live, oth_fields, C, NOTH, split, x.splits,
-                          active, K, x.thr,
+                          x.tile.tj_shift, active, K, x.thr,
                           ROWSIDE ? own << 16 : own, ROWSIDE ? 0 : 16, q_ij,
                           q_g, lane, warp, consume);
 
@@ -472,17 +483,22 @@ int dispatch_p(int P, const Args& x, cudaStream_t s) {
 
 extern "C" {
 
-// Tile shape the flags must be computed at: TILE_I * 1000 + TILE_J.
-int gnet_pair_pool2_bwd_tiles() { return TILE_I * 1000 + TILE_J; }
+// Whether the kernel takes the skip tile FI x TJ (rows x columns of a flag).
+int gnet_pair_pool2_bwd_tiles(int fi, int tj) {
+  Tile t;
+  return make_tile(fi, tj, t) ? 1 : 0;
+}
 
 // Launches K2 (its row pass and its column pass) on `stream`; returns
 // cudaGetLastError() (0 = launched). `splits` blocks share the work on a
 // tile of own detections, each summing into its own slice. Every output is
 // written in full: da [B, NR, P] and db [B, NC, P] (through the scratch
 // da_part [S, B, NR, P] and db_part [S, B, NC, P], whose slices are added
-// in order; unused when S = 1), and per row block dwg_part [S*B*NI, K, P],
-// dw2_part [S*B*NI, P, P], db2_part [S*B*NI, P], which the caller sums.
-// `mode`: 0 f32, 1 bf16 operands, 2 bf16 operands and the bf16 stream.
+// in order; unused when S = 1), and per row block of 32 (NI of them)
+// dwg_part [S*B*NI, K, P], dw2_part [S*B*NI, P, P], db2_part [S*B*NI, P],
+// which the caller sums. `mode`: 0 f32, 1 bf16 operands, 2 bf16 operands
+// and the bf16 stream. `flags` [B, ceil(NR / fi), ceil(NC / tj)] at the
+// skip tile fi x tj.
 int gnet_pair_pool2_bwd(const float* row_cols, const float* col_cols,
                         const float* a, const float* b, const float* wg,
                         const float* w2, const float* b2, const int* flags,
@@ -490,7 +506,9 @@ int gnet_pair_pool2_bwd(const float* row_cols, const float* col_cols,
                         float* db, float* da_part, float* db_part,
                         float* dwg_part, float* dw2_part, float* db2_part,
                         int B, int NR, int NC, int P, int K, int splits,
-                        float thr, int mode, void* stream) {
+                        float thr, int mode, int fi, int tj, void* stream) {
+  Tile tile;
+  if (!make_tile(fi, tj, tile)) return (int)cudaErrorInvalidValue;
   if (B <= 0 || NR <= 0) return 0;
   if ((K != 3 && K != 4) || NC < 0 || NR > MAX_DETS || NC > MAX_DETS ||
       splits < 1 || splits > 65535 || mode < 0 || mode > 2)
@@ -498,7 +516,8 @@ int gnet_pair_pool2_bwd(const float* row_cols, const float* col_cols,
   const bool direct = splits == 1;
   const Args x{row_cols, col_cols, a, b, wg, w2, b2, flags, m, dm,
                direct ? da : da_part, direct ? db : db_part,
-               dwg_part, dw2_part, db2_part, B, NR, NC, K, splits, thr};
+               dwg_part, dw2_part, db2_part, B, NR, NC, K, splits, thr,
+               tile};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int e = mode == 2 ? dispatch_p<true, true>(P, x, s)
           : mode     ? dispatch_p<true, false>(P, x, s)

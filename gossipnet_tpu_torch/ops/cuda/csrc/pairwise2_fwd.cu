@@ -17,7 +17,7 @@
 // sparse work is laid on warps, not the arithmetic rate. What the design
 // does about it:
 // - Test densely, compute compactly. Stage A: lane l owns row row0 + l,
-//   the four warps split each tile of 64 columns, every lane tests one
+//   the four warps split each tile of TJ columns, every lane tests one
 //   (row, column) pair per step, two steps in flight, the column read
 //   through L1 as a broadcast (no staging, no barrier in the loop), the
 //   division of the IoU skipped where the pair is clearly below the
@@ -25,7 +25,8 @@
 //   queue (pair_group.cuh). Stage B pops groups of 16 (bf16) or 32 (f32)
 //   pairs, so FC1 and FC2 run with every lane on a real neighbour pair;
 //   whole tiles whose bounding boxes do not meet are skipped through the
-//   flags of tile_activity. a' and b' are read from device memory (L1/L2)
+//   flags of tile_activity, at the skip tile FI x TJ the launch names
+//   (pairwise2_pair.cuh Tile: two shifts, no instantiation of its own). a' and b' are read from device memory (L1/L2)
 //   per queued pair: 5% of the pairs need them.
 // - FC2 on the tensor cores in bf16 mode: mma.sync.m16n8k16 per warp on the
 //   group's h1 (made directly in the A-fragment layout) and W2 packed in
@@ -88,9 +89,9 @@ pair_pool2_fwd_kernel(const float* __restrict__ row_cols,  // [B, C, NR]
                       const float* __restrict__ wg,        // [K, P]
                       const float* __restrict__ w2,        // [P, P] (in, out)
                       const float* __restrict__ b2,        // [P]
-                      const int* __restrict__ flags,       // [B, NI, NJ]
+                      const int* __restrict__ flags,  // [B, NR/FI, NC/TJ]
                       float* __restrict__ out,  // [B, NR, P], 0 if split
-                      int NR, int NC, int K, float thr) {
+                      int NR, int NC, int K, float thr, Tile tile) {
   static_assert(!EW || BF16, "a bf16 stream needs bf16 operands");
   constexpr int GROUP = group_size<BF16>();
   constexpr int LD = MXLD<P>;
@@ -108,10 +109,8 @@ pair_pool2_fwd_kernel(const float* __restrict__ row_cols,  // [B, C, NR]
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int img = blockIdx.y;
-  const int tile_i = blockIdx.x;
-  const int NI = (NR + TILE_I - 1) / TILE_I;
-  const int NJ = (NC + TILE_J - 1) / TILE_J;
-  const int row0 = tile_i * TILE_I;
+  const int row0 = blockIdx.x * TILE_I;
+  const int NFR = tile.rows(NR), NFC = tile.cols(NC);  // the flags' shape
   int* q_ij = q_ij_all + warp * QCAP;
   float* q_g = q_g_all + warp * QFEAT * QCAP;
 
@@ -133,7 +132,9 @@ pair_pool2_fwd_kernel(const float* __restrict__ row_cols,  // [B, C, NR]
   const float* cc = col_cols + (size_t)img * C * NC;
   const float* a_img = a + (size_t)img * NR * P;
   const float* b_img = b + (size_t)img * NC * P;
-  const int* fl = flags + ((size_t)img * NI + tile_i) * NJ;
+  // the flag row of the block's rows: the cells of its tiles of columns
+  const int* fl =
+      flags + ((size_t)img * NFR + (row0 >> tile.fi_shift)) * NFC;
 
   // Stage B: one group of `n` queued pairs from ring slot `head`.
   auto consume = [&](int head, int n) {
@@ -187,8 +188,9 @@ pair_pool2_fwd_kernel(const float* __restrict__ row_cols,  // [B, C, NR]
   };
 
   auto active = [&](int tj) { return fl[tj] != 0; };
-  run_stages<BF16, GROUP>(ri, live, cc, C, NC, blockIdx.z, gridDim.z, active, K, thr,
-                          i << 16, 0, q_ij, q_g, lane, warp, consume);
+  run_stages<BF16, GROUP>(ri, live, cc, C, NC, blockIdx.z, gridDim.z,
+                          tile.tj_shift, active, K, thr, i << 16, 0, q_ij,
+                          q_g, lane, warp, consume);
 
   // The block's maxima leave: stored where it saw every column, merged
   // where the columns are split over blocks (out is zero there).
@@ -209,7 +211,7 @@ template <int P, bool BF16, bool EW>
 int launch(const float* row_cols, const float* col_cols, const float* a,
            const float* b, const float* wg, const float* w2, const float* b2,
            const int* flags, float* out, int B, int NR, int NC, int K,
-           int splits, float thr, cudaStream_t stream) {
+           int splits, float thr, Tile tile, cudaStream_t stream) {
   const size_t smem = smem_words<P, BF16>() * sizeof(float);
   auto kernel = pair_pool2_fwd_kernel<P, BF16, EW>;
   if (smem > 48 * 1024) {
@@ -219,7 +221,8 @@ int launch(const float* row_cols, const float* col_cols, const float* a,
   }
   const dim3 grid((NR + TILE_I - 1) / TILE_I, B, splits);
   kernel<<<grid, NTHREADS, smem, stream>>>(row_cols, col_cols, a, b, wg, w2,
-                                           b2, flags, out, NR, NC, K, thr);
+                                           b2, flags, out, NR, NC, K, thr,
+                                           tile);
   return (int)cudaGetLastError();
 }
 
@@ -228,20 +231,20 @@ int dispatch_p(int P, const float* row_cols, const float* col_cols,
                const float* a, const float* b, const float* wg,
                const float* w2, const float* b2, const int* flags, float* out,
                int B, int NR, int NC, int K, int splits, float thr,
-               cudaStream_t s) {
+               Tile tile, cudaStream_t s) {
   switch (P) {
     case 8:
       return launch<8, BF16, EW>(row_cols, col_cols, a, b, wg, w2, b2, flags, out,
-                             B, NR, NC, K, splits, thr, s);
+                             B, NR, NC, K, splits, thr, tile, s);
     case 16:
       return launch<16, BF16, EW>(row_cols, col_cols, a, b, wg, w2, b2, flags,
-                              out, B, NR, NC, K, splits, thr, s);
+                              out, B, NR, NC, K, splits, thr, tile, s);
     case 32:
       return launch<32, BF16, EW>(row_cols, col_cols, a, b, wg, w2, b2, flags,
-                              out, B, NR, NC, K, splits, thr, s);
+                              out, B, NR, NC, K, splits, thr, tile, s);
     case 64:
       return launch<64, BF16, EW>(row_cols, col_cols, a, b, wg, w2, b2, flags,
-                              out, B, NR, NC, K, splits, thr, s);
+                              out, B, NR, NC, K, splits, thr, tile, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -251,18 +254,25 @@ int dispatch_p(int P, const float* row_cols, const float* col_cols,
 
 extern "C" {
 
-// Tile shape the flags must be computed at: TILE_I * 1000 + TILE_J.
-int gnet_pair_pool2_tiles() { return TILE_I * 1000 + TILE_J; }
+// Whether the kernel takes the skip tile FI x TJ (rows x columns of a flag).
+int gnet_pair_pool2_tiles(int fi, int tj) {
+  Tile t;
+  return make_tile(fi, tj, t) ? 1 : 0;
+}
 
 // Launches K1 on `stream`; returns cudaGetLastError() (0 = launched).
 // `splits` blocks share the work on a row tile; with splits > 1 they merge
 // into `out`, which is zero-filled here first, on the same stream. `mode`:
-// 0 f32, 1 bf16 operands, 2 bf16 operands and the bf16 stream.
+// 0 f32, 1 bf16 operands, 2 bf16 operands and the bf16 stream. `flags`
+// [B, ceil(NR / fi), ceil(NC / tj)] at the skip tile fi x tj.
 int gnet_pair_pool2_fwd(const float* row_cols, const float* col_cols,
                         const float* a, const float* b, const float* wg,
                         const float* w2, const float* b2, const int* flags,
                         float* out, int B, int NR, int NC, int P, int K,
-                        int splits, float thr, int mode, void* stream) {
+                        int splits, float thr, int mode, int fi, int tj,
+                        void* stream) {
+  Tile tile;
+  if (!make_tile(fi, tj, tile)) return (int)cudaErrorInvalidValue;
   if (B <= 0 || NR <= 0) return 0;
   if ((K != 3 && K != 4) || NC < 0 || NR > MAX_DETS || NC > MAX_DETS ||
       splits < 1 || splits > 65535 || mode < 0 || mode > 2)
@@ -275,13 +285,14 @@ int gnet_pair_pool2_fwd(const float* row_cols, const float* col_cols,
   }
   if (mode == 2)
     return dispatch_p<true, true>(P, row_cols, col_cols, a, b, wg, w2, b2,
-                                  flags, out, B, NR, NC, K, splits, thr, s);
+                                  flags, out, B, NR, NC, K, splits, thr, tile,
+                                  s);
   return mode ? dispatch_p<true, false>(P, row_cols, col_cols, a, b, wg, w2,
                                         b2, flags, out, B, NR, NC, K, splits,
-                                        thr, s)
+                                        thr, tile, s)
               : dispatch_p<false, false>(P, row_cols, col_cols, a, b, wg, w2,
                                          b2, flags, out, B, NR, NC, K, splits,
-                                         thr, s);
+                                         thr, tile, s);
 }
 
 }  // extern "C"

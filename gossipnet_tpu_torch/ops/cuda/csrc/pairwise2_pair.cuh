@@ -37,12 +37,70 @@
 namespace gnet {
 
 constexpr int TILE_I = 32;  // detections a block owns: one per lane
-constexpr int TILE_J = 64;  // detections of the other side per tile (flags)
 constexpr int NWARPS = 4;   // warps sharing a tile of the other side
 constexpr int NTHREADS = 32 * NWARPS;
 constexpr int KMAX = QFEAT; // pair features kept in the kernel
 constexpr int CMAX = 9;     // fields per detection (8, +1 class)
 constexpr float EPS = 1e-6f;
+
+// The skip tile, a launch argument (ops/cuda/launch.py TILES): the flags
+// of tile_activity (ops/cuda/pairwise2.py) hold one int per cell of FI
+// rows x TJ columns of the pair matrix, FI in {32, 64}, TJ in {16, 32, 64,
+// 128}. A block's own 32 detections lie in one flag row of FI (row0 / FI),
+// and stage A walks the other side in tiles of TJ. Every size is a power of
+// two, so the tile travels as two shifts and costs no instantiation.
+struct Tile {
+  int fi_shift, tj_shift;  // log2 FI, log2 TJ
+  __host__ __device__ int rows(int n) const {  // flag rows over n rows
+    return (n + (1 << fi_shift) - 1) >> fi_shift;
+  }
+  __host__ __device__ int cols(int n) const {  // flag columns over n columns
+    return (n + (1 << tj_shift) - 1) >> tj_shift;
+  }
+};
+
+// The Tile of (FI, TJ), or false where the kernels do not take the shape.
+inline bool make_tile(int fi, int tj, Tile& t) {
+  if ((fi != 32 && fi != 64) || (tj != 16 && tj != 32 && tj != 64 &&
+                                 tj != 128))
+    return false;
+  t.fi_shift = fi == 32 ? 5 : 6;
+  for (t.tj_shift = 4; (1 << t.tj_shift) < tj; ++t.tj_shift) {
+  }
+  return true;
+}
+
+// The backwards' column pass: a block owns columns [c0, c0 + 32) and
+// walks the rows in tiles of TJ. Tile t can hold a neighbour when a flag
+// is set in any cell that overlaps rows [t TJ, (t + 1) TJ) x the own
+// columns: up to TJ / FI flag rows (four at 32 x 128) by up to 32 / TJ
+// flag columns (two at TJ = 16). The block finds that once for all its
+// tiles, one bit a tile, into `bits` in shared memory (ACT_WORDS words:
+// MAX_DETS rows at TJ = 16), so the stage loop reads one bit an item.
+// `fl` is one image's flags, nfr x nfc; `nrows` the rows walked. The
+// caller synchronises the block before the bits are read.
+constexpr int ACT_WORDS = MAX_DETS / 16 / 32;
+
+__device__ __forceinline__ void stage_column_activity(
+    const int* __restrict__ fl, int nfr, int nfc, Tile tile, int c0,
+    int nrows, unsigned* bits, int lane, int warp) {
+  const int fc0 = c0 >> tile.tj_shift;
+  const int fc1 = min((c0 + 31) >> tile.tj_shift, nfc - 1);
+  const int ntiles = (nrows + (1 << tile.tj_shift) - 1) >> tile.tj_shift;
+  for (int base = warp * 32; base < ntiles; base += NWARPS * 32) {
+    const int t = base + lane;
+    bool on = false;
+    if (t < ntiles) {
+      const int fr1 =
+          min((((t + 1) << tile.tj_shift) - 1) >> tile.fi_shift, nfr - 1);
+      for (int fr = (t << tile.tj_shift) >> tile.fi_shift; fr <= fr1; ++fr)
+        for (int fc = fc0; fc <= fc1; ++fc)
+          on = on || fl[(size_t)fr * nfc + fc] != 0;
+    }
+    const unsigned m = __ballot_sync(ALL_LANES, on);
+    if (lane == 0) bits[base >> 5] = m;
+  }
+}
 
 // Pairs stage B takes at once: the 16 rows of an mma tile, or one per lane.
 template <bool BF16>
@@ -111,41 +169,44 @@ __device__ __forceinline__ bool load_det(const float* __restrict__ fields,
 }
 
 // The two stages for one warp. Lane l owns one detection. Stage A tests
-// it against the warp's TILE_J / NWARPS detections of every active tile of
-// the other side, STEP at a time so that their loads and IoU chains
-// overlap (the whole warp reads the same detection: a broadcast from L1,
-// no staging and no block-wide barrier), and pushes the neighbours in
-// detection order. After every STEP pushes, and once more at the end for
+// it against the warp's TJ / NWARPS detections of every active tile of
+// TJ = 1 << tj_shift detections of the other side, STEP at a time so
+// that their loads and IoU chains overlap (the whole warp reads the same
+// detection: a broadcast from L1, no staging and no block-wide barrier),
+// and pushes the neighbours in detection order. After every STEP pushes, and once more at the end for
 // the short last group, `consume(head, n)` (stage B) pops the queue in
 // groups of GROUP. Stage B is instantiated at this one place: its code is
 // long, and a warp that met it at several places would wait for
 // instructions more than for data.
 // `test(d, g)`: whether the own detection and detection d of the other
 // side are neighbours, and then their NF features in g (zero on entry);
-// `active(t)`: whether tile t can hold a neighbour; `split` of `splits`:
+// `active(t)`: whether tile t (detections [t TJ, (t + 1) TJ) of the other
+// side) can hold a neighbour; `split` of `splits`:
 // this block's share of the work on its own detections; `ij_own`: the own
 // index already shifted to its half of the packed entry; `other_shift`:
 // the other half's shift.
 constexpr int STEP = 2;
 static_assert(32 + STEP * 32 <= QCAP, "a group and STEP pushes fit the ring");
+static_assert(NWARPS * STEP == 8, "a tile of TJ is TJ / 8 steps of a warp");
 
 template <int GROUP, int NF, class Active, class Test, class Consume>
 __device__ __forceinline__ void stage_loop(
-    bool live, int N, int split, int splits, Active& active, int ij_own,
-    int other_shift, int* q_ij, float* q_g, int lane, int warp, Test& test,
-    Consume& consume) {
+    bool live, int N, int split, int splits, int tj_shift, Active& active,
+    int ij_own, int other_shift, int* q_ij, float* q_g, int lane, int warp,
+    Test& test, Consume& consume) {
   if (!__any_sync(ALL_LANES, live)) return;
-  constexpr int STEPS = TILE_J / NWARPS / STEP;  // steps of a warp per tile
-  const int n_items = (N + TILE_J - 1) / TILE_J * STEPS;
+  const int steps_shift = tj_shift - 3;  // TJ / (NWARPS STEP) steps a tile
+  const int n_items = ((N + (1 << tj_shift) - 1) >> tj_shift) << steps_shift;
   int head = 0, count = 0;
   // Item w is step w % STEPS of tile w / STEPS; the blocks that share the
   // own detections take the items round robin, so a crowded tile is
   // spread over all of them.
   for (int w = split;; w += splits) {
     const bool flush = w >= n_items;
-    if (!flush && active(w / STEPS)) {
-      const int d0 = w / STEPS * TILE_J + warp * (TILE_J / NWARPS) +
-                     w % STEPS * STEP;
+    if (!flush && active(w >> steps_shift)) {
+      const int d0 = ((w >> steps_shift) << tj_shift) +
+                     (warp << (tj_shift - 2)) +
+                     (w & ((1 << steps_shift) - 1)) * STEP;
       bool pass[STEP];
       float g[STEP][NF];
 #pragma unroll
@@ -174,9 +235,9 @@ __device__ __forceinline__ void stage_loop(
 template <bool BF16, int GROUP, class Active, class Consume>
 __device__ __forceinline__ void run_stages(
     const float (&ri)[CMAX], bool live, const float* __restrict__ fields,
-    int C, int N, int split, int splits, Active& active, int K, float thr,
-    int ij_own, int other_shift, int* q_ij, float* q_g, int lane, int warp,
-    Consume& consume) {
+    int C, int N, int split, int splits, int tj_shift, Active& active, int K,
+    float thr, int ij_own, int other_shift, int* q_ij, float* q_g, int lane,
+    int warp, Consume& consume) {
   const float thr_lo = __fmul_rn(thr, 1.f - 1e-6f);
   auto test = [&](int d, float (&g)[KMAX]) {
     float cj[CMAX];
@@ -188,7 +249,7 @@ __device__ __forceinline__ void run_stages(
     }
     return false;
   };
-  stage_loop<GROUP, KMAX>(live, N, split, splits, active, ij_own,
+  stage_loop<GROUP, KMAX>(live, N, split, splits, tj_shift, active, ij_own,
                           other_shift, q_ij, q_g, lane, warp, test, consume);
 }
 

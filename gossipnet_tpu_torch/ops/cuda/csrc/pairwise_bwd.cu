@@ -77,7 +77,8 @@ constexpr size_t smem_words() {
          + P * P                                 // W2^T for W2 dpre2
          + GMAX * P + P                          // wgs, b2s
          + NWARPS * (QCAP * QWORDS6 + WCAP * WWORDS)  // queues
-         + NWARPS * warp_acc_words<P, ROWSIDE>();
+         + NWARPS * warp_acc_words<P, ROWSIDE>()
+         + (ROWSIDE ? 0 : ACT_WORDS);  // the column pass's tile bits
 }
 
 struct Args {
@@ -87,6 +88,7 @@ struct Args {
   float *da, *db, *dwg_part, *dw2_part, *db2_part;
   int B, NR, NC, G, splits;
   float thr;
+  Tile tile;  // the flags' skip tile
 };
 
 // ROWSIDE: the block owns rows [own0, own0 + 32) and walks the columns;
@@ -106,6 +108,8 @@ __device__ __forceinline__ void pair_pool_bwd_pass(const Args& x, int tile,
   float* b2s = wgs + GMAX * P;                         // [P]
   float* qbase = b2s + P;
   float* accbase = qbase + NWARPS * (QCAP * QWORDS6 + WCAP * WWORDS);
+  unsigned* act_bits =  // [ACT_WORDS], the column pass's (!ROWSIDE)
+      reinterpret_cast<unsigned*>(accbase + NWARPS * ACC);
 
   const int G = x.G;
   const int C = G == GMAX ? FMAX : FMAX - 1;
@@ -113,8 +117,8 @@ __device__ __forceinline__ void pair_pool_bwd_pass(const Args& x, int tile,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int NI = (NR + TILE_I - 1) / TILE_I;
-  const int NJ = (NC + TILE_J - 1) / TILE_J;
+  const int NI = (NR + TILE_I - 1) / TILE_I;        // row blocks
+  const int NFR = x.tile.rows(NR), NFC = x.tile.cols(NC);  // the flags
   const int own0 = tile * TILE_I;
   const int NOWN = ROWSIDE ? NR : NC;
   const int NOTH = ROWSIDE ? NC : NR;
@@ -142,6 +146,10 @@ __device__ __forceinline__ void pair_pool_bwd_pass(const Args& x, int tile,
   }
   stage_small_weights<P, BF16, GMAX>(x.wg, x.b2, G, wgs, b2s, tid);
   for (int e = tid; e < (int)(NWARPS * ACC); e += NTHREADS) accbase[e] = 0.f;
+  const int* fl = x.flags + (size_t)img * NFR * NFC;
+  if (!ROWSIDE)
+    stage_column_activity(fl, NFR, NFC, x.tile, own0, NR, act_bits, lane,
+                          warp);
   __syncthreads();
 
   const float* own_fields =
@@ -158,7 +166,6 @@ __device__ __forceinline__ void pair_pool_bwd_pass(const Args& x, int tile,
   const float* b_img = x.b + (size_t)img * NC * P;
   const float* m_img = x.m + (size_t)img * NR * P;
   const float* dm_img = x.dm + (size_t)img * NR * P;
-  const int* fl = x.flags + (size_t)img * NI * NJ;
 
   // The warp's sums of dWg[:, p] and db2[p] for this lane's p values stay
   // in registers: every winner adds to them.
@@ -350,18 +357,18 @@ __device__ __forceinline__ void pair_pool_bwd_pass(const Args& x, int tile,
     }
     return true;
   };
-  // Whether tile t of the other side can hold a neighbour of this block.
+  // Whether tile t of the other side (TJ detections) can hold a neighbour
+  // of this block: K2's rule (pairwise2_bwd.cu).
+  const int* own_flags =
+      ROWSIDE ? fl + (size_t)(own0 >> x.tile.fi_shift) * NFC : fl;
   auto active = [&](int t) {
-    if (ROWSIDE) return fl[(size_t)tile * NJ + t] != 0;
-    // 64 rows are row tiles 2t, 2t + 1; the own columns sit in column
-    // tile tile / 2
-    const int tj = tile * TILE_I / TILE_J;
-    return fl[(size_t)(2 * t) * NJ + tj] != 0 ||
-           (2 * t + 1 < NI && fl[(size_t)(2 * t + 1) * NJ + tj] != 0);
+    return ROWSIDE ? own_flags[t] != 0
+                   : ((act_bits[t >> 5] >> (t & 31)) & 1u) != 0u;
   };
-  stage_loop<GROUP, GMAX>(live, NOTH, split, x.splits, active,
-                          ROWSIDE ? own << 16 : own, ROWSIDE ? 0 : 16, q_ij,
-                          q_g, lane, warp, test, consume);
+  stage_loop<GROUP, GMAX>(live, NOTH, split, x.splits, x.tile.tj_shift,
+                          active, ROWSIDE ? own << 16 : own,
+                          ROWSIDE ? 0 : 16, q_ij, q_g, lane, warp, test,
+                          consume);
 
   // The warps' sums meet in a fixed order.
   if (ROWSIDE) {
@@ -482,16 +489,21 @@ int dispatch_p(int P, const Args& x, cudaStream_t s) {
 
 extern "C" {
 
-// Tile shape the flags must be computed at: TILE_I * 1000 + TILE_J.
-int gnet_pair_pool_bwd_tiles() { return TILE_I * 1000 + TILE_J; }
+// Whether the kernel takes the skip tile FI x TJ (rows x columns of a flag).
+int gnet_pair_pool_bwd_tiles(int fi, int tj) {
+  Tile t;
+  return make_tile(fi, tj, t) ? 1 : 0;
+}
 
 // Launches K6 (its row pass and its column pass) on `stream`; returns
 // cudaGetLastError() (0 = launched). `splits` blocks share the work on a
 // tile of own detections, each summing into its own slice. Every output is
 // written in full: da [B, NR, P] and db [B, NC, P] (through the scratch
 // da_part [S, B, NR, P] and db_part [S, B, NC, P], whose slices are added
-// in order; unused when S = 1), and per row block dwg_part [S*B*NI, G, P],
-// dw2_part [S*B*NI, P, P], db2_part [S*B*NI, P], which the caller sums.
+// in order; unused when S = 1), and per row block of 32 (NI of them)
+// dwg_part [S*B*NI, G, P], dw2_part [S*B*NI, P, P], db2_part [S*B*NI, P],
+// which the caller sums. `flags` [B, ceil(NR / fi), ceil(NC / tj)] at the
+// skip tile fi x tj.
 int gnet_pair_pool_bwd(const float* row_cols, const float* col_cols,
                        const float* a, const float* b, const float* wg,
                        const float* w2, const float* b2, const int* flags,
@@ -499,7 +511,9 @@ int gnet_pair_pool_bwd(const float* row_cols, const float* col_cols,
                        float* da_part, float* db_part, float* dwg_part,
                        float* dw2_part, float* db2_part, int B, int NR,
                        int NC, int P, int G, int splits, float thr, int bf16,
-                       void* stream) {
+                       int fi, int tj, void* stream) {
+  Tile tile;
+  if (!make_tile(fi, tj, tile)) return (int)cudaErrorInvalidValue;
   if (B <= 0 || NR <= 0) return 0;
   if ((G != GMAX && G != GMAX - 1) || NC < 0 || NR > MAX_DETS ||
       NC > MAX_DETS || splits < 1 || splits > 65535)
@@ -507,7 +521,8 @@ int gnet_pair_pool_bwd(const float* row_cols, const float* col_cols,
   const bool direct = splits == 1;
   const Args x{row_cols, col_cols, a, b, wg, w2, b2, flags, m, dm,
                direct ? da : da_part, direct ? db : db_part,
-               dwg_part, dw2_part, db2_part, B, NR, NC, G, splits, thr};
+               dwg_part, dw2_part, db2_part, B, NR, NC, G, splits, thr,
+               tile};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int e = bf16 ? dispatch_p<true>(P, x, s) : dispatch_p<false>(P, x, s);
   if (e != 0 || direct) return e;

@@ -19,14 +19,15 @@
 // kernel on this card is how the sparse work is laid on warps. The design
 // is K1's (pairwise2_fwd.cu), on the same queue and product:
 // - Stage A: lane l owns row row0 + l and holds its fields in registers;
-//   the four warps split each tile of 64 columns, every lane tests one
+//   the four warps split each tile of TJ columns, every lane tests one
 //   (row, column) pair per step, two steps in flight, the column's fields
 //   read through L1 as a broadcast, the division of the IoU skipped where
 //   the pair is clearly below the threshold (neighbour_test). A pair that
 //   passes gets its nine features there, once, and goes with them into
 //   the warp's ring (an entry is the packed pair and nine features: ten
 //   words, 20 KB for the four rings). Whole tiles whose bounding boxes do
-//   not meet are skipped through the flags of tile_activity.
+//   not meet are skipped through the flags of tile_activity, at the skip
+//   tile FI x TJ the launch names (pairwise2_pair.cuh Tile).
 // - Stage B pops groups of 16 (bf16) or 32 (f32) pairs, so FC1 and FC2 run
 //   with every lane on a real neighbour pair. bf16: h1 made directly in the
 //   A-fragment layout (the nine-feature fmaf chain, b in f32) and FC2 on
@@ -75,9 +76,9 @@ pair_pool_fwd_kernel(const float* __restrict__ row_cols,  // [B, C, NR]
                      const float* __restrict__ wg,        // [G, P]
                      const float* __restrict__ w2,        // [P, P] (in, out)
                      const float* __restrict__ b2,        // [P]
-                     const int* __restrict__ flags,       // [B, NI, NJ]
+                     const int* __restrict__ flags,  // [B, NR/FI, NC/TJ]
                      float* __restrict__ out,  // [B, NR, P], 0 if split
-                     int NR, int NC, int G, float thr) {
+                     int NR, int NC, int G, float thr, Tile tile) {
   constexpr int GROUP = group_size<BF16>();
   constexpr int LD = MXLD<P>;
   extern __shared__ __align__(16) float smem[];
@@ -94,10 +95,8 @@ pair_pool_fwd_kernel(const float* __restrict__ row_cols,  // [B, C, NR]
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int img = blockIdx.y;
-  const int tile_i = blockIdx.x;
-  const int NI = (NR + TILE_I - 1) / TILE_I;
-  const int NJ = (NC + TILE_J - 1) / TILE_J;
-  const int row0 = tile_i * TILE_I;
+  const int row0 = blockIdx.x * TILE_I;
+  const int NFR = tile.rows(NR), NFC = tile.cols(NC);  // the flags' shape
   int* q_ij = q_ij_all + warp * QCAP;
   float* q_g = q_g_all + warp * GMAX * QCAP;           // [GMAX][QCAP]
 
@@ -117,7 +116,9 @@ pair_pool_fwd_kernel(const float* __restrict__ row_cols,  // [B, C, NR]
   const float* cc = col_cols + (size_t)img * C * NC;
   const float* a_img = a + (size_t)img * NR * P;
   const float* b_img = b + (size_t)img * NC * P;
-  const int* fl = flags + ((size_t)img * NI + tile_i) * NJ;
+  // the flag row of the block's rows: the cells of its tiles of columns
+  const int* fl =
+      flags + ((size_t)img * NFR + (row0 >> tile.fi_shift)) * NFC;
 
   // Stage B: one group of `n` queued pairs from ring slot `head`.
   auto consume = [&](int head, int n) {
@@ -175,8 +176,9 @@ pair_pool_fwd_kernel(const float* __restrict__ row_cols,  // [B, C, NR]
     return false;
   };
   auto active = [&](int tj) { return fl[tj] != 0; };
-  stage_loop<GROUP, GMAX>(live, NC, blockIdx.z, gridDim.z, active, i << 16,
-                          0, q_ij, q_g, lane, warp, test, consume);
+  stage_loop<GROUP, GMAX>(live, NC, blockIdx.z, gridDim.z, tile.tj_shift,
+                          active, i << 16, 0, q_ij, q_g, lane, warp, test,
+                          consume);
 
   // The block's maxima leave: stored where it saw every column, merged
   // where the columns are split over blocks (out is zero there).
@@ -199,6 +201,7 @@ struct Args {
   float* out;
   int B, NR, NC, G, splits;
   float thr;
+  Tile tile;  // the flags' skip tile
 };
 
 template <int P, bool BF16>
@@ -213,7 +216,8 @@ int launch(const Args& x, cudaStream_t stream) {
   const dim3 grid((x.NR + TILE_I - 1) / TILE_I, x.B, x.splits);
   kernel<<<grid, NTHREADS, smem, stream>>>(x.row_cols, x.col_cols, x.a, x.b,
                                            x.wg, x.w2, x.b2, x.flags, x.out,
-                                           x.NR, x.NC, x.G, x.thr);
+                                           x.NR, x.NC, x.G, x.thr,
+                                           x.tile);
   return (int)cudaGetLastError();
 }
 
@@ -232,19 +236,26 @@ int dispatch_p(int P, const Args& x, cudaStream_t s) {
 
 extern "C" {
 
-// Tile shape the flags must be computed at: TILE_I * 1000 + TILE_J.
-int gnet_pair_pool_tiles() { return TILE_I * 1000 + TILE_J; }
+// Whether the kernel takes the skip tile FI x TJ (rows x columns of a flag).
+int gnet_pair_pool_tiles(int fi, int tj) {
+  Tile t;
+  return make_tile(fi, tj, t) ? 1 : 0;
+}
 
 // Launches K5 on `stream`; returns cudaGetLastError() (0 = launched).
 // row_cols / col_cols are stacked DetColumns [B, 14, N], with the class
 // appended as field 14 when G = 9. `splits` blocks share the work on a row
 // tile; with splits > 1 they merge into `out`, which is zero-filled here
-// first, on the same stream.
+// first, on the same stream. `flags` [B, ceil(NR / fi), ceil(NC / tj)] at
+// the skip tile fi x tj.
 int gnet_pair_pool_fwd(const float* row_cols, const float* col_cols,
                        const float* a, const float* b, const float* wg,
                        const float* w2, const float* b2, const int* flags,
                        float* out, int B, int NR, int NC, int P, int G,
-                       int splits, float thr, int bf16, void* stream) {
+                       int splits, float thr, int bf16, int fi, int tj,
+                       void* stream) {
+  Tile tile;
+  if (!make_tile(fi, tj, tile)) return (int)cudaErrorInvalidValue;
   if (B <= 0 || NR <= 0) return 0;
   if ((G != GMAX && G != GMAX - 1) || NC < 0 || NR > MAX_DETS ||
       NC > MAX_DETS || splits < 1 || splits > 65535)
@@ -256,7 +267,7 @@ int gnet_pair_pool_fwd(const float* row_cols, const float* col_cols,
     if (e != cudaSuccess) return (int)e;
   }
   const Args x{row_cols, col_cols, a, b, wg, w2, b2, flags, out,
-               B,        NR,       NC, G, splits, thr};
+               B,        NR,       NC, G, splits, thr, tile};
   return bf16 ? dispatch_p<true>(P, x, s) : dispatch_p<false>(P, x, s);
 }
 

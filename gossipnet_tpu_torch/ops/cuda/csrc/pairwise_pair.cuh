@@ -121,13 +121,16 @@ __device__ __forceinline__ float safe_pad(int f) {
   }
 }
 
-// Row fields are staged as rs[FMAX][TILE_I], column fields as
-// cs[FMAX][TILE_J]; i and j index the tiles.
+// K7's staged fields (pair_ablate.cu, the only caller of row, col and
+// pair_iou): rows as rs[FMAX][TILE_I], columns in panels cs[FMAX][K7_PANEL]
+// of its own fixed width, whatever skip tile the other kernels launch
+// with; i and j index the panels.
+constexpr int K7_PANEL = 64;
 __device__ __forceinline__ float row(const float* rs, int f, int i) {
   return rs[f * TILE_I + i];
 }
 __device__ __forceinline__ float col(const float* cs, int f, int j) {
-  return cs[f * TILE_J + j];
+  return cs[f * K7_PANEL + j];
 }
 
 __device__ __forceinline__ float pair_iou(const float* rs, int i,

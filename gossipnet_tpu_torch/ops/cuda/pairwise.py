@@ -15,7 +15,7 @@ a = r @ Wa + b1 and b = r @ Wb go in as they are, and K5
 stacked DetColumns. K6 (``csrc/pairwise_bwd.cu``) is its recompute
 backward; the gradient of every row of Wg leaves it directly. Both skip
 whole tiles whose row and column bounding boxes do not meet, with K1's
-rule (:func:`pairwise2.tile_activity`) at the same tile shape.
+rule (:func:`pairwise2.tile_activity`) at a skip tile of ``launch.TILES``.
 
 Both run on K1's and K2's design and code (``csrc/pair_group.cuh``,
 ``csrc/pairwise2_pair.cuh``): stage A tests every pair of an active tile,
@@ -54,12 +54,14 @@ from torch import Tensor
 from gossipnet_tpu_torch.ops import pair_features as pf
 from gossipnet_tpu_torch.ops.cuda import pairwise2
 from gossipnet_tpu_torch.ops.cuda.launch import (
-    TILE_I,
-    TILE_J,
+    DEFAULT_TILE,
+    TILE_I,  # noqa: F401 -- the default tile, named here as pairwise2 does
+    TILE_J,  # noqa: F401
     backward_launch,
     check_dtype,
     check_inputs,
     check_packable,
+    check_tile,
     forward_launch,
 )
 from gossipnet_tpu_torch.ops.cuda.pairwise2 import _fma, _rounder
@@ -75,8 +77,9 @@ class PairColumns(NamedTuple):
 
     row: Tensor       # [B, C, NR] stacked DetColumns (+ class), float32
     col: Tensor       # [B, C, NC]
-    flags: Tensor     # [B, NI, NJ] int32 tile activity at TILE_I x TILE_J
+    flags: Tensor     # [B, NR/FI, NC/TJ] int32 tile activity at `tile`
     neighbor_iou: float
+    tile: tuple = DEFAULT_TILE   # (FI, TJ), one of launch.TILES
 
     @property
     def num_features(self) -> int:
@@ -87,10 +90,13 @@ class PairColumns(NamedTuple):
 def pair_columns(row_cols: Tensor, col_cols: Tensor, neighbor_iou: float,
                  classes: Tensor | None = None,
                  col_classes: Tensor | None = None,
-                 block_sparse: bool = True) -> PairColumns:
+                 block_sparse: bool = True,
+                 tile: tuple | None = None) -> PairColumns:
     """K5's inputs from stacked DetColumns [B, 14, N] (rows and columns may
     differ, as for a row shard); ``classes`` appends the class as field 14
-    (``col_classes`` defaults to it, the square case)."""
+    (``col_classes`` defaults to it, the square case); ``tile`` the flags'
+    skip tile, as :func:`pairwise2.pair_geometry` takes it."""
+    fi, tj = check_tile(tile)
     row, col = row_cols.float(), col_cols.float()
     if classes is not None:
         col_classes = classes if col_classes is None else col_classes
@@ -98,12 +104,13 @@ def pair_columns(row_cols: Tensor, col_cols: Tensor, neighbor_iou: float,
         col = torch.cat([col, col_classes.float()[:, None]], dim=1)
     row, col = row.contiguous(), col.contiguous()
     if block_sparse and neighbor_iou > 0.0:
-        flags = pairwise2.tile_activity(row, col, valid_field=_VALID)
+        flags = pairwise2.tile_activity(row, col, fi, tj, valid_field=_VALID)
     else:
         b, nr, nc = row.shape[0], row.shape[2], col.shape[2]
-        flags = torch.ones((b, -(-nr // TILE_I), -(-nc // TILE_J)),
+        flags = torch.ones((b, -(-nr // fi), -(-nc // tj)),
                            dtype=torch.int32, device=row.device)
-    return PairColumns(row, col, flags.contiguous(), float(neighbor_iou))
+    return PairColumns(row, col, flags.contiguous(), float(neighbor_iou),
+                       (fi, tj))
 
 
 # ---------------------------------------------------------------------------

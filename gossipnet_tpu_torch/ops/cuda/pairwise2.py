@@ -48,12 +48,14 @@ from torch import Tensor
 
 from gossipnet_tpu_torch.ops import pair_features as pf
 from gossipnet_tpu_torch.ops.cuda.launch import (
+    DEFAULT_TILE,
     TILE_I,
     TILE_J,
     backward_launch,
     check_dtype,
     check_inputs,
     check_packable,
+    check_tile,
     forward_launch,
 )
 
@@ -80,8 +82,9 @@ class PairGeometry(NamedTuple):
     col: Tensor       # [B, CJ, NC] column fields (_CJ_FIELDS [+ class])
     i_feats: Tensor   # [B, NR, 6] separable row-side features
     j_feats: Tensor   # [B, NC, 4] separable column-side features
-    flags: Tensor     # [B, NI, NJ] int32 tile activity at TILE_I x TILE_J
+    flags: Tensor     # [B, NR/FI, NC/TJ] int32 tile activity at `tile`
     neighbor_iou: float
+    tile: tuple = DEFAULT_TILE   # (FI, TJ), one of launch.TILES
 
     @property
     def multiclass(self) -> bool:
@@ -95,8 +98,8 @@ def tile_activity(row: Tensor, col: Tensor, ti: int = TILE_I,
     A tile pair is inactive when the bounding boxes of its valid row and
     column detections do not meet: then no pair in it has IoU > 0, so
     skipping it is exact for neighbor_iou > 0 (``pairwise.py``
-    ``_tile_activity``, at the CUDA kernel's tile shape; the ragged edge
-    pads with invalid entries). ``row`` / ``col`` hold x1, y1, x2, y2 as
+    ``_tile_activity``, at a skip tile of the CUDA kernels; the ragged
+    edge pads with invalid entries). ``row`` / ``col`` hold x1, y1, x2, y2 as
     fields 0-3 and validity as field ``valid_field``.
     """
     big = 1e30
@@ -125,16 +128,20 @@ def tile_activity(row: Tensor, col: Tensor, ti: int = TILE_I,
 def pair_geometry(row_cols: Tensor, col_cols: Tensor, neighbor_iou: float,
                   classes: Tensor | None = None,
                   col_classes: Tensor | None = None,
-                  block_sparse: bool = True) -> PairGeometry:
+                  block_sparse: bool = True,
+                  tile: tuple | None = None) -> PairGeometry:
     """Kernel inputs derived from stacked DetColumns [B, 14, N] (rows and
     columns may differ, as for a row shard). ``col_classes`` defaults to
-    ``classes`` (the square case).
+    ``classes`` (the square case). ``tile``: the skip tile (FI, TJ) of the
+    flags, which the launches then take (one of ``launch.TILES``; ``None``
+    is ``launch.DEFAULT_TILE``; any other shape raises).
 
     The kernel's fields are the columns widened to float32. The fold's
     ratios -cx/w and -cy/h are divided in the columns' own dtype, as the
     JAX wrapper folds them: in bf16 for bf16 columns (``model.dtype:
     bfloat16``), except with classes, whose float32 row promotes the
     stacked columns before the fold (``pairwise2.py:944-951``)."""
+    fi, tj = check_tile(tile)
     ci = pf.unstack_columns(row_cols.float())
     cj = pf.unstack_columns(col_cols.float())
     cr = ci if classes is not None else pf.unstack_columns(row_cols)
@@ -153,13 +160,13 @@ def pair_geometry(row_cols: Tensor, col_cols: Tensor, neighbor_iou: float,
     j_feats = torch.stack([cj.log_w, cj.log_h, cj.log_aspect, cj.score],
                           dim=-1)
     if block_sparse and neighbor_iou > 0.0:
-        flags = tile_activity(row_t, col_t)
+        flags = tile_activity(row_t, col_t, fi, tj)
     else:
         b, nr, nc = row_t.shape[0], row_t.shape[2], col_t.shape[2]
-        flags = torch.ones((b, -(-nr // TILE_I), -(-nc // TILE_J)),
+        flags = torch.ones((b, -(-nr // fi), -(-nc // tj)),
                            dtype=torch.int32, device=row_t.device)
     return PairGeometry(row_t, col_t, i_feats, j_feats, flags.contiguous(),
-                        float(neighbor_iou))
+                        float(neighbor_iou), (fi, tj))
 
 
 def _take_rows(x: Tensor, rows: tuple) -> Tensor:

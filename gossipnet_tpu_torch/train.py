@@ -276,12 +276,13 @@ def make_optimizer(cfg: Config, params) -> tuple[OptaxOptimizer,
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, make_lr_schedule(cfg))
 
 
-def build_model(cfg: Config, pool_impl: str = "dense",
-                device="cuda") -> GossipNet:
+def build_model(cfg: Config, pool_impl: str = "dense", device="cuda",
+                pair_tile=None) -> GossipNet:
     """An uninitialised GossipNet for ``cfg.model`` on ``device``, with
-    ``train.remat_blocks``."""
+    ``train.remat_blocks`` and the pair kernels' skip tile ``pair_tile``
+    (``None``: the default; see :class:`GossipNet`)."""
     return GossipNet(cfg.model, pool_impl=pool_impl, device=device,
-                     remat=cfg.train.remat_blocks)
+                     remat=cfg.train.remat_blocks, pair_tile=pair_tile)
 
 
 @dataclasses.dataclass

@@ -25,7 +25,10 @@ K5/K6 on the row shards of a det-sharded forward (parallel/spmd.py)
 against the square launch: m and d_a' bit for bit, the shards' summed
 d_b' and weight gradients within the weight-gradient gate; and config 2
 trained and evaluated from the scale drill's real-format files, with its
-launches counted.
+launches counted; and K1/K2 and K5/K6 at every skip tile of
+``ops/cuda/launch.py`` TILES against their plain versions, on banded
+flags where at TJ = 16 neighbours straddle the 16-column cells of the
+backwards' 32-column blocks.
 
 These tests need an NVIDIA GPU (the kernel has no CPU mode) and skip
 without one. The file imports no JAX, so it runs where JAX is not
@@ -1398,3 +1401,100 @@ def test_drill_files_train_and_evaluate_config2_on_card(tmp_path):
         16 * (len(batches) + shapes), 0, 0]
     assert 0.0 <= out["gossipnet"]["AP"] <= 1.0
     assert out["raw_scores"]["AP"] > 0.0
+
+
+# ---------------------------------------------------------------------------
+# The skip tile (ops/cuda/launch.py TILES) of K1/K2 and K5/K6
+# ---------------------------------------------------------------------------
+
+
+def _banded_cols(rng, dev, b=2, n=300, n_valid=280):
+    """Boxes sorted along a 3000-pixel strip: each tile of the flags is
+    narrow in x, so the flags are banded and differ between neighbouring
+    tiles of 16 columns; n is no multiple of any tile and the tail is
+    padding."""
+    x1 = np.sort(rng.uniform(0, 3000, (b, n)), axis=1)
+    y1 = rng.uniform(0, 60, (b, n))
+    wh = rng.uniform(20, 70, (b, n, 2))
+    boxes = np.stack([x1, y1, x1 + wh[..., 0], y1 + wh[..., 1]],
+                     -1).astype(np.float32)
+    valid = np.ones((b, n), bool)
+    valid[:, n_valid:] = False
+    return pf.stack_columns(pf.det_columns(
+        torch.from_numpy(boxes).to(dev),
+        torch.from_numpy(rng.uniform(0, 1, (b, n)).astype(np.float32)).to(
+            dev), torch.from_numpy(valid).to(dev)))
+
+
+def _straddling_pairs(geom) -> int:
+    """Neighbour pairs (i, j) whose flag cell is set while the cell of the
+    first column of j's 32-column block is not: the pairs that K2's and
+    K6's column pass (a block of 32 columns) finds only by reading every
+    flag column its 32 columns overlap. ``geom``: K1's geometry."""
+    fi, tj = geom.tile
+    rv, cv = geom.row[:, 7] > 0, geom.col[:, 7] > 0
+    iou = k1.fields_iou(geom.row[..., None], geom.col[:, :, None, :])
+    nb = (iou >= THR) & rv[:, :, None] & cv[:, None, :]
+    bi, i, j = torch.nonzero(nb, as_tuple=True)
+    own = geom.flags[bi, i // fi, j // tj]
+    first = geom.flags[bi, i // fi, (j // 32 * 32) // tj]
+    return int(((own > 0) & (first == 0)).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tile", [(32, 16), (32, 32), (32, 64), (32, 128),
+                                  (64, 16), (64, 32), (64, 64), (64, 128)],
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("kern_name", ["k1k2", "k5k6"])
+def test_pair_kernels_at_every_tile_on_card(kern_name, tile, dtype):
+    """K1/K2 and K5/K6 at each skip tile against their plain versions,
+    which read no flags, on banded flags where at TJ = 16 neighbours
+    straddle the 16-column cells of a 32-column block: f32 m and winners
+    bit-equal, the gradients (d_b' from the column pass) at the gates
+    above."""
+    from gossipnet_tpu_torch.ops.cuda import launch
+    from gossipnet_tpu_torch.ops.cuda import pairwise as k5
+
+    dev = _card()
+    assert tile in launch.TILES
+    rng = np.random.default_rng(15)
+    cs = _banded_cols(rng, dev)
+    b, _, n = cs.shape
+    p = 32
+
+    def t(*shape, scale=0.5):
+        return torch.from_numpy(
+            rng.normal(0, scale, shape).astype(np.float32)).to(dev)
+
+    if kern_name == "k1k2":
+        kern, geom = k1, k1.pair_geometry(cs, cs, THR, tile=tile)
+        wg = t(3, p)
+    else:
+        kern, geom = k5, k5.pair_columns(cs, cs, THR, tile=tile)
+        wg = t(geom.num_features, p)
+    assert geom.tile == tile and bool((geom.flags == 0).any())
+    if tile[1] == 16:
+        assert _straddling_pairs(k1.pair_geometry(cs, cs, THR,
+                                                  tile=tile)) > 0
+    args = (geom, t(b, n, p, scale=1.0), t(b, n, p, scale=1.0), wg, t(p, p),
+            t(p))
+    dm = t(b, n, p, scale=1.0)
+    m = kern.launch_kernel(*args, dtype)
+    m_plain = kern._reference_core(*args, dtype)
+    got = kern.launch_backward_kernel(*args, m, dm, dtype)
+    want = kern.pair_pool_backward_reference(*args, m_plain, dm, dtype)
+    torch.cuda.synchronize()
+    assert (m_plain > 0).any()
+    if dtype == "float32":
+        assert torch.equal(m, m_plain)
+        ones = torch.ones_like(dm)
+        assert torch.equal(
+            kern.launch_backward_kernel(*args, m, ones, dtype)[4],
+            kern.pair_pool_backward_reference(*args, m_plain, ones,
+                                              dtype)[4])
+    else:
+        x, y = m.cpu().numpy(), m_plain.cpu().numpy()
+        np.testing.assert_allclose(x, y, rtol=2e-2, atol=2e-2)
+        assert np.mean(np.abs(x - y) > 1e-4) < 0.01
+    _assert_grads(got, want, dtype)

@@ -52,7 +52,8 @@ def test_port_and_chip_smoke_import_no_jax():
                  "tools.import_weights", "utils.import_weights",
                  "tools.demo_config1", "tools.quality_demo",
                  "tools.calibrate", "tools.scale_drill",
-                 "tools.prepare_data", "parallel", "parallel.world",
+                 "tools.prepare_data", "tools.tile_sweep", "parallel",
+                 "parallel.world",
                  "parallel.spmd", "parallel.sharding", "parallel.legs"):
         assert f"gossipnet_tpu_torch.{name}" in result["modules"], name
 
