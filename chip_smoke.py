@@ -240,7 +240,26 @@ Phases (each raises on failure; the script then exits non-zero):
    tile's ms/launch (events and the profiler) with its IoU tests and
    bounds at the bench batch and config 4; then ``tools.tile_sweep`` (2
    regimes x 8 tiles, the flagship at B=2 N=4096) and the phase's
-   seconds. Phases 1-19 run at the default tile.
+   seconds. Phases 1-19 run at the default tile;
+21. the paths of the drill's pets, dense80 and dense4k arms on
+   real-format files (``python3 chip_smoke.py --drill-files`` runs only
+   this): 16 PETS frames (CVML XML, MOT CSV realigned), 16 dense images of
+   80 classes and 8 dense4k images from the drill's generators, each
+   through ``train()`` with its arm's ``mt`` YAML for two steps at 16 K1 +
+   16 K2 + 1 K3 a step; on each set's widest padded batch, K1 and K2 on
+   the trained model's launch arguments against their plain versions
+   (f32 m and winners bit-equal, bf16 at phases 3 and 3b's tolerances)
+   and K3 on its T=10 scan input (class-aware for dense80, N=4096 for
+   dense4k) exactly. The training runs' launches join the record.
+
+``python3 chip_smoke.py --drill-arm ARM [steps] [lr] [schedule] [mt]
+[--train-seed N]`` runs one recipe of the drill's pets, dense, dense80 or
+dense4k arms through ``tools/scale_drill.py`` (the train and evaluate
+CLIs as subprocesses) and holds its evaluation to the reference's figures
+(``DRILL_REFERENCE``, RESULTS.md): the raw and swept-GreedyNMS APs to
+RESULTS.md's three printed digits at the same threshold, GossipNet's AP
+within 0.02; it prints the table and the val-AP trajectory, exits 1 on a
+miss and prints no result line.
 
 Every path of phases 4-14 runs through captured graphs, as a user's call
 does (phase 18's mesh paths step eagerly): a replay adds its graph's
@@ -4755,10 +4774,8 @@ def drill_kernel_checks(cfg2, state2, roidb2, cfg3, state3, roidb3
 
 def drill_cli_stats(rec: dict) -> str:
     """The AP lines of an evaluate phase's printed record."""
-    text = "\n".join(rec["tail"])
-    out = json.loads(text[text.index("{"):])
     return "; ".join(f"{k} AP {v['AP']:.4f} AP50 {v['AP50']:.4f}"
-                     for k, v in out.items())
+                     for k, v in rec["result"].items())
 
 
 def phase_drill(card: str, run_images: int) -> tuple[dict, float, float]:
@@ -4913,17 +4930,18 @@ def tile_shape_args(kern) -> dict:
               for x in (blob.boxes, blob.scores, blob.valid)))[1]}
 
 
-def tile_gate(kern, label: str, args, dm) -> tuple[float, float]:
-    """The forward and backward kernel at every skip tile against their
-    plain versions on one shape's launch arguments, which read no flags
-    and so run once for all the tiles: f32 m and winners bit-equal, bf16 m
-    at phase 3's tolerance, the gradients at phase 3b's (bf16: dm zero at
-    the near-tied maxima); f32 m bit-equal across the tiles -> the worst
-    errors of the forward and the backward."""
+def tile_gate(kern, label: str, args, dm, tiles=launch.TILES,
+              phase: str = "phase 20") -> tuple[float, float]:
+    """The forward and backward kernel at every skip tile of ``tiles``
+    against their plain versions on one shape's launch arguments, which
+    read no flags and so run once for all the tiles: f32 m and winners
+    bit-equal, bf16 m at phase 3's tolerance, the gradients at phase 3b's
+    (bf16: dm zero at the near-tied maxima); f32 m bit-equal across the
+    tiles -> the worst errors of the forward and the backward."""
     fname, bname = LABELS[kern]
     if not torch.equal(at_tile(args, launch.DEFAULT_TILE)[0].flags,
                        args[0].flags):
-        raise AssertionError(f"phase 20: the flags rebuilt at the default "
+        raise AssertionError(f"{phase}: the flags rebuilt at the default "
                              f"tile differ from the model's ({label})")
     t0 = time.perf_counter()
     plain = {}
@@ -4938,12 +4956,12 @@ def tile_gate(kern, label: str, args, dm) -> tuple[float, float]:
                                              ones, "float32")[4]
     torch.cuda.synchronize()
     log(f"  {label}: the plain {fname} and {bname}, f32 and bf16, and the "
-        f"winners, once for the eight tiles: "
+        f"winners, once for {len(tiles)} tiles: "
         f"{time.perf_counter() - t0:.1f} s; {int(wins.sum().item())} "
         f"winners")
     worst_f = worst_b = 0.0
     m32 = {}
-    for tile in launch.TILES:
+    for tile in tiles:
         ta = at_tile(args, tile)
         cells = []
         for dt in ("float32", "bfloat16"):
@@ -4968,15 +4986,16 @@ def tile_gate(kern, label: str, args, dm) -> tuple[float, float]:
                          + " ".join(f"{n}={e:.1e}" for n, e in errs.items()))
             if not (ok_m and ok_g and ok_w):
                 raise AssertionError(
-                    f"phase 20: {fname}/{bname} at tile {tile} disagree with "
+                    f"{phase}: {fname}/{bname} at tile {tile} disagree with "
                     f"their plain versions: {label} {dt}: m ok {ok_m}, "
                     f"winners ok {ok_w}, {errs}")
         log(f"  {fname}/{bname} {label} tile {tile[0]}x{tile[1]}: "
             + "; ".join(cells) + " -> ok")
     same = all(torch.equal(m, m32[launch.DEFAULT_TILE]) for m in m32.values())
-    log(f"  {fname} {label}: f32 m bit-equal across the eight tiles {same}")
+    log(f"  {fname} {label}: f32 m bit-equal across {len(tiles)} tiles "
+        f"{same}")
     if not same:
-        raise AssertionError(f"phase 20: {fname} f32 m moves with the tile: "
+        raise AssertionError(f"{phase}: {fname} f32 m moves with the tile: "
                              f"{label}")
     return worst_f, worst_b
 
@@ -5084,6 +5103,292 @@ def phase_tiles(card: str) -> dict:
     return worst
 
 
+# ---------------------------------------------------------------------------
+# Phase 21 and --drill-arm: the drill's pets, dense, dense80 and dense4k arms
+# ---------------------------------------------------------------------------
+
+DRILL_FILE_STEPS = 2          # train() steps on each of phase 21's sets
+# The reference's printed figures for each recipe of the drill's remaining
+# arms (RESULTS.md, the lines named; the JAX package on a TPU): (AP, AP50,
+# AP75) of the raw detector scores, of GreedyNMS at the swept threshold
+# ``thr`` and of GossipNet from the checkpoint named (None: not printed),
+# and the val-AP points RESULTS.md recorded (information, no gate).
+DRILL_REFERENCE = {
+    ("pets", "cosine", False): dict(
+        lines="121-123", checkpoint="best", raw=(0.392, 0.699, 0.399),
+        nms=(0.489, 0.930, 0.423), thr=0.55, gossipnet=(0.600, 0.987, None),
+        trajectory=""),
+    ("pets", "cosine", True): dict(
+        lines="121-122, 124", checkpoint="best", raw=(0.392, 0.699, 0.399),
+        nms=(0.489, 0.930, 0.423), thr=0.55, gossipnet=(0.700, 0.988, 0.891),
+        trajectory=""),
+    ("dense", "constant", False): dict(
+        lines="166-168", checkpoint="final", raw=(0.293, 0.646, 0.217),
+        nms=(0.364, 0.837, 0.211), thr=0.55, gossipnet=(0.466, 0.965, 0.349),
+        trajectory="peaked at 0.515 @500, then decayed"),
+    ("dense", "cosine", False): dict(
+        lines="166-167, 169", checkpoint="final", raw=(0.293, 0.646, 0.217),
+        nms=(0.364, 0.837, 0.211), thr=0.55, gossipnet=(0.532, 0.982, 0.497),
+        trajectory=""),
+    ("dense", "cosine", True): dict(
+        lines="166-167, 170", checkpoint="final", raw=(0.293, 0.646, 0.217),
+        nms=(0.364, 0.837, 0.211), thr=0.55, gossipnet=(0.677, 0.980, 0.841),
+        trajectory="0.606 @1000 -> 0.659 @2000 -> 0.673 @3000"),
+    ("dense80", "cosine", False): dict(
+        lines="181-183", checkpoint="final", raw=(0.328, 0.657, 0.288),
+        nms=(0.363, 0.824, 0.214), thr=0.55, gossipnet=(0.556, 0.996, 0.545),
+        trajectory=""),
+    ("dense80", "cosine", True): dict(
+        lines="181-182, 184", checkpoint="final", raw=(0.328, 0.657, 0.288),
+        nms=(0.363, 0.824, 0.214), thr=0.55, gossipnet=(0.702, 0.996, 0.891),
+        trajectory="0.690 @1000 -> 0.707 @2500 -> 0.708 @3000"),
+    ("dense4k", "cosine", True): dict(
+        lines="338-340", checkpoint="final", raw=(0.179, 0.436, 0.111),
+        nms=(0.228, 0.561, 0.129), thr=0.35, gossipnet=(0.423, 0.633, 0.508),
+        trajectory="0.394 @1500 -> 0.409 @2000 -> 0.421 @3000"),
+}
+DRILL_AP_BAND = 0.02     # GossipNet's AP against the reference's (PERF.md §2)
+# each arm's schedule when its command line names none (scale_drill.main)
+DRILL_DEFAULT_SCHEDULE = {"pets": "cosine", "dense": "constant",
+                          "dense80": "constant", "dense4k": "cosine"}
+
+
+def drill_recipe(argv: list[str]) -> tuple[str, str, bool]:
+    """``ARM [steps] [lr] [schedule] [mt]`` -> the key of its reference
+    figures; SystemExit for a recipe RESULTS.md printed no figures for."""
+    arm = argv[0] if argv else ""
+    if arm not in DRILL_DEFAULT_SCHEDULE:
+        raise SystemExit(f"--drill-arm: no arm {arm!r}; one of "
+                         f"{sorted(DRILL_DEFAULT_SCHEDULE)}")
+    steps, lr, schedule, mt, alpha, extra = scale_drill._parse_arm_args(
+        argv[1:], DRILL_DEFAULT_SCHEDULE[arm])
+    key = (arm, schedule, mt)
+    if (steps, lr, alpha, extra) != (3000, 1e-3, 0.0, []) \
+            or key not in DRILL_REFERENCE:
+        raise SystemExit(f"--drill-arm {' '.join(argv)}: RESULTS.md prints "
+                         f"no figures for this recipe; the gated ones: "
+                         f"{sorted(DRILL_REFERENCE)} at 3000 steps, lr 1e-3")
+    return key
+
+
+def drill_gate(ref: dict, stats: dict) -> tuple[list[str], bool]:
+    """The evaluate CLI's record ``stats`` against the reference's figures
+    ``ref``: each baseline's AP rounds to the reference's three printed
+    digits, GreedyNMS at the same swept threshold, and GossipNet's AP
+    lies within DRILL_AP_BAND of the reference's -> the table's lines and
+    whether every gate held."""
+    def three(x):
+        return "-" if x is None else f"{x:.3f}"
+
+    lines = ["  | Method | Port AP / AP50 / AP75 | Reference AP / AP50 / "
+             "AP75 | Gate | Held |", "  |---|---|---|---|---|"]
+    held = True
+    for label, key in (("raw detector scores", "raw"),
+                       ("GreedyNMS, swept", "nms"),
+                       ("GossipNet", "gossipnet")):
+        got = stats[{"raw": "raw_scores", "nms": "greedy_nms"}.get(key, key)]
+        want = ref[key]
+        if key == "gossipnet":
+            off = abs(got["AP"] - want[0])
+            ok = off <= DRILL_AP_BAND
+            gate = f"|AP - {want[0]:.3f}| = {off:.4f} <= {DRILL_AP_BAND}"
+        else:
+            ok = three(got["AP"]) == three(want[0])
+            gate = f"AP {three(got['AP'])} == {three(want[0])}"
+            if key == "nms":
+                label += f" (best {got['iou_threshold']:.2f})"
+                ok = ok and abs(got["iou_threshold"] - ref["thr"]) < 1e-6
+                gate += f", threshold {ref['thr']:.2f}"
+        held = held and ok
+        lines.append(f"  | {label} | {got['AP']:.7f} / {got['AP50']:.7f} / "
+                     f"{got['AP75']:.7f} | {' / '.join(map(three, want))} | "
+                     f"{gate} | {'yes' if ok else 'NO'} |")
+    return lines, held
+
+
+def val_trajectory(path: Path) -> list[tuple[int, float]]:
+    """(step, val_AP) of a training run's metrics file."""
+    if not path.exists():
+        return []
+    recs = [json.loads(x) for x in path.read_text().splitlines() if x]
+    return [(r["step"], r["val_AP"]) for r in recs if "val_AP" in r]
+
+
+def pop_option(argv: list[str], name: str):
+    """The value after ``name`` in ``argv``, both taken out; None when
+    ``name`` is not there."""
+    if name not in argv:
+        return None
+    at = argv.index(name)
+    value = argv[at + 1]
+    del argv[at:at + 2]
+    return value
+
+
+@contextlib.contextmanager
+def train_seed(seed: int | None):
+    """While inside, the drill's YAMLs set ``train.seed`` to ``seed`` (its
+    weights' initialisation and batch order); unchanged for None."""
+    if seed is None:
+        yield
+        return
+    write = scale_drill._yaml
+
+    def seeded(data_dir, name, text):
+        return write(data_dir, name, text.replace(
+            "train: {", f"train: {{seed: {seed}, ", 1))
+
+    scale_drill._yaml = seeded
+    try:
+        yield
+    finally:
+        scale_drill._yaml = write
+
+
+def phase_drill_arm(card: str, argv: list[str]) -> bool:
+    """One recipe of the drill's pets, dense, dense80 or dense4k arms
+    through ``scale_drill.main`` (the train and evaluate CLIs as
+    subprocesses) on the card, then its evaluation against the reference's
+    figures (:func:`drill_gate`) -> whether the gate held. The files go
+    to a temporary directory. ``--train-seed N`` among ``argv`` trains at
+    another seed than the recipe's 0 (a result outside the gate is run
+    again so, and both are recorded)."""
+    argv = list(argv)
+    seed = pop_option(argv, "--train-seed")
+    seed = None if seed is None else int(seed)
+    ref = DRILL_REFERENCE[drill_recipe(argv)]
+    lib = native._find_lib() if native.available() else None
+    log(f"--drill-arm {' '.join(argv)}: RESULTS.md lines {ref['lines']}, "
+        f"{ref['checkpoint']} checkpoint; train.seed "
+        f"{0 if seed is None else seed}; COCO matching and the NMS sweep "
+        f"in {f'native C++ ({lib})' if lib else 'numpy'}; {card}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, train_seed(seed):
+        data = Path(tmp)
+        rec = scale_drill.main([*argv, "--data-dir", str(data)])
+        tag = next(k for k in rec if k.endswith("_train"))[:-len("_train")]
+        trajectory = val_trajectory(data / f"m_{tag}.jsonl")
+    wall = time.perf_counter() - t0
+    train, ev = rec[f"{tag}_train"], rec[f"{tag}_eval"]
+    restored = [x for x in ev["tail"] if x.startswith("restored")]
+    log(f"  {tag}: {wall:.1f} s in all; train wall {train['wall_s']} s, "
+        f"peak RSS {train['peak_rss_gb']} GB; eval wall {ev['wall_s']} s, "
+        f"peak RSS {ev['peak_rss_gb']} GB; kernels built by the phases "
+        f"{train['built'] + ev['built']}; {restored}")
+    log("  val AP: " + " -> ".join(f"{ap:.4f} @{step}"
+                                   for step, ap in trajectory)
+        + f" (RESULTS.md: {ref['trajectory'] or 'not recorded'})")
+    lines, held = drill_gate(ref, ev["result"])
+    for line in lines:
+        log(line)
+    if not restored:
+        held = False
+        log("  the evaluation restored no checkpoint")
+    log(f"  {tag}: the gate {'held' if held else 'MISSED'}; {card}")
+    return held
+
+
+def drill_file_sets(data: Path) -> dict:
+    """Phase 21's sets, written to ``data`` by the drill's generators at
+    the arms' densities: 16 PETS frames, 16 dense images of 80 classes, 8
+    dense4k images (and a few held-out ones each), with the ``mt``
+    recipes' own YAMLs -> {label: YAML path}."""
+    scale_drill.gen_pets(n_frames=16, data_dir=data)
+    scale_drill.gen_pets(n_frames=4, seed=1, prefix="val_", data_dir=data)
+    scale_drill.gen(n_images=16, prefix="dense_", data_dir=data,
+                    **scale_drill.DENSE)
+    scale_drill.gen(n_images=2, seed=1, prefix="dense_val_", data_dir=data,
+                    **scale_drill.DENSE)
+    scale_drill.gen(n_images=8, prefix="dense4k_", data_dir=data,
+                    **scale_drill.DENSE_4K)
+    scale_drill.gen(n_images=2, seed=1, prefix="dense4k_val_", data_dir=data,
+                    **scale_drill.DENSE_4K)
+    return {
+        "pets (CVML + MOT CSV)": scale_drill.pets_yaml(
+            tag="pets_mt", mt=True, data_dir=data),
+        "dense80 (80 classes)": scale_drill.full_yaml(
+            schedule="cosine", tag="dense80_cosine_mt", multiclass=True,
+            prefix="dense_", mt=True, data_dir=data),
+        "dense4k (N=4096)": scale_drill.full_yaml(
+            schedule="cosine", tag="dense4k_mt", prefix="dense4k_", mt=True,
+            **scale_drill.DENSE_4K_ARM, data_dir=data)}
+
+
+def widest_batch(roidb, cfg) -> dict:
+    """The first batch of the training stream at the largest bucket any
+    batch of it fills, on the card."""
+    it = BatchIterator(roidb, cfg.train.batch_size, cfg.data.bucket_sizes,
+                       seed=cfg.train.seed)
+    batches = [next(it) for _ in range(len(roidb))]
+    widest = max(b.padded_n for b in batches)
+    return training.batch_to_device(
+        next(b for b in batches if b.padded_n == widest), torch.device(DEV))
+
+
+def phase_drill_files(card: str) -> tuple[dict, float, float]:
+    """Phase 21: the paths of the drill's remaining arms on real-format
+    files: each set through ``train()`` (the arms' YAMLs, two steps, at 16
+    K1 + 16 K2 + 1 K3 a step); on its widest padded batch, K1 and K2 on the
+    trained model's launch arguments against their plain versions (f32 m
+    and winners bit-equal, bf16 at phases 3 and 3b's tolerances) and K3 on
+    the batch's T=10 scan input (class-aware for dense80) exactly ->
+    (the launches of its training runs, K1's and K2's worst errors)."""
+    t0 = time.perf_counter()
+    log("phase 21: the drill's pets, dense80 and dense4k paths on "
+        "real-format files")
+    launches = want_counts()
+    k1_err = k2_err = 0.0
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        for label, path in drill_file_sets(tmp).items():
+            state, roidb, ran = drill_train(label, path, DRILL_FILE_STEPS,
+                                            tmp)
+            for name, n in ran.items():
+                launches[name] += n
+            cfg = load_config(path)
+            arrays = widest_batch(roidb, cfg)
+            model = training.build_model(cfg, "kernel", DEV)
+            model.load_state_dict(state.model.state_dict())
+            classes = arrays["classes"] if cfg.model.num_classes > 1 else None
+            fwd, bwd = capture_pair(k1, model, arrays["boxes"],
+                                    arrays["scores"], arrays["valid"], classes)
+            dtype = fwd[6]
+            for dt in ("float32", dtype):
+                got = k1.launch_kernel(*fwd[:6], dt)
+                want = k1._reference_core(*fwd[:6], dt)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                ok = (torch.equal(got, want) if dt == "float32"
+                      else within(got, want, dt))
+                log(f"  K1 {label}, first block (B, NR, P = "
+                    f"{tuple(fwd[1].shape)}) {dt}: bit-equal "
+                    f"{torch.equal(got, want)}, max_abs_err={err:.3e} -> "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"phase 21: K1 disagrees with its "
+                                         f"plain version: {label} {dt}")
+                k1_err = max(k1_err, err)
+            ef, eb = tile_gate(k1, f"{label}, last block", bwd[:6], bwd[7],
+                               tiles=(launch.DEFAULT_TILE,), phase="phase 21")
+            k1_err, k2_err = max(k1_err, ef), max(k2_err, eb)
+            with torch.no_grad():
+                logits = model(arrays["boxes"], arrays["scores"],
+                               arrays["valid"], classes)
+            aware = cfg.matching.class_aware
+            iou, thr = capture(k3, "greedy_scan_batched", lambda: (
+                matching.greedy_match_batch(
+                    arrays["boxes"], logits, arrays["valid"],
+                    arrays["gt_boxes"], arrays["gt_valid"],
+                    arrays["gt_crowd"], cfg.matching.thresholds,
+                    arrays["classes"] if aware else None,
+                    arrays["gt_classes"] if aware else None)))[:2]
+            compare_scan(f"{label}{', classes' if aware else ''}", iou,
+                         tuple(thr.tolist()))
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s; launches of its "
+        f"training runs {launches}; {card}")
+    return launches, k1_err, k2_err
+
+
 def phase_build(names=KERNELS):
     log(f"phase 2: build {', '.join(names)} from ops/cuda/csrc/, one nvcc "
         f"each, all at once")
@@ -5187,6 +5492,19 @@ def main() -> int:
         phase_drill(card, scale_drill.N_IMAGES)
         log(card)
         return 0
+    if sys.argv[1:2] == ["--drill-arm"]:
+        # One recipe of the drill's remaining arms, gated against the
+        # reference's figures; no result line.
+        phase_build(KERNELS[:3])
+        held = phase_drill_arm(card, sys.argv[2:])
+        log(card)
+        return 0 if held else 1
+    if sys.argv[1:] == ["--drill-files"]:
+        # Phase 21 alone.
+        phase_build(KERNELS[:3])
+        phase_drill_files(card)
+        log(card)
+        return 0
     if sys.argv[1:] == ["--tiles"]:
         # Phase 20 alone: every skip tile gated, timed and swept.
         phase_build(PAIR_KERNELS)
@@ -5254,6 +5572,9 @@ def main() -> int:
     worst["pair_pool2_bwd"] = max(worst["pair_pool2_bwd"], drill_k2_err)
     for name, err in phase_tiles(card).items():
         worst[name] = max(worst[name], err)
+    files_launches, files_k1_err, files_k2_err = phase_drill_files(card)
+    worst["pair_pool2_fwd"] = max(worst["pair_pool2_fwd"], files_k1_err)
+    worst["pair_pool2_bwd"] = max(worst["pair_pool2_bwd"], files_k2_err)
     log(f"launches on the main paths: serving K1 {serve_launches} "
         f"(phases 4 and 14); "
         f"training {launches}; config 4 training {crowd_launches}; the "
@@ -5266,9 +5587,10 @@ def main() -> int:
     log(f"launches of phase 18's main paths, over the ranks: "
         f"{mesh_launches}")
     log(f"launches of phase 19's main paths: {drill_launches}")
+    log(f"launches of phase 21's main paths: {files_launches}")
     launches = {name: n + tool_launches[name] + precision_launches[name]
                 + mesh_launches.get(name, 0) + drill_launches[name]
-                for name, n in launches.items()}
+                + files_launches[name] for name, n in launches.items()}
 
     log(card)
     log(json.dumps({"kernels": [{

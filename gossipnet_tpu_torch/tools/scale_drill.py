@@ -235,7 +235,25 @@ def _run_phase(name: str, argv: list[str], env=None) -> dict:
     if not ok:
         raise SystemExit(f"{name} failed")
     return {"wall_s": round(wall, 1), "peak_rss_gb": round(rss / 1e6, 2),
-            "built": built, "tail": out.splitlines()[-40:]}
+            "built": built, "tail": out.splitlines()[-40:],
+            "result": last_json(out)}
+
+
+def last_json(text: str):
+    """The last JSON object of ``text`` that starts a line of its own (the
+    evaluate CLI's indented record, a logger's line) -> it, or None. A
+    phase's tail keeps 40 lines, fewer than the evaluate CLI's record with
+    the sweep's baseline."""
+    lines = text.splitlines()
+    for i in reversed(range(len(lines))):
+        if lines[i].startswith("{"):
+            try:
+                obj, _ = json.JSONDecoder().raw_decode("\n".join(lines[i:]))
+            except json.JSONDecodeError:
+                continue
+            if isinstance(obj, dict):
+                return obj
+    return None
 
 
 def _prebuild(device: str) -> None:
@@ -337,6 +355,49 @@ DENSE_P = dict(gt_range=(30, 71), dets_per_gt=(10, 17),
 # person dets/image, tail above the 4096 cap.
 DENSE_4K = dict(gt_range=(120, 221), dets_per_gt=(10, 17),
                 fp_range=(200, 401), person_p=0.95)
+# the dense4k arm's batch and buckets (config 4's N=4096 regime)
+DENSE_4K_ARM = dict(batch_size=2, buckets="[1024, 2048, 4096]",
+                    max_dets=4096)
+# the `mt` arms' matching thresholds, COCO's 0.5:0.95
+MT_THRESHOLDS = "[0.5, 0.55, 0.6, 0.65, 0.7, 0.75, 0.8, 0.85, 0.9, 0.95]"
+
+
+def full_yaml(train_steps=3000, lr=1e-3, schedule="constant", tag="full",
+              multiclass=False, prefix="", mt=False, batch_size=8,
+              buckets="[256, 512, 1024]", max_dets=1024,
+              data_dir: Path = DATA) -> str:
+    """Writes ``cfg_{tag}.yaml`` of the ``full`` arm and the arms built on
+    it (``full80``, ``dense``, ``dense80``, ``dense4k``): config 2 (or,
+    ``multiclass``, config 3) on ``{prefix}`` files with their held-out
+    ``{prefix}val_`` split -> its path."""
+    data_dir = Path(data_dir)
+    ann = str(data_dir / f"{prefix}annotations.json")
+    det = str(data_dir / f"{prefix}detections.json")
+    ck = data_dir / f"ck_{tag}"
+    # COCO-style multi-threshold matching (0.5:0.95); `mt` runs the same
+    # labels at reference density.
+    thr = MT_THRESHOLDS if mt else "[0.5]"
+    model = ("model: {num_blocks: 16, feature_dim: 128, reduced_dim: 32, "
+             "pairwise_dim: 32, num_classes: 80, class_embed_dim: 32}\n"
+             f"matching: {{thresholds: {thr}, class_aware: true, "
+             "crowd_as_ignore: true}\n" if multiclass else
+             "model: {num_blocks: 16, feature_dim: 128, reduced_dim: 32, "
+             "pairwise_dim: 32, num_classes: 1}\n"
+             f"matching: {{thresholds: {thr}, crowd_as_ignore: true}}\n")
+    return _yaml(data_dir, f"cfg_{tag}.yaml", (
+        model
+        + f"data:\n  dataset: coco\n  ann_file: {ann}\n  det_file: {det}\n"
+        f"  val_ann_file: {data_dir / (prefix + 'val_annotations.json')}\n"
+        f"  val_det_file: {data_dir / (prefix + 'val_detections.json')}\n"
+        f"  max_detections: {max_dets}\n  bucket_sizes: {buckets}\n"
+        f"  person_only: {'false' if multiclass else 'true'}\n"
+        f"train: {{optimizer: adam, learning_rate: {lr}, "
+        f"lr_schedule: {schedule}, "
+        f"max_steps: {train_steps}, batch_size: {batch_size}, "
+        "grad_clip_norm: 10.0, "
+        "snapshot_every: 1000, eval_every: 500, log_every: 100, "
+        f"checkpoint_dir: {ck}}}\n"
+    ))
 
 
 def full(train_steps=3000, lr=1e-3, schedule="constant", tag="full",
@@ -356,34 +417,8 @@ def full(train_steps=3000, lr=1e-3, schedule="constant", tag="full",
     if not (data_dir / f"{prefix}val_annotations.json").exists():
         gen(n_images=max(n_images // 8, 100), seed=1,
             prefix=f"{prefix}val_", data_dir=data_dir, **density)
-    ann = str(data_dir / f"{prefix}annotations.json")
-    det = str(data_dir / f"{prefix}detections.json")
-    ck = data_dir / f"ck_{tag}"
-    # COCO-style multi-threshold matching (0.5:0.95); `mt` runs the same
-    # labels at reference density.
-    thr = ("[0.5, 0.55, 0.6, 0.65, 0.7, 0.75, 0.8, 0.85, 0.9, 0.95]"
-           if mt else "[0.5]")
-    model = ("model: {num_blocks: 16, feature_dim: 128, reduced_dim: 32, "
-             "pairwise_dim: 32, num_classes: 80, class_embed_dim: 32}\n"
-             f"matching: {{thresholds: {thr}, class_aware: true, "
-             "crowd_as_ignore: true}\n" if multiclass else
-             "model: {num_blocks: 16, feature_dim: 128, reduced_dim: 32, "
-             "pairwise_dim: 32, num_classes: 1}\n"
-             f"matching: {{thresholds: {thr}, crowd_as_ignore: true}}\n")
-    y = _yaml(data_dir, f"cfg_{tag}.yaml", (
-        model
-        + f"data:\n  dataset: coco\n  ann_file: {ann}\n  det_file: {det}\n"
-        f"  val_ann_file: {data_dir / (prefix + 'val_annotations.json')}\n"
-        f"  val_det_file: {data_dir / (prefix + 'val_detections.json')}\n"
-        f"  max_detections: {max_dets}\n  bucket_sizes: {buckets}\n"
-        f"  person_only: {'false' if multiclass else 'true'}\n"
-        f"train: {{optimizer: adam, learning_rate: {lr}, "
-        f"lr_schedule: {schedule}, "
-        f"max_steps: {train_steps}, batch_size: {batch_size}, "
-        "grad_clip_norm: 10.0, "
-        "snapshot_every: 1000, eval_every: 500, log_every: 100, "
-        f"checkpoint_dir: {ck}}}\n"
-    ))
+    y = full_yaml(train_steps, lr, schedule, tag, multiclass, prefix, mt,
+                  batch_size, buckets, max_dets, data_dir)
     _prebuild(device)
     out = {
         f"{tag}_train": _run_phase(
@@ -468,6 +503,31 @@ def gen_pets(n_frames=800, seed=0, prefix="", score_corr=0.0,
     return {"frames": n_frames, "detections": len(csv)}
 
 
+def pets_yaml(train_steps=3000, lr=1e-3, schedule="cosine", tag="pets",
+              mt=False, pre="", data_dir: Path = DATA) -> str:
+    """Writes ``cfg_{tag}.yaml`` of the ``pets`` arm: config 2 on the
+    ``{pre}pets_*`` files of ``gen_pets`` with their ``val_{pre}`` split
+    -> its path."""
+    data_dir = Path(data_dir)
+    ck = data_dir / f"ck_{tag}"
+    thr = MT_THRESHOLDS if mt else "[0.5]"
+    return _yaml(data_dir, f"cfg_{tag}.yaml", (
+        "model: {num_blocks: 16, feature_dim: 128, reduced_dim: 32, "
+        "pairwise_dim: 32, num_classes: 1}\n"
+        f"matching: {{thresholds: {thr}}}\n"
+        f"data:\n  dataset: pets\n  ann_file: {data_dir / (pre + 'pets_gt.xml')}\n"
+        f"  det_file: {data_dir / (pre + 'pets_dets.csv')}\n"
+        f"  val_ann_file: {data_dir / ('val_' + pre + 'pets_gt.xml')}\n"
+        f"  val_det_file: {data_dir / ('val_' + pre + 'pets_dets.csv')}\n"
+        "  max_detections: 1024\n  bucket_sizes: [256, 512, 1024]\n"
+        f"train: {{optimizer: adam, learning_rate: {lr}, "
+        f"lr_schedule: {schedule}, "
+        f"max_steps: {train_steps}, batch_size: 8, grad_clip_norm: 10.0, "
+        "snapshot_every: 1000, eval_every: 500, log_every: 100, "
+        f"checkpoint_dir: {ck}}}\n"
+    ))
+
+
 def full_pets(train_steps=3000, lr=1e-3, schedule="cosine", tag="pets",
               mt=False, alpha=0.0, device="cuda",
               data_dir: Path = DATA) -> dict:
@@ -488,24 +548,7 @@ def full_pets(train_steps=3000, lr=1e-3, schedule="cosine", tag="pets",
     if not (data_dir / f"val_{pre}pets_gt.xml").exists():
         gen_pets(n_frames=200, seed=1, prefix=f"val_{pre}",
                  score_corr=alpha, data_dir=data_dir)
-    ck = data_dir / f"ck_{tag}"
-    thr = ("[0.5, 0.55, 0.6, 0.65, 0.7, 0.75, 0.8, 0.85, 0.9, 0.95]"
-           if mt else "[0.5]")
-    y = _yaml(data_dir, f"cfg_{tag}.yaml", (
-        "model: {num_blocks: 16, feature_dim: 128, reduced_dim: 32, "
-        "pairwise_dim: 32, num_classes: 1}\n"
-        f"matching: {{thresholds: {thr}}}\n"
-        f"data:\n  dataset: pets\n  ann_file: {data_dir / (pre + 'pets_gt.xml')}\n"
-        f"  det_file: {data_dir / (pre + 'pets_dets.csv')}\n"
-        f"  val_ann_file: {data_dir / ('val_' + pre + 'pets_gt.xml')}\n"
-        f"  val_det_file: {data_dir / ('val_' + pre + 'pets_dets.csv')}\n"
-        "  max_detections: 1024\n  bucket_sizes: [256, 512, 1024]\n"
-        f"train: {{optimizer: adam, learning_rate: {lr}, "
-        f"lr_schedule: {schedule}, "
-        f"max_steps: {train_steps}, batch_size: 8, grad_clip_norm: 10.0, "
-        "snapshot_every: 1000, eval_every: 500, log_every: 100, "
-        f"checkpoint_dir: {ck}}}\n"
-    ))
+    y = pets_yaml(train_steps, lr, schedule, tag, mt, pre, data_dir)
     _prebuild(device)
     out = {
         f"{tag}_train": _run_phase(
@@ -593,7 +636,10 @@ def _with_alpha(density, alpha) -> dict:
     return d
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    """The command line -> the phases' records of the arms it ran (each
+    CLI phase's wall time, peak RSS, built libraries, tail and last JSON
+    object)."""
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("what", nargs="?", default="all", choices=ARMS)
@@ -609,13 +655,14 @@ def main(argv=None) -> None:
 
         resolve_device(args.device)     # before any file is generated
     dev = args.device
+    out = {}
 
     if what in ("gen", "all"):
         gen(data_dir=data)
     if what in ("eval5k", "all"):
         eval5k(data)
     if what in ("run", "all"):
-        run(device=dev, data_dir=data)
+        out.update(run(device=dev, data_dir=data))
     if what in ("full", "full80"):
         # full[80] [steps] [lr] [schedule] [tag] [mt] [alpha=X]
         steps, lr, schedule, mt, alpha, extra = _parse_arm_args(
@@ -624,17 +671,19 @@ def main(argv=None) -> None:
         tag = ((extra[0] if extra else
                 ("full80" if what == "full80" else "full"))
                + ("_mt" if mt else "") + (f"_{lab}" if lab else ""))
-        full(train_steps=steps, lr=lr, schedule=schedule, tag=tag,
-             multiclass=what == "full80", mt=mt,
-             prefix=f"{lab}_" if lab else "",
-             density=_with_alpha(None, alpha), device=dev, data_dir=data)
+        out.update(full(
+            train_steps=steps, lr=lr, schedule=schedule, tag=tag,
+            multiclass=what == "full80", mt=mt,
+            prefix=f"{lab}_" if lab else "",
+            density=_with_alpha(None, alpha), device=dev, data_dir=data))
     if what == "pets":
         # pets [steps] [lr] [schedule] [mt] [alpha=X]; full_pets appends
         # the alpha label to the tag itself
         steps, lr, schedule, mt, alpha, _ = _parse_arm_args(rest, "cosine")
-        full_pets(train_steps=steps, lr=lr, schedule=schedule,
-                  tag="pets_mt" if mt else "pets", mt=mt, alpha=alpha,
-                  device=dev, data_dir=data)
+        out.update(full_pets(
+            train_steps=steps, lr=lr, schedule=schedule,
+            tag="pets_mt" if mt else "pets", mt=mt, alpha=alpha,
+            device=dev, data_dir=data))
     if what in ("dense", "dense80"):
         # dense[80] [steps] [lr] [schedule] [mt] [alpha=X]: the
         # reference-density arm (300-1024 dets/image, N=1024 bucket
@@ -647,12 +696,13 @@ def main(argv=None) -> None:
         tag = ("dense80" if mc else "densep") + (
             "" if schedule == "constant" else f"_{schedule}") + (
             "_mt" if mt else "") + asuf
-        full(train_steps=steps, lr=lr, schedule=schedule, tag=tag,
-             multiclass=mc, mt=mt,
-             prefix=("dense" if mc else "densep") + asuf + "_",
-             n_images=2000,
-             density=_with_alpha(DENSE if mc else DENSE_P, alpha),
-             device=dev, data_dir=data)
+        out.update(full(
+            train_steps=steps, lr=lr, schedule=schedule, tag=tag,
+            multiclass=mc, mt=mt,
+            prefix=("dense" if mc else "densep") + asuf + "_",
+            n_images=2000,
+            density=_with_alpha(DENSE if mc else DENSE_P, alpha),
+            device=dev, data_dir=data))
     if what == "dense4k":
         # dense4k [steps] [lr] [schedule] [mt] [alpha=X]: config-4
         # training, N=4096-dominant bucketing at batch 2
@@ -661,11 +711,12 @@ def main(argv=None) -> None:
         asuf = f"_{lab}" if lab else ""
         tag = "dense4k" + ("" if schedule == "cosine" else f"_{schedule}"
                            ) + ("_mt" if mt else "") + asuf
-        full(train_steps=steps, lr=lr, schedule=schedule, tag=tag, mt=mt,
-             prefix="dense4k" + asuf + "_", n_images=600,
-             density=_with_alpha(DENSE_4K, alpha),
-             batch_size=2, buckets="[1024, 2048, 4096]", max_dets=4096,
-             device=dev, data_dir=data)
+        out.update(full(
+            train_steps=steps, lr=lr, schedule=schedule, tag=tag, mt=mt,
+            prefix="dense4k" + asuf + "_", n_images=600,
+            density=_with_alpha(DENSE_4K, alpha), **DENSE_4K_ARM,
+            device=dev, data_dir=data))
+    return out
 
 
 if __name__ == "__main__":

@@ -46,6 +46,7 @@ entry; K6's the same. The scan does comparisons only: exact.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -1400,6 +1401,73 @@ def test_drill_files_train_and_evaluate_config2_on_card(tmp_path):
     assert [c.launches - b for c, b in zip(counters, before)] == [
         16 * (len(batches) + shapes), 0, 0]
     assert 0.0 <= out["gossipnet"]["AP"] <= 1.0
+    assert out["raw_scores"]["AP"] > 0.0
+
+
+@pytest.mark.cuda
+def test_pets_files_train_and_evaluate_on_card(tmp_path):
+    """The scale drill's PETS files (``gen_pets``: 64 frames of CVML XML
+    ground truth and MOT CSV detections, 16 held out) through the pets
+    arm's own YAML (``mt``: ten thresholds) cut to 3 steps with a
+    validation pass at step 3: the train CLI at 16 K1 + 16 K2 + 1 K3 a
+    step (the eager step before each capture counts as a replay does) and
+    16 K1 a validation batch; then ``evaluate --best --nms-sweep`` on the
+    best checkpoint at 16 K1 a batch and no other kernel, every AP
+    finite."""
+    import signal
+    from pathlib import Path
+
+    from gossipnet_tpu_torch import evaluate
+    from gossipnet_tpu_torch import train as training
+    from gossipnet_tpu_torch.config import load_config
+    from gossipnet_tpu_torch.data.bucketing import eval_batches
+    from gossipnet_tpu_torch.ops.cuda import matching_scan as k3
+    from gossipnet_tpu_torch.tools import scale_drill
+
+    _card()
+    scale_drill.gen_pets(n_frames=64, data_dir=tmp_path)
+    scale_drill.gen_pets(n_frames=16, seed=1, prefix="val_",
+                         data_dir=tmp_path)
+    path = scale_drill.pets_yaml(train_steps=3, tag="pets_mt", mt=True,
+                                 data_dir=tmp_path)
+    Path(path).write_text(Path(path).read_text().replace(
+        "eval_every: 500", "eval_every: 3"))
+    cfg = load_config(path)
+    roidb, val = training._datasets(cfg)
+
+    def runs(batches):
+        return len(batches) + len({(b.batch_size, b.padded_n)
+                                   for b in batches})
+
+    counters = (k1.pair_pool, k1.pair_pool_backward, k3.greedy_scan_batched)
+    before = [c.launches for c in counters]
+    handlers = [signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)]
+    try:
+        training.main(["-c", path, "--metrics", str(tmp_path / "m.jsonl")])
+    finally:
+        for sig, h in zip((signal.SIGTERM, signal.SIGINT), handlers):
+            signal.signal(sig, h)
+    torch.cuda.synchronize()
+    k1_n, k2_n, k3_n = (c.launches - b for c, b in zip(counters, before))
+    val_runs = runs(list(eval_batches(val, cfg.train.batch_size,
+                                      cfg.data.bucket_sizes)))
+    assert k3_n >= 3 and k2_n == 16 * k3_n
+    assert k1_n == k2_n + 16 * val_runs
+    val_ap = [json.loads(x) for x in
+              (tmp_path / "m.jsonl").read_text().splitlines()]
+    assert [(m["step"], np.isfinite(m["val_AP"])) for m in val_ap
+            if "val_AP" in m] == [(3, True)]
+
+    batches = list(eval_batches(roidb, cfg.train.batch_size,
+                                cfg.data.bucket_sizes))
+    before = [c.launches for c in counters]
+    out = evaluate.main(["-c", path, "--best", "--nms-sweep"])
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        16 * runs(batches), 0, 0]
+    assert list(out) == ["gossipnet", "raw_scores", "greedy_nms"]
+    for block in out.values():
+        assert all(np.isfinite(v) for v in block.values())
+        assert 0.0 <= block["AP"] <= 1.0
     assert out["raw_scores"]["AP"] > 0.0
 
 

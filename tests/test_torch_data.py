@@ -213,6 +213,45 @@ def test_build_pets_roidb_warns_when_it_realigns(tmp_path):
     assert_same_roidb(got, want)
 
 
+@pytest.mark.parametrize("arm", ["dense4k", "pets", "dense"])
+def test_drill_arm_files_load_and_batch_as_the_jax_packages(tmp_path, arm):
+    """Small files of the scale drill's dense4k, pets and (persons) dense
+    generators, read by each package's loader with the arm's cap (dense4k:
+    4,096 per image; pets and dense: 1,024, pets' MOT frames realigned),
+    and the first padded batch of each training stream at the arm's
+    buckets and batch ([1024, 2048, 4096] at 2; [256, 512, 1024] at 8):
+    the same records and the same batch."""
+    from gossipnet_tpu_torch.tools import scale_drill as sd
+
+    if arm != "pets":
+        dense4k = arm == "dense4k"
+        sd.gen(n_images=3, prefix="d_", data_dir=tmp_path,
+               **(sd.DENSE_4K if dense4k else sd.DENSE_P))
+        files = (str(tmp_path / "d_annotations.json"),
+                 str(tmp_path / "d_detections.json"))
+        cap = 4096 if dense4k else 1024
+        got = t_roidb.build_roidb(*files, person_only=True, max_dets=cap)
+        want = j_roidb.build_roidb(*files, person_only=True, max_dets=cap)
+        batch, buckets = ((2, (1024, 2048, 4096)) if dense4k
+                          else (8, (256, 512, 1024)))
+    else:
+        sd.gen_pets(n_frames=6, data_dir=tmp_path)
+        files = (str(tmp_path / "pets_gt.xml"),
+                 str(tmp_path / "pets_dets.csv"))
+        with pytest.warns(UserWarning, match="realigned by -1"):
+            got = t_pets.build_pets_roidb(*files, max_dets=1024)
+        with pytest.warns(UserWarning, match="realigned by -1"):
+            want = j_pets.build_pets_roidb(*files, max_dets=1024)
+        batch, buckets = 8, (256, 512, 1024)
+    assert_same_roidb(got, want)
+    first = next(t_bucketing.BatchIterator(got, batch, buckets, seed=0))
+    assert_same_batch(first, next(j_bucketing.BatchIterator(
+        want, batch, buckets, seed=0)))
+    if arm == "dense4k":
+        assert max(r.num_dets for r in got) > 2048 and first.padded_n >= 2048
+        assert first.gt_boxes.shape[1] >= 120
+
+
 # ---------------------------------------------------------------------------
 # COCO evaluator
 # ---------------------------------------------------------------------------

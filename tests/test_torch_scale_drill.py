@@ -207,10 +207,9 @@ def test_arm_yamls_load_to_the_reference_config(tmp_path, monkeypatch, argv):
     assert len(port["phases"]) == (5 if argv == ["run"] else 2)
 
 
-def test_run_arm_end_to_end_on_the_cpu(tmp_path, monkeypatch):
-    """configs 1-3 through the port's train and evaluate CLIs from files
-    that ``gen`` wrote, each a subprocess, with the arm's YAMLs cut to one
-    narrow block, buckets of 64-256 and two steps."""
+def _small_yamls(monkeypatch):
+    """Cuts every YAML the drill writes to one narrow block, buckets of
+    64-256, two steps and a validation pass at step 2."""
     real_yaml = sd._yaml
 
     def small(data_dir, name, text):
@@ -218,10 +217,71 @@ def test_run_arm_end_to_end_on_the_cpu(tmp_path, monkeypatch):
         text = re.sub(r"feature_dim: \d+", "feature_dim: 16", text)
         text = re.sub(r"(reduced|pairwise)_dim: \d+", r"\1_dim: 8", text)
         text = text.replace("[256, 512, 1024]", "[64, 128, 256]")
+        text = text.replace("[1024, 2048, 4096]", "[64, 128, 256]")
+        text = re.sub(r"max_detections: \d+", "max_detections: 256", text)
         text = re.sub(r"max_steps: \d+", "max_steps: 2", text)
+        text = text.replace("eval_every: 500", "eval_every: 2")
         return real_yaml(data_dir, name, text)
 
     monkeypatch.setattr(sd, "_yaml", small)
+
+
+# the arms' command lines, and their files at a few frames or images,
+# written before the arm runs (it then generates none of its own)
+ARMS_ON_CPU = {
+    "pets_mt": (["pets", "3000", "1e-3", "cosine", "mt"], "pets_mt",
+                lambda d: (sd.gen_pets(n_frames=8, data_dir=d),
+                           sd.gen_pets(n_frames=4, seed=1, prefix="val_",
+                                       data_dir=d))),
+    "dense80_mt": (["dense80", "3000", "1e-3", "cosine", "mt"],
+                   "dense80_cosine_mt",
+                   lambda d: (sd.gen(n_images=4, prefix="dense_",
+                                     data_dir=d, **sd.DENSE),
+                              sd.gen(n_images=2, seed=1, prefix="dense_val_",
+                                     data_dir=d, **sd.DENSE))),
+    "dense4k_mt": (["dense4k", "3000", "1e-3", "cosine", "mt"], "dense4k_mt",
+                   lambda d: (sd.gen(n_images=2, prefix="dense4k_",
+                                     data_dir=d, **sd.DENSE_4K),
+                              sd.gen(n_images=2, seed=1,
+                                     prefix="dense4k_val_", data_dir=d,
+                                     **sd.DENSE_4K))),
+}
+
+
+@pytest.mark.parametrize("arm", ["run", *ARMS_ON_CPU])
+def test_run_arm_end_to_end_on_the_cpu(tmp_path, monkeypatch, arm):
+    """An arm through the port's train and evaluate CLIs from files that
+    the drill's generators wrote, each a subprocess, with the arm's YAMLs
+    cut to one narrow block, buckets of 64-256 and two steps: ``run``
+    (configs 1-3), and the ``pets``, ``dense80`` and ``dense4k`` arms'
+    ``mt`` recipes (PETS files; class-aware T=10 matching; the dense4k
+    arm's batch of 2), which evaluate with the swept-GreedyNMS baseline
+    (``pets`` its best checkpoint)."""
+    _small_yamls(monkeypatch)
+    if arm != "run":
+        argv, tag, write = ARMS_ON_CPU[arm]
+        write(tmp_path)
+        out = sd.main([*argv, "--device", "cpu", "--data-dir",
+                       str(tmp_path)])
+        assert list(out) == [f"{tag}_train", f"{tag}_eval"]
+        for rec in out.values():
+            assert rec["wall_s"] > 0 and rec["peak_rss_gb"] > 0
+            assert rec["built"] == []
+        stats = out[f"{tag}_eval"]["result"]
+        assert list(stats) == ["gossipnet", "raw_scores", "greedy_nms"]
+        for block in stats.values():
+            assert all(np.isfinite(v) for v in block.values())
+            assert 0.0 <= block["AP"] <= 1.0
+        assert stats["raw_scores"]["AP"] > 0.0
+        assert stats["greedy_nms"]["iou_threshold"] in [
+            float(t) for t in np.arange(0.3, 0.75, 0.05)]
+        metrics = [json.loads(x) for x in
+                   (tmp_path / f"m_{tag}.jsonl").read_text().splitlines()]
+        assert [m["step"] for m in metrics if "val_AP" in m] == [2]
+        restored = ("restored best-AP checkpoint (step 2)" if arm == "pets_mt"
+                    else "restored step 2")
+        assert restored in "\n".join(out[f"{tag}_eval"]["tail"])
+        return
     sd.gen(n_images=16, data_dir=tmp_path)
     out = sd.run(train_steps=2, device="cpu", data_dir=tmp_path)
     assert list(out) == ["config1_eval_persons", "config2_train_persons",
@@ -237,6 +297,7 @@ def test_run_arm_end_to_end_on_the_cpu(tmp_path, monkeypatch):
         stats = json.loads(text[text.index("{"):])
         assert 0.0 <= stats["gossipnet"]["AP"] <= 1.0
         assert stats["raw_scores"]["AP"] > 0.0
+        assert out[phase]["result"] == stats
     assert "restored step 2" in "\n".join(out["config2_eval"]["tail"])
 
 
@@ -327,3 +388,205 @@ def test_prepare_data_detect_is_not_ported(capsys):
     for argv in (["detect"], ["detect", "--images", "x", "--out", "y"]):
         with pytest.raises(SystemExit, match="not ported"):
             prepare_data.main(argv)
+
+
+# ---------------------------------------------------------------------------
+# The remaining arms' gate (chip_smoke.py --drill-arm) and their paths
+# ---------------------------------------------------------------------------
+
+STATS = ("AP", "AP50", "AP75", "AR100", "APs", "APm", "APl", "AR1", "AR10")
+
+
+def _eval_record(raw=0.29312, nms=0.36391, thr=0.55, gossipnet=0.6804,
+                 extra=0):
+    """An evaluate CLI's record (its keys; ``extra`` more stats a block)."""
+    def block(ap):
+        out = {k: ap + 0.01 * i for i, k in enumerate(STATS)}
+        out.update({f"x{i}": 0.5 for i in range(extra)})
+        return out
+
+    return {"gossipnet": block(gossipnet), "raw_scores": block(raw),
+            "greedy_nms": {"iou_threshold": thr, **block(nms)}}
+
+
+def test_run_phase_hands_back_the_whole_final_record():
+    """A phase whose record starts more than 40 lines before the end of its
+    output: the tail has lost the ``gossipnet`` block, the phase's
+    ``result`` holds the whole record, and a log line after a record does
+    not displace it."""
+    record = _eval_record(extra=6)
+    assert len(json.dumps(record, indent=2).splitlines()) > 40
+    code = ("import json, sys; print('step 100 loss=0.5'); "
+            "print('{not json'); "
+            f"print(json.dumps(json.loads({json.dumps(record)!r}), "
+            "indent=2))")
+    rec = sd._run_phase("eval", [sys.executable, "-c", code])
+    assert '"gossipnet": {' not in "\n".join(rec["tail"])
+    assert rec["result"] == record
+    assert sd.last_json("{\"a\": 1}\n{\"b\": [1,\n  2]}\ndone\n{oops") == \
+        {"b": [1, 2]}
+    assert sd.last_json("no record here") is None
+
+
+def test_drill_gate_reads_the_evaluate_clis_record(tmp_path):
+    """The gate's parser on a real evaluate CLI record (the CPU, a seeded
+    random model, the sweep): every block is read, whatever the tail."""
+    import chip_smoke
+
+    sd.gen(n_images=4, data_dir=tmp_path)
+    y = sd.full_yaml(tag="g", data_dir=tmp_path)
+    text = re.sub(r"num_blocks: \d+", "num_blocks: 1", Path(y).read_text())
+    Path(y).write_text(text)
+    rec = sd._run_phase("eval", [sys.executable, "-m",
+                                 "gossipnet_tpu_torch.evaluate", "-c", y,
+                                 "--random-init", "--nms-sweep",
+                                 "--device", "cpu"])
+    lines, held = chip_smoke.drill_gate(
+        chip_smoke.DRILL_REFERENCE[("dense", "cosine", True)],
+        rec["result"])
+    assert len(lines) == 5 and not held
+    assert f"{rec['result']['gossipnet']['AP']:.7f}" in lines[-1]
+
+
+@pytest.mark.parametrize("change,held", [
+    ({}, True), ({"raw": 0.29212}, False), ({"raw": 0.29349}, True),
+    ({"nms": 0.36451}, False), ({"thr": 0.6}, False),
+    ({"thr": 0.3 + 5 * 0.05}, True), ({"gossipnet": 0.6960}, True),
+    ({"gossipnet": 0.6575}, True), ({"gossipnet": 0.6565}, False),
+    ({"gossipnet": 0.6975}, False)],
+    ids=["equal", "raw_third_digit", "raw_rounds_equal", "nms_third_digit",
+         "other_threshold", "swept_threshold", "gossipnet_above_in_band",
+         "gossipnet_below_in_band", "gossipnet_below_band",
+         "gossipnet_above_band"])
+def test_drill_gate(change, held):
+    """Both baselines must round to the reference's three printed digits
+    (GreedyNMS at the same swept threshold) and GossipNet's AP must lie
+    within 0.02 of the reference's (``dense 3000 1e-3 cosine mt``: 0.293,
+    0.364 at 0.55, 0.677)."""
+    import chip_smoke
+
+    lines, ok = chip_smoke.drill_gate(
+        chip_smoke.DRILL_REFERENCE[("dense", "cosine", True)],
+        _eval_record(**change))
+    assert ok is held
+    assert len(lines) == 5 and lines[-1].endswith(
+        "| yes |" if change.get("gossipnet", 0.68) < 0.697
+        and change.get("gossipnet", 0.68) > 0.657 else "| NO |")
+
+
+def _results_row(n: int) -> list:
+    """The AP, AP50 and AP75 cells of RESULTS.md's line ``n`` (None for a
+    dash)."""
+    cells = [c.strip().strip("*") for c in RESULTS[n - 1].split("|")[2:5]]
+    return [None if c in ("—", "-") else float(c) for c in cells]
+
+
+RESULTS = (Path(__file__).resolve().parents[1] / "RESULTS.md").read_text(
+    ).splitlines()
+
+
+def test_drill_reference_figures_are_results_md():
+    """Every figure the gate holds a recipe to is the cell of the
+    RESULTS.md line it cites: the raw row, the swept-GreedyNMS row (its
+    best threshold) and the recipe's GossipNet row."""
+    import chip_smoke
+
+    assert len(chip_smoke.DRILL_REFERENCE) == 8
+    for key, ref in chip_smoke.DRILL_REFERENCE.items():
+        lines = []
+        for part in ref["lines"].split(", "):
+            a, _, b = part.partition("-")
+            lines += list(range(int(a), int(b or a) + 1))
+        raw, nms, gossipnet = lines[0], lines[1], lines[-1]
+        assert _results_row(raw) == list(ref["raw"]), key
+        assert _results_row(nms) == list(ref["nms"]), key
+        assert f"best {ref['thr']:.2f}" in RESULTS[nms - 1], key
+        assert _results_row(gossipnet) == list(ref["gossipnet"]), key
+
+
+@pytest.mark.parametrize("argv,key", [
+    (["dense4k", "3000", "1e-3", "cosine", "mt"], ("dense4k", "cosine", True)),
+    (["pets", "mt"], ("pets", "cosine", True)),
+    (["dense"], ("dense", "constant", False)),
+    (["dense80", "3000", "1e-3", "cosine"], ("dense80", "cosine", False)),
+    (["dense", "300", "1e-3", "cosine"], None),
+    (["dense4k", "3000", "1e-3", "cosine"], None),
+    (["pets", "3000", "1e-3", "cosine", "mt", "alpha=0.8"], None),
+    (["full"], None)],
+    ids=["dense4k_mt", "pets_defaults", "dense_defaults", "dense80",
+         "other_steps", "no_figures", "alpha", "other_arm"])
+def test_drill_recipe(argv, key):
+    import chip_smoke
+
+    if key is None:
+        with pytest.raises(SystemExit):
+            chip_smoke.drill_recipe(argv)
+    else:
+        assert chip_smoke.drill_recipe(argv) == key
+
+
+@pytest.mark.parametrize("arm", ["dense80_mt", "dense_constant"])
+def test_dense80_t10_class_aware_labels_equal_the_jax_packages(tmp_path,
+                                                               arm):
+    """One N=1024 batch of the dense80 arm's files, matched at the ``mt``
+    recipe's ten thresholds within classes (and of the persons-only dense
+    arm's files at the constant recipe's one threshold): the port's scan
+    and K3's plain version give the JAX package's labels, ignore and
+    matched GT exactly."""
+    import jax.numpy as jnp
+    import torch
+
+    from gossipnet_tpu.ops.matching import greedy_match_batch as j_match
+    from gossipnet_tpu_torch.data.bucketing import BatchIterator
+    from gossipnet_tpu_torch.ops import matching as tm
+
+    mc = arm == "dense80_mt"
+    sd.gen(n_images=3, prefix="dense_", data_dir=tmp_path,
+           **(sd.DENSE if mc else sd.DENSE_P))
+    cfg = t_load_config(sd.full_yaml(
+        schedule="cosine" if mc else "constant", tag="t", multiclass=mc,
+        prefix="dense_", mt=mc, data_dir=tmp_path))
+    roidb = build_roidb(cfg.data.ann_file, cfg.data.det_file,
+                        person_only=cfg.data.person_only,
+                        max_dets=cfg.data.max_detections)
+    it = BatchIterator(roidb, 2, cfg.data.bucket_sizes, seed=cfg.train.seed)
+    batch = next(b for b in it if b.padded_n == 1024)
+    thr = np.asarray(cfg.matching.thresholds, np.float32)
+    assert len(thr) == (10 if mc else 1) and cfg.matching.class_aware == mc
+    assert roidb.num_classes == (80 if mc else 1)
+    scores = np.random.default_rng(0).normal(
+        size=batch.scores.shape).astype(np.float32)
+    arrays = (batch.boxes, scores, batch.valid, batch.gt_boxes,
+              batch.gt_valid, batch.gt_crowd)
+    classes = (batch.classes, batch.gt_classes) if mc else (None, None)
+    want = j_match(*map(jnp.asarray, arrays), jnp.asarray(thr),
+                   *(None if c is None else jnp.asarray(c) for c in classes),
+                   impl="scan")
+    for impl in ("scan", "kernel"):
+        got = tm.greedy_match_batch(
+            *(torch.from_numpy(np.ascontiguousarray(x)) for x in arrays),
+            torch.from_numpy(thr),
+            *(None if c is None else torch.from_numpy(np.ascontiguousarray(c))
+              for c in classes), impl=impl)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert np.asarray(want.labels).sum() > 0
+
+
+def test_drill_arm_train_seed_reaches_the_yaml(tmp_path):
+    """``--drill-arm ... --train-seed N`` writes ``train.seed: N`` into the
+    arm's YAML and nothing else; without it the YAML is the recipe's."""
+    import chip_smoke
+
+    plain = Path(sd.full_yaml(tag="a", data_dir=tmp_path)).read_text()
+    with chip_smoke.train_seed(2):
+        seeded = Path(sd.full_yaml(tag="a", data_dir=tmp_path)).read_text()
+    assert Path(sd.full_yaml(tag="a", data_dir=tmp_path)).read_text() == plain
+    assert seeded.replace("seed: 2, ", "") == plain
+    assert t_load_config(str(tmp_path / "cfg_a.yaml")).train.seed == 0
+    (tmp_path / "s.yaml").write_text(seeded)
+    assert t_load_config(str(tmp_path / "s.yaml")).train.seed == 2
+    argv = ["dense", "--train-seed", "1", "constant"]
+    assert chip_smoke.pop_option(argv, "--train-seed") == "1"
+    assert chip_smoke.pop_option(argv, "--seed") is None
+    assert argv == ["dense", "constant"]
