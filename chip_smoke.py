@@ -337,7 +337,6 @@ from gossipnet_tpu_torch.serving import serve_stream
 from gossipnet_tpu_torch.tools import kernel_ablate
 from gossipnet_tpu_torch.tools import scale_drill
 from gossipnet_tpu_torch.utils import model_artifact
-from gossipnet_tpu_torch.utils import profiling
 from gossipnet_tpu_torch.utils.checkpoint import CheckpointManager
 from gossipnet_tpu_torch.utils.cuda_graphs import StepGraphs, forward_graphs
 from gossipnet_tpu_torch.utils.export import load_params_npz, save_params_npz
@@ -1355,15 +1354,25 @@ def phase_train_cli(tmp: Path):
 
 def profile_kernels(fn, reps: int) -> tuple[float, dict]:
     """Device time of ``reps`` calls of ``fn`` from torch.profiler's CUDA
-    trace, kernel events only (``profiling.kernel_ms``) -> (busy ms per
-    call, {kernel name: ms per call}); (0.0, {}) when the trace holds no
-    device time."""
+    trace, kernel events only -> (busy ms per call, {kernel name: ms per
+    call}); (0.0, {}) when the trace holds no device time. A user
+    annotation (an optimizer's step range) also carries device time,
+    spanning the kernels inside it, and is left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     fn()
     torch.cuda.synchronize()
-    with profiling.profile_trace(None) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
-    by_name = {k: v / reps for k, v in profiling.kernel_ms(prof).items()}
+        torch.cuda.synchronize()
+    by_name = {e.key: e.device_time_total / 1e3 / reps
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)
+               and "#" not in e.key}
     return sum(by_name.values()), by_name
 
 
@@ -3649,13 +3658,12 @@ def phase_graph_times(card: str) -> None:
     served.warmup(batch_size=8)
     warm_s = time.perf_counter() - t0
     secs = served._graphs.capture_seconds()
-    mem = profiling.device_memory_stats()["cuda:0"]
     log(f"  warmup(batch_size=8): {len(secs)} graphs in {warm_s:.2f} s; "
         f"seconds per shape (eager run + capture): "
         f"{ {k: round(v, 4) for k, v in secs.items()} }; memory reserved "
         f"{base / 2**20:.1f} MiB before, "
-        f"{mem['bytes_reserved'] / 2**20:.1f} MiB after (in use "
-        f"{mem['bytes_in_use'] / 2**20:.1f} MiB) [{card}]")
+        f"{torch.cuda.memory_reserved() / 2**20:.1f} MiB after (in use "
+        f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB) [{card}]")
     for label, c, arrays in (
             ("bench forward B=8 N=1024 (K1, bf16)", cfg,
              packed_layout(8, 1024)),

@@ -17,10 +17,12 @@ CPU the same step function runs eagerly.
     python -m gossipnet_tpu_torch.train -c experiments/coco_persons_full.yaml
 
 runs on the card and raises without one; ``--profile DIR`` writes a
-``torch.profiler`` trace of steps 10-15. When ``eval_every`` fires with a
-validation set, the COCO AP of the rescored detections
-(``evaluate.evaluate_model``) is logged as ``val_*`` and the best
-checkpoint follows ``val_AP``.
+``torch.profiler`` trace of steps 10-15, in which the trainer's spans
+(``gossipnet.train.step``, its ``draw`` and the log's ``sync``; see
+``utils/profiling.py::span``) hold the graphs' ``stage`` and ``launch``
+of each step. When ``eval_every`` fires with a validation set, the COCO
+AP of the rescored detections (``evaluate.evaluate_model``) is logged as
+``val_*`` and the best checkpoint follows ``val_AP``.
 
 On a device mesh (``parallel.enable: "on"``, or ``auto`` in a world of
 several CUDA ranks; ``parallel/sharding.py``) each batch is one SPMD step
@@ -56,7 +58,7 @@ from gossipnet_tpu_torch.parallel.sharding import (
 from gossipnet_tpu_torch.utils.checkpoint import CheckpointManager
 from gossipnet_tpu_torch.utils.cuda_graphs import StepGraphs
 from gossipnet_tpu_torch.utils.metrics import MetricsLogger, StepTimer
-from gossipnet_tpu_torch.utils.profiling import StepProfiler
+from gossipnet_tpu_torch.utils.profiling import StepProfiler, span
 
 BATCH_KEYS = ("boxes", "scores", "valid", "classes", "gt_boxes",
               "gt_classes", "gt_valid", "gt_crowd")
@@ -457,10 +459,11 @@ def train(
 
     def save(step: int) -> None:
         """Rank 0 writes; on a mesh every rank waits for the write."""
-        if main:
-            ckpt.save(step, state, {"iterator": it.get_state()})
-        if mesh is not None:
-            mesh.barrier()
+        with span("gossipnet.train.checkpoint"):
+            if main:
+                ckpt.save(step, state, {"iterator": it.get_state()})
+            if mesh is not None:
+                mesh.barrier()
 
     def should_stop() -> bool:
         if stop is None:
@@ -524,36 +527,44 @@ def train(
         if should_stop():
             preempted = True
             break
-        batch = next(it)
-        key = (batch.padded_n, batch.padded_g)
-        queues.setdefault(key, []).append(batch)
-        group = queues[key]
-        if len(group) < spc:
-            continue
-        queues[key] = []
-        state, metrics = run_group(state, group)
-        host_step += len(group)
-        step = host_step
-        for b in group:
-            timer.tick(int(np.sum(b.valid)))
-        profiler.step(step)
+        # A step span a drawn batch (at steps_per_call 1, a span a step):
+        # the draw, and when the batch completes a group, the group's
+        # steps, timing, profiling, log, snapshot and eval.
+        with span("gossipnet.train.step"):
+            with span("gossipnet.train.draw"):
+                batch = next(it)
+                key = (batch.padded_n, batch.padded_g)
+                queues.setdefault(key, []).append(batch)
+                group = queues[key]
+            if len(group) < spc:
+                continue
+            queues[key] = []
+            state, metrics = run_group(state, group)
+            host_step += len(group)
+            step = host_step
+            for b in group:
+                timer.tick(int(np.sum(b.valid)))
+            profiler.step(step)
 
-        if step % t.log_every < spc or step >= max_steps:
-            logger.log(step, steps_per_sec=timer.steps_per_sec,
-                       dets_per_sec=timer.dets_per_sec,
-                       **{k: float(v) for k, v in metrics.items()})
-        if t.snapshot_every and step % t.snapshot_every < spc:
-            state = flush_queues(state)
-            step = state.step
-            save(step)
-        if t.eval_every and step % t.eval_every < spc:
-            stats = eval_fn(state)
-            if stats:
-                logger.log(step, **{f"val_{k}": v for k, v in stats.items()})
-                if "AP" in stats and main:
-                    ckpt.maybe_save_best(stats["AP"], state)
-                if mesh is not None:
-                    mesh.barrier()
+            if step % t.log_every < spc or step >= max_steps:
+                with span("gossipnet.train.sync"):   # waits for the device
+                    values = {k: float(v) for k, v in metrics.items()}
+                logger.log(step, steps_per_sec=timer.steps_per_sec,
+                           dets_per_sec=timer.dets_per_sec, **values)
+            if t.snapshot_every and step % t.snapshot_every < spc:
+                state = flush_queues(state)
+                step = state.step
+                save(step)
+            if t.eval_every and step % t.eval_every < spc:
+                with span("gossipnet.train.eval"):
+                    stats = eval_fn(state)
+                if stats:
+                    logger.log(step,
+                               **{f"val_{k}": v for k, v in stats.items()})
+                    if "AP" in stats and main:
+                        ckpt.maybe_save_best(stats["AP"], state)
+                    if mesh is not None:
+                        mesh.barrier()
 
     # Tail: batches drawn but still queued train as single steps before the
     # final save; the preemption path exits through the same code.

@@ -25,6 +25,13 @@ Python calls of their wrappers, and a replay makes none. So each graph
 records, per counter, the launches its capture made, restores the counters
 (the capture ran nothing), and adds those launches again on every replay.
 The eager run before a capture did launch its kernels and counts.
+
+Under a recording profiler (``utils/profiling.py::span``) a training step
+shows as ``gossipnet.graphs.stage`` (the optimizer's plan, the scalars'
+and the batch's staging and the static inputs' copies enqueued) and then
+``gossipnet.graphs.launch`` (the replay; on the CPU the eager step in its
+place), and each capture, of a step or a forward, as
+``gossipnet.graphs.capture``.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from torch import Tensor
 
 from gossipnet_tpu_torch.ops.cuda import matching_scan, pairwise, pairwise2
 from gossipnet_tpu_torch.ops.cuda.matching_scan import split_thresholds
+from gossipnet_tpu_torch.utils.profiling import span
 
 # The counted wrappers of every kernel a forward or a training step runs.
 COUNTED = (pairwise2.pair_pool, pairwise2.pair_pool_backward,
@@ -70,34 +78,35 @@ class Captured:
     """
 
     def __init__(self, fn, pool, settle=None, error_mode: str = "global"):
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        if settle is not None:
-            settle()
-        start = _counts()
-        self.graph = torch.cuda.CUDAGraph()
-        # A cyclic collection during the capture could free an old graph
-        # (a Rescorer's model and its graphs form a cycle), and destroying
-        # a graph is an operation a capture refuses: collect first, then
-        # hold the collector off until the capture has ended.
-        gc.collect()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.graph, pool=pool,
-                                  capture_error_mode=error_mode):
-                self.outputs = fn()
-        finally:
-            if collecting:
-                gc.enable()
-            made = _counts()
-            _add_counts([a - b for a, b in zip(start, made)])
-        self.launches = [b - a for a, b in zip(start, made)]
-        self.seconds = time.perf_counter() - t0
+        with span("gossipnet.graphs.capture"):
+            t0 = time.perf_counter()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            if settle is not None:
+                settle()
+            start = _counts()
+            self.graph = torch.cuda.CUDAGraph()
+            # A cyclic collection during the capture could free an old graph
+            # (a Rescorer's model and its graphs form a cycle), and destroying
+            # a graph is an operation a capture refuses: collect first, then
+            # hold the collector off until the capture has ended.
+            gc.collect()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(self.graph, pool=pool,
+                                      capture_error_mode=error_mode):
+                    self.outputs = fn()
+            finally:
+                if collecting:
+                    gc.enable()
+                made = _counts()
+                _add_counts([a - b for a, b in zip(start, made)])
+            self.launches = [b - a for a, b in zip(start, made)]
+            self.seconds = time.perf_counter() - t0
 
     def replay(self):
         """Replays the graph on the current stream -> its static outputs."""
@@ -243,24 +252,30 @@ class StepGraphs:
         """One micro-step on ``arrays`` (numpy, by name) -> its metrics,
         0-d tensors of its own (cloned from the graph's outputs)."""
         state = self.state
-        apply, values = state.optimizer.plan()
-        staged = torch.tensor([float(v) for v in values], dtype=torch.float32)
-        if self.device.type == "cuda":
-            staged = staged.pin_memory()
-        self._hyper.copy_(staged, non_blocking=True)
-        hyper = type(values)(*self._hyper.unbind())
-        host = dict(zip(arrays, _host_tensors(arrays.values(), self.device)))
-        if self.device.type != "cuda":
-            metrics = self._run(host, apply, hyper)
-        else:
-            key = (apply,) + tuple((k, tuple(v.shape))
-                                   for k, v in host.items())
-            if key not in self._graphs:
-                self._graphs[key] = self._capture(host, apply, hyper)
-            inputs, graph = self._graphs[key]
-            for k, h in host.items():
-                inputs[k].copy_(h, non_blocking=True)
-            metrics = {k: v.clone() for k, v in graph.replay().items()}
+        cuda = self.device.type == "cuda"
+        with span("gossipnet.graphs.stage"):
+            apply, values = state.optimizer.plan()
+            staged = torch.tensor([float(v) for v in values],
+                                  dtype=torch.float32)
+            if cuda:
+                staged = staged.pin_memory()
+            self._hyper.copy_(staged, non_blocking=True)
+            hyper = type(values)(*self._hyper.unbind())
+            host = dict(zip(arrays, _host_tensors(arrays.values(),
+                                                  self.device)))
+            if cuda:
+                key = (apply,) + tuple((k, tuple(v.shape))
+                                       for k, v in host.items())
+                if key not in self._graphs:
+                    self._graphs[key] = self._capture(host, apply, hyper)
+                inputs, graph = self._graphs[key]
+                for k, h in host.items():
+                    inputs[k].copy_(h, non_blocking=True)
+        with span("gossipnet.graphs.launch"):
+            metrics = (graph.replay() if cuda
+                       else self._run(host, apply, hyper))
+        if cuda:
+            metrics = {k: v.clone() for k, v in metrics.items()}
         if apply:
             state.schedule.step()
         state.step += 1

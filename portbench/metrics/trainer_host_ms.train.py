@@ -1,0 +1,15 @@
+"""The dense training window's median host self time a step: the span
+``gossipnet.train.step`` less its ``gossipnet.graphs.launch``,
+``gossipnet.graphs.capture`` and ``gossipnet.train.sync`` descendants (the
+draw, the staging, the metrics' clones and the bookkeeping)."""
+
+from portbench.metrics import spans
+
+LAYER = "Trainer"
+UNIT = "ms"
+SOURCE = "program_span"
+MOVES = "train_dets_per_s"
+
+
+def read(bench):
+    return spans.step_host_ms(bench)

@@ -274,19 +274,29 @@ def test_profiled_training_run_writes_a_trace(tmp_path):
                        .read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
     assert any("addmm" in str(n) or "matmul" in str(n) for n in names)
+    assert {"gossipnet.train.step", "gossipnet.graphs.launch"} <= names
 
 
-def test_profile_helpers_without_a_card(tmp_path):
-    with profiling.profile_trace(tmp_path, enabled=False) as prof:
-        assert prof is None
-    assert not (tmp_path / profiling.TRACE_FILE).exists()
-    with profiling.profile_trace(tmp_path) as prof:
-        with profiling.annotate("region"):
+def test_profile_helpers_without_a_card(tmp_path, monkeypatch):
+    """``span`` off is the shared no-op and builds no ``record_function``;
+    on, it records a CPU range by name; ``StepProfiler`` writes its
+    window's trace."""
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) built while off")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.profiler, "record_function", refuse)
+        assert profiling.span("a") is profiling.span("b") is profiling.OFF
+        with profiling.span("outer"), profiling.span("inner"):
             torch.ones(8).sum()
-    assert (tmp_path / profiling.TRACE_FILE).exists()
-    assert profiling.kernel_ms(prof) == {}          # no device events
-    if not torch.cuda.is_available():
-        assert profiling.device_memory_stats() == {}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.span("gossipnet.region"):
+            torch.ones(8).sum()
+    region = [e for e in prof.events() if e.name == "gossipnet.region"]
+    assert len(region) == 1
+    assert any(e.name == "aten::sum" and e.cpu_parent is region[0]
+               for e in prof.events())
     sp = profiling.StepProfiler(tmp_path / "s", start=2, stop=3,
                                 enabled=True)
     for step in range(1, 5):
