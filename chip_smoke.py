@@ -50,12 +50,14 @@ Phases (each raises on failure; the script then exits non-zero):
    input, the rows with a candidate, the list entries walked, the largest
    connected component of the det-GT candidate graph and the chain figure
    (its rows times one dependent shared-memory round trip);
-9b. K1 and K2 on the 16-block models' own launch arguments at the four
+9b. K1 and K2 on the 16-block models' own launch arguments at the five
    shapes of the main paths (the serving bench batch, config 2's training
    batch, config 4's B=2 N=4096 through pair_kernel 2, an evaluation batch
-   B=8 N=256): against their plain versions in bf16 and f32, the fill of
-   stage B's groups and the length of the winner queue beside the old lane
-   use, ms/launch of both in bf16 and f32 beside their bounds
+   B=8 N=256, the sparse training cell's fill: eight of the drill's
+   ``full`` images at B=8 N=256): against their plain versions in bf16 and
+   f32, the fill of stage B's groups and the length of the winner queue
+   beside the old lane use, ms/launch of both in bf16 and f32 beside their
+   bounds, and K2's device activities a call and share of blocks with a step
    (``python3 chip_smoke.py --pair-times`` runs only these timings, and
    K5's and K6's at the serving bench batch and config 4 through
    ``pair_kernel: 1``;
@@ -2630,11 +2632,30 @@ def phase_multiclass(tmp: Path):
 
 
 # ---------------------------------------------------------------------------
-# K1 / K2 at the four shapes the main paths give them
+# K1 / K2 at the shapes the main paths give them, and the sparse training fill
 # ---------------------------------------------------------------------------
 
 PAIR_SHAPES = ("bench B=8 N=1024", "config 2 B=8 N=1024", "config 4 B=2 N=4096",
-               "evaluation B=8 N=256")
+               "evaluation B=8 N=256", "sparse fill B=8 N=256")
+# the sparse training cell's pool: the scale drill's `full` persons
+# (portbench/traffic/mixes/sparse_persons_roidb.json)
+SPARSE_POOL_SEED = 20170721
+
+
+def sparse_fill_batch(dev):
+    """Eight images of the sparse training cell's pool (the scale drill's
+    ``full`` draw, persons, 3-60 detections an image), padded to N=256 ->
+    boxes, scores, valid on ``dev``."""
+    from portbench.traffic import drill
+
+    images = drill.draw(SPARSE_POOL_SEED, "pool.full", "full", 8, 1024)
+    boxes = np.zeros((8, 256, 4), np.float32)
+    scores = np.zeros((8, 256), np.float32)
+    valid = np.zeros((8, 256), bool)
+    for i, im in enumerate(images):
+        n = len(im.scores)
+        boxes[i, :n], scores[i, :n], valid[i, :n] = im.boxes, im.scores, True
+    return [torch.from_numpy(x).to(dev) for x in (boxes, scores, valid)]
 
 
 def seeded_model(cfg):
@@ -2648,7 +2669,7 @@ def pair_shape_args() -> dict:
     (first block's forward, last block's backward; seeded weights; the
     model's own dtype, bf16) at the serving bench batch, config 2's training
     batch, config 4's batch through ``pair_kernel: 2`` and an evaluation
-    batch of config 2."""
+    batch of config 2, and a batch of the sparse training cell's fill."""
     dev = torch.device(DEV)
     out = {}
     bench = seeded_model(load_config(experiment_path("serving_bucketed")))
@@ -2670,11 +2691,48 @@ def pair_shape_args() -> dict:
     ev = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
           for x in (batch.boxes, batch.scores, batch.valid)]
     out[PAIR_SHAPES[3]] = capture_pair(k1, model2, *ev)
+    out[PAIR_SHAPES[4]] = capture_pair(k1, model2, *sparse_fill_batch(dev))
     return out
 
 
+def k2_blocks(args, m, dm, dtype) -> str:
+    """Device activities (kernels, sets) of one K2 call (profiler), and the
+    share of its grid's blocks that had a step (the kernel's own count; a tree
+    that has no such count says so)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    m_dt = k1.launch_kernel(*args, dtype)
+
+    def call():
+        return k1.launch_backward_kernel(*args, m_dt, dm, dtype)
+
+    call()
+    torch.cuda.synchronize()
+    reps = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    # the trace's device activities (kernels, sets, copies) over the calls
+    kernels = sum(e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  for e in prof.events()) / reps
+    out = (f"{kernels:.2f} device activities a call (profiler)" if kernels
+           else "launches not measured")
+    bwd = k1.pair_pool_backward
+    if not hasattr(bwd, "blocks_with_work"):
+        return out + "; no count of blocks with a step in this tree"
+    launched, worked = bwd.blocks_launched, bwd.blocks_with_work()
+    call()
+    launched, worked = (bwd.blocks_launched - launched,
+                        bwd.blocks_with_work() - worked)
+    return (out + f"; blocks with a step {worked} of {launched} "
+            f"({100.0 * worked / launched:.2f}%)")
+
+
 def phase_pair_shapes(check: bool = True) -> tuple[dict, float, float]:
-    """K1 and K2 on the models' own launch arguments at the four shapes of
+    """K1 and K2 on the models' own launch arguments at the five shapes of
     the main paths: against their plain versions in the model's dtype and
     in f32 (``check``), the fill of stage B's groups and the length of the
     winner queue beside the old lane use, and ms/launch of both in bf16 and
@@ -2734,6 +2792,7 @@ def phase_pair_shapes(check: bool = True) -> tuple[dict, float, float]:
             log(f"  {label} (B={bsz} NR={nr} P={p}) {dt}: K1 {e1:.4f} "
                 f"ms/launch (events), {d1} on the device (profiler); "
                 f"K2 {e2:.4f} ms/launch (events), {d2} on the device")
+            log(f"  {label} {dt}: K2 {k2_blocks(args, m, dm, dt)}")
         log(f"  {label} bounds, {dtype}: K1 {bound1[0]:.5f} ms ({bound1[1]}); "
             f"K2 {bound2[0]:.5f} ms ({bound2[1]}: {bound2[2]})")
     return times, k1_err, k2_err
@@ -2812,7 +2871,7 @@ K1_STAGES = (
 def phase_k1_stages():
     """What each stage of K1 costs: the kernel rebuilt with a stage taken
     out (the outputs are wrong and are not read) and timed on the device
-    at the four shapes, bf16 and f32. The differences are no sum of parts:
+    at the five shapes, bf16 and f32. The differences are no sum of parts:
     the stages are chains of latencies that overlap."""
     from gossipnet_tpu_torch.ops.cuda import launch
 
@@ -5443,7 +5502,7 @@ def main() -> int:
     log(f"phase 1: card {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
     if sys.argv[1:] == ["--pair-times"]:
-        # The pair kernels alone, timed: K1/K2 at the four shapes, K5/K6 at
+        # The pair kernels alone, timed: K1/K2 at the five shapes, K5/K6 at
         # two; no check, no result line. It uses only what the package has
         # had since K5/K6 exist, so a copy of this script beside an earlier
         # tree times that tree's kernels on the same card.

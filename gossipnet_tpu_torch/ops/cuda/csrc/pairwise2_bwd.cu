@@ -33,8 +33,19 @@
 // - The blocks that share a tile of own detections take its work round
 //   robin at the grain of two tests (run_stages), so a crowded tile does
 //   not leave one warp with a long serial chain; each sums into its own
-//   slice [splits, ...] and a last small kernel adds the few slices of
-//   d_a' and d_b' in order (the wrapper sums the weight partials).
+//   slice [splits, ...].
+// - The split count is sized for a padded grid in which every tile has
+//   work; where detections are few most blocks have none (invalid
+//   detections sort last, so their tiles' flags are clear). A block first
+//   finds from its flag row (row pass) or its column bits (column pass)
+//   whether the stage loop would hand it any step (block_has_step); if
+//   not, it records that in `work` and leaves before it stages, zeroes or
+//   writes anything. The working blocks count themselves in `worked`,
+//   one integer atomicAdd a block.
+// - A last small kernel (pair_pool2_bwd_kernel_sum) adds, in a fixed
+//   order and over the working blocks only, the splits' slices of d_a'
+//   and d_b' and the row blocks' partials of dWg_k, dW2 and db2; a block
+//   that did not run is an exact zero and its scratch is never read.
 // - Two passes, each owning what it sums. The row pass (a block owns 32
 //   rows and walks the columns) sums d_a', dWg_k, dW2 and db2; the column
 //   pass (a block owns 32 columns and walks the rows, the same code with
@@ -49,7 +60,8 @@
 //   every step cost K2 up to 3% and K6 up to 8% at 32 x 64.
 // Deterministic, with no float atomics: a warp adds its winners in queue
 // order, which depends only on the inputs; the four warps' sums meet in
-// order; the wrapper sums the row blocks' weight partials. Two launches
+// order; the last kernel sums the blocks' partials in an order fixed by
+// the shape and the flags. Two launches
 // give bit-identical gradients. d_b'_j adds its rows in an order fixed by
 // the row indices alone, so a permutation of the columns permutes d_b'
 // bit for bit, and a column and its copy get the same bits.
@@ -85,19 +97,29 @@ constexpr size_t smem_words() {
          + (ROWSIDE ? 0 : ACT_WORDS);  // the column pass's tile bits
 }
 
+// A row block's weight partials, one row of wpart: dWg_k [K][P], dW2
+// [P][P], db2 [P].
+__host__ __device__ inline int weight_words(int K, int P) {
+  return K * P + P * P + P;
+}
+
 struct Args {
   const float *row_cols, *col_cols, *a, *b, *wg, *w2, *b2;
   const int* flags;
   const float *m, *dm;
-  float *da, *db, *dwg_part, *dw2_part, *db2_part;
+  float *da_part, *db_part, *wpart;  // [S, B, NR, P], [S, B, NC, P],
+                                     // [S * B * NI, weight_words]
+  int* work;                    // [S, B, NI + NCT]: the block had a step
+  unsigned long long* worked;   // blocks with a step, over all launches
   int B, NR, NC, K, splits;
   float thr;
   Tile tile;  // the flags' skip tile
 };
 
 // ROWSIDE: the block owns rows [own0, own0 + 32) and walks the columns;
-// writes d_a' of its rows and its partials of dWg_k, dW2, db2.
-// !ROWSIDE: the block owns 32 columns and walks the rows; writes d_b'.
+// writes its slice of d_a' and its partials of dWg_k, dW2, db2.
+// !ROWSIDE: the block owns 32 columns and walks the rows; writes its slice
+// of d_b'. Either writes nothing but its `work` entry if it has no step.
 template <int P, bool BF16, bool EW, bool ROWSIDE>
 __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
                                                     int img, int split) {
@@ -140,6 +162,31 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
   float* dwgs = dw2t + P * P;                          // [KMAX][P]
   float* db2a = dwgs + KMAX * P;                       // [P]
 
+  // Whether tile t of the other side (TJ detections) can hold a neighbour
+  // of this block: in the row pass the flag in column t of the own rows'
+  // flag row; in the column pass, bit t of stage_column_activity's.
+  const int* fl = x.flags + (size_t)img * NFR * NFC;
+  const int* own_flags =
+      ROWSIDE ? fl + (size_t)(own0 >> x.tile.fi_shift) * NFC : fl;
+  if (!ROWSIDE) {
+    stage_column_activity(fl, NFR, NFC, x.tile, own0, NR, act_bits, lane,
+                          warp);
+    __syncthreads();
+  }
+  auto active = [&](int t) {
+    return ROWSIDE ? own_flags[t] != 0
+                   : ((act_bits[t >> 5] >> (t & 31)) & 1u) != 0u;
+  };
+  const bool has_step =
+      block_has_step(NOTH, split, x.splits, x.tile.tj_shift, active, tid);
+  if (tid == 0) {
+    const int ntiles = NI + (NC + TILE_I - 1) / TILE_I;
+    x.work[((size_t)split * x.B + img) * ntiles + (ROWSIDE ? 0 : NI) + tile] =
+        has_step;
+    if (has_step) atomicAdd(x.worked, 1ull);
+  }
+  if (!has_step) return;
+
   if (BF16) {
     stage_w2_frags<P>(x.w2, w2p, tid, NTHREADS);
   } else {
@@ -152,10 +199,6 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
   }
   stage_small_weights<P, BF16>(x.wg, x.b2, K, wgs, b2s, tid);
   for (int e = tid; e < (int)(NWARPS * ACC); e += NTHREADS) accbase[e] = 0.f;
-  const int* fl = x.flags + (size_t)img * NFR * NFC;
-  if (!ROWSIDE)
-    stage_column_activity(fl, NFR, NFC, x.tile, own0, NR, act_bits, lane,
-                          warp);
   __syncthreads();
 
   const float* own_fields =
@@ -348,15 +391,6 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
     gradients(nwin);
   };
 
-  // Whether tile t of the other side (TJ detections) can hold a neighbour
-  // of this block: in the row pass the flag in column t of the own rows'
-  // flag row; in the column pass, bit t of stage_column_activity's.
-  const int* own_flags =
-      ROWSIDE ? fl + (size_t)(own0 >> x.tile.fi_shift) * NFC : fl;
-  auto active = [&](int t) {
-    return ROWSIDE ? own_flags[t] != 0
-                   : ((act_bits[t >> 5] >> (t & 31)) & 1u) != 0u;
-  };
   run_stages<BF16, GROUP>(ri, live, oth_fields, C, NOTH, split, x.splits,
                           x.tile.tj_shift, active, K, x.thr,
                           ROWSIDE ? own << 16 : own, ROWSIDE ? 0 : 16, q_ij,
@@ -377,7 +411,7 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
   __syncthreads();
   // this split's slice of the output: [splits, B, N, P]
   const size_t slice = (size_t)split * x.B + img;
-  float* own_out = (ROWSIDE ? x.da : x.db) + slice * NOWN * P;
+  float* own_out = (ROWSIDE ? x.da_part : x.db_part) + slice * NOWN * P;
   for (int e = tid; e < TILE_I * P; e += NTHREADS) {
     if (own0 + e / P >= NOWN) continue;
     float v = accbase[e];
@@ -386,25 +420,25 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
   }
   if (ROWSIDE) {
     // Weight gradients: this block's partials, warps summed in order.
-    const size_t blk = slice * NI + tile;
+    float* wp = x.wpart + (slice * NI + tile) * weight_words(K, P);
     const float* dw2t0 = accbase + TILE_I * P;
     const float* dwg0 = dw2t0 + P * P;
     const float* db20 = dwg0 + KMAX * P;
+    for (int e = tid; e < K * P; e += NTHREADS) {
+      float v = dwg0[e];
+      for (int w = 1; w < NWARPS; ++w) v += dwg0[w * ACC + e];
+      wp[e] = v;
+    }
     for (int e = tid; e < P * P; e += NTHREADS) {
       const int p = e / P, q = e - p * P;
       float v = dw2t0[q * P + p];
       for (int w = 1; w < NWARPS; ++w) v += dw2t0[w * ACC + q * P + p];
-      x.dw2_part[blk * P * P + e] = v;
-    }
-    for (int e = tid; e < K * P; e += NTHREADS) {
-      float v = dwg0[e];
-      for (int w = 1; w < NWARPS; ++w) v += dwg0[w * ACC + e];
-      x.dwg_part[blk * K * P + e] = v;
+      wp[K * P + e] = v;
     }
     for (int e = tid; e < P; e += NTHREADS) {
       float v = db20[e];
       for (int w = 1; w < NWARPS; ++w) v += db20[w * ACC + e];
-      x.db2_part[blk * P + e] = v;
+      wp[K * P + P * P + e] = v;
     }
   }
 }
@@ -431,10 +465,116 @@ pair_pool2_bwd_pass_kernel(Args x) {
                                                blockIdx.z);
 }
 
+// The last step: every output summed over the blocks that had a step, in
+// an order fixed by the shape and the flags. A thread reads the `work`
+// words of up to 32 of its terms at once (all loads in flight: testing
+// them one by one would chain the loads), then loads only the terms that
+// have work, several at a time, and adds them in order. Blocks [0,
+// wblocks) take WCOLS columns of the weight partials each: the rows
+// (split, image, row tile) are dealt round robin to WGROUPS groups, each
+// adds its rows in order, and the groups' sums meet in a fixed tree. The
+// other blocks add d_a' and d_b', a float4 a thread, over the splits in
+// order.
+constexpr int SUM_THREADS = 512;
+constexpr int WCOLS = 8;
+constexpr int WGROUPS = SUM_THREADS / WCOLS;
+
+struct SumArgs {
+  const int* work;
+  const float *da_part, *db_part, *wpart;
+  float *da, *db, *wsum;
+  int B, NR, NC, P, splits, NI, ntiles, W, wblocks;
+};
+
+__device__ __forceinline__ float4& operator+=(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+  return a;
+}
+
+// v += term(j) for the j < n with has(j), in ascending j, N term loads in
+// flight at a time.
+template <int N, class T, class Has, class Term>
+__device__ __forceinline__ void add_present(T& v, int n, Has has, Term term) {
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    unsigned bits = 0u;
+#pragma unroll
+    for (int k = 0; k < 32; ++k)
+      if (j0 + k < n && has(j0 + k)) bits |= 1u << k;
+    while (bits) {
+      T u[N];
+      int got = 0;
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        if (bits) {
+          u[k] = term(j0 + __ffs(bits) - 1);
+          bits &= bits - 1u;
+          got = k + 1;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        if (k < got) v += u[k];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(SUM_THREADS)
+pair_pool2_bwd_kernel_sum(SumArgs x) {
+  const int tid = threadIdx.x;
+  if ((int)blockIdx.x < x.wblocks) {
+    __shared__ float part[WGROUPS][WCOLS];
+    const int cl = tid % WCOLS, g = tid / WCOLS;
+    const int c = blockIdx.x * WCOLS + cl;
+    const int rows = x.splits * x.B * x.NI;  // (split, image, row tile)
+    float v = 0.f;
+    if (c < x.W) {
+      add_present<8>(
+          v, (rows - g + WGROUPS - 1) / WGROUPS,
+          [&](int j) {
+            const int r = g + j * WGROUPS, sb = r / x.NI;
+            return x.work[(size_t)sb * x.ntiles + (r - sb * x.NI)] != 0;
+          },
+          [&](int j) { return x.wpart[(size_t)(g + j * WGROUPS) * x.W + c]; });
+    }
+    part[g][cl] = v;
+    for (int half = WGROUPS / 2; half > 0; half /= 2) {
+      __syncthreads();
+      if (g < half) part[g][cl] += part[g + half][cl];
+    }
+    if (g == 0 && c < x.W) x.wsum[c] = part[0][cl];
+    return;
+  }
+  const size_t na = (size_t)x.B * x.NR * x.P / 4;  // float4s of d_a'
+  const size_t nb = (size_t)x.B * x.NC * x.P / 4;
+  size_t i = (size_t)(blockIdx.x - x.wblocks) * SUM_THREADS + tid;
+  const bool rowside = i < na;
+  if (!rowside) i -= na;
+  const size_t n = rowside ? na : nb;
+  if (i >= n) return;
+  const int nown = rowside ? x.NR : x.NC;
+  const size_t det = 4 * i / x.P;  // image * nown + own detection
+  const int img = (int)(det / nown);
+  const int col =
+      (rowside ? 0 : x.NI) + (int)(det - (size_t)img * nown) / TILE_I;
+  const float4* part =
+      reinterpret_cast<const float4*>(rowside ? x.da_part : x.db_part);
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  add_present<4>(
+      v, x.splits,
+      [&](int s) {
+        return x.work[((size_t)s * x.B + img) * x.ntiles + col] != 0;
+      },
+      [&](int s) { return part[(size_t)s * n + i]; });
+  reinterpret_cast<float4*>(rowside ? x.da : x.db)[i] = v;
+}
+
 template <class Kernel>
 int launch_grid(Kernel kernel, const Args& x, int tiles, size_t smem_words,
                 cudaStream_t stream) {
-  if (tiles <= 0) return 0;
+  if (tiles <= 0 || x.B <= 0) return 0;
   const size_t smem = smem_words * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -489,42 +629,50 @@ int gnet_pair_pool2_bwd_tiles(int fi, int tj) {
   return make_tile(fi, tj, t) ? 1 : 0;
 }
 
-// Launches K2 (its row pass and its column pass) on `stream`; returns
-// cudaGetLastError() (0 = launched). `splits` blocks share the work on a
-// tile of own detections, each summing into its own slice. Every output is
-// written in full: da [B, NR, P] and db [B, NC, P] (through the scratch
-// da_part [S, B, NR, P] and db_part [S, B, NC, P], whose slices are added
-// in order; unused when S = 1), and per row block of 32 (NI of them)
-// dwg_part [S*B*NI, K, P], dw2_part [S*B*NI, P, P], db2_part [S*B*NI, P],
-// which the caller sums. `mode`: 0 f32, 1 bf16 operands, 2 bf16 operands
-// and the bf16 stream. `flags` [B, ceil(NR / fi), ceil(NC / tj)] at the
-// skip tile fi x tj.
+// Launches K2 (its row pass and its column pass, then the sum) on
+// `stream`; returns cudaGetLastError() (0 = launched). `splits` blocks
+// share the work on a tile of own detections, each summing into its own
+// slice of the scratch da_part [S, B, NR, P] and db_part [S, B, NC, P];
+// each row block of 32 (NI of them) writes its weight partials into a row
+// of wpart [S*B*NI, K*P + P*P + P], and every block its entry of work
+// [S, B, NI + ceil(NC / 32)]. A block with no step writes only that entry.
+// The sum writes every output in full: da [B, NR, P], db [B, NC, P] and
+// wsum [K*P + P*P + P] (dWg_k [K, P], dW2 [P, P], db2 [P]). `worked`: one
+// unsigned 64-bit integer, to which each block with a step adds 1.
+// `mode`: 0 f32, 1 bf16 operands, 2 bf16 operands and the bf16 stream.
+// `flags` [B, ceil(NR / fi), ceil(NC / tj)] at the skip tile fi x tj.
 int gnet_pair_pool2_bwd(const float* row_cols, const float* col_cols,
                         const float* a, const float* b, const float* wg,
                         const float* w2, const float* b2, const int* flags,
                         const float* m, const float* dm, float* da,
                         float* db, float* da_part, float* db_part,
-                        float* dwg_part, float* dw2_part, float* db2_part,
-                        int B, int NR, int NC, int P, int K, int splits,
-                        float thr, int mode, int fi, int tj, void* stream) {
+                        float* wpart, float* wsum, int* work,
+                        unsigned long long* worked, int B, int NR, int NC,
+                        int P, int K, int splits, float thr, int mode, int fi,
+                        int tj, void* stream) {
   Tile tile;
   if (!make_tile(fi, tj, tile)) return (int)cudaErrorInvalidValue;
-  if (B <= 0 || NR <= 0) return 0;
-  if ((K != 3 && K != 4) || NC < 0 || NR > MAX_DETS || NC > MAX_DETS ||
-      splits < 1 || splits > 65535 || mode < 0 || mode > 2)
+  if ((K != 3 && K != 4) || B < 0 || NR < 0 || NC < 0 || NR > MAX_DETS ||
+      NC > MAX_DETS || splits < 1 || splits > 65535 || mode < 0 || mode > 2)
     return (int)cudaErrorInvalidValue;
-  const bool direct = splits == 1;
   const Args x{row_cols, col_cols, a, b, wg, w2, b2, flags, m, dm,
-               direct ? da : da_part, direct ? db : db_part,
-               dwg_part, dw2_part, db2_part, B, NR, NC, K, splits, thr,
-               tile};
+               da_part, db_part, wpart, work, worked, B, NR, NC, K, splits,
+               thr, tile};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int e = mode == 2 ? dispatch_p<true, true>(P, x, s)
-          : mode     ? dispatch_p<true, false>(P, x, s)
-                     : dispatch_p<false, false>(P, x, s);
-  if (e != 0 || direct) return e;
-  return sum_slices(da_part, db_part, da, db, splits, (size_t)B * NR * P,
-                    (size_t)B * NC * P, s);
+  const int e = mode == 2 ? dispatch_p<true, true>(P, x, s)
+                : mode    ? dispatch_p<true, false>(P, x, s)
+                          : dispatch_p<false, false>(P, x, s);
+  if (e != 0) return e;
+  const int ni = (NR + TILE_I - 1) / TILE_I;
+  const int W = weight_words(K, P);
+  const SumArgs y{work, da_part, db_part, wpart, da, db, wsum, B, NR, NC, P,
+                  splits, ni, ni + (NC + TILE_I - 1) / TILE_I, W,
+                  (W + WCOLS - 1) / WCOLS};
+  const size_t n4 = (size_t)B * (NR + NC) * P / 4;
+  pair_pool2_bwd_kernel_sum<<<(unsigned)(y.wblocks + (n4 + SUM_THREADS - 1) /
+                                                         SUM_THREADS),
+                              SUM_THREADS, 0, s>>>(y);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

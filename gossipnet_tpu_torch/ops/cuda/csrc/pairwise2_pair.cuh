@@ -230,6 +230,24 @@ __device__ __forceinline__ void stage_loop(
   }
 }
 
+// Whether stage_loop would hand split `split` of `splits` a step over N
+// detections of the other side: an item of its round robin whose tile is
+// active. The whole block calls it (a barrier), before it stages anything:
+// K2's blocks with no step leave at once. ops/cuda/launch.py::work_blocks
+// is the same rule in torch.
+template <class Active>
+__device__ __forceinline__ bool block_has_step(int N, int split, int splits,
+                                               int tj_shift, Active& active,
+                                               int tid) {
+  const int steps_shift = tj_shift - 3;
+  const int n_items = ((N + (1 << tj_shift) - 1) >> tj_shift) << steps_shift;
+  bool any = false;
+  for (int w = split + tid * splits; w < n_items && !any;
+       w += NTHREADS * splits)
+    any = active(w >> steps_shift);
+  return __syncthreads_or(any) != 0;
+}
+
 // K1's and K2's stages: lane l owns detection `ri` (fields [C, N] of the
 // other side in `fields`), K1's test and its 3-4 features.
 template <bool BF16, int GROUP, class Active, class Consume>
@@ -396,7 +414,7 @@ __device__ __forceinline__ int lane_pair(const int* q_ij, const float* q_g,
 
 // out[i] = part[0][i] + part[1][i] + ... in that order, for d_a (the
 // first na elements of the index space) and d_b (the next nb) at once: the
-// last step of K2 and K6, whose splits each sum into a slice of their own.
+// last step of K6, whose splits each sum into a slice of their own.
 template <int THREADS>
 __global__ void __launch_bounds__(THREADS)
 sum_slices_kernel(const float* __restrict__ da_part,

@@ -1,6 +1,6 @@
 """The launch plumbing the pair kernels share: K1/K2 (``pairwise2.py``)
 and K5/K6 (``pairwise.py``) take the same argument list, so one input
-check, one ctypes binding and one partial-sum step serve all four.
+check and one ctypes binding serve all four.
 
 A pair kernel's C entry takes the pointers of its tensors, six ints
 (B, NR, NC, P, the features K or G, the splits S of :func:`col_splits`),
@@ -230,40 +230,85 @@ def forward_launch(name: str, label: str, entry: str, tiles: str, geom,
     return out
 
 
+def work_blocks(flags: Tensor, nr: int, nc: int, splits: int,
+                tile=None) -> Tensor:
+    """Which of K2's blocks have a step -> bool [S, B, NI + NCT], in the
+    order the kernel numbers them (split, image, then the NI row tiles and
+    the NCT column tiles of :data:`BLOCK_ROWS`): the kernel's skip rule
+    (``csrc/pairwise2_pair.cuh::block_has_step``) in torch.
+
+    A block walks items ``split, split + S, ...`` of its other side, TJ / 8
+    items a tile of TJ, and has a step where one of them falls in an
+    active tile: for a row block, a set flag in its own flag row; for a
+    column block, a set flag in a cell that overlaps the tile's rows and
+    the block's 32 columns (``stage_column_activity``). ``flags`` [B, NFR,
+    NFC] at ``tile`` (FI, TJ)."""
+    fi, tj = check_tile(tile)
+    _, nfr, nfc = flags.shape
+    cells = (flags.cpu() != 0).float()
+
+    def overlap(na: int, sa: int, nb: int, sb: int) -> Tensor:
+        # [na, nb]: stretch i of sa meets stretch j of sb
+        i, j = torch.arange(na)[:, None], torch.arange(nb)[None, :]
+        return ((i * sa < (j + 1) * sb) & (j * sb < (i + 1) * sa)).float()
+
+    def with_step(own: Tensor, grid: Tensor, oth: Tensor,
+                  n_other: int) -> Tensor:
+        # own [blocks, own flag lines], grid [B, own lines, other lines],
+        # oth [tiles, other lines] -> [B, blocks, S]: whether one of a
+        # split's items falls in an active tile
+        ntiles = -(-n_other // tj)
+        act = torch.einsum("ir,brf,tf->bit", own, grid, oth) > 0
+        w = torch.arange(ntiles * (tj // 8))      # TJ / 8 items a tile
+        hit = torch.zeros((splits, ntiles), dtype=torch.bool)
+        hit[w % splits, w // (tj // 8)] = True
+        return (act[:, :, None, :] & hit).any(-1)
+
+    ni, nct = -(-nr // BLOCK_ROWS), -(-nc // BLOCK_ROWS)
+    rows = with_step(overlap(ni, BLOCK_ROWS, nfr, fi), cells,
+                     torch.eye(nfc), nc)
+    cols = with_step(overlap(nct, BLOCK_ROWS, nfc, tj),
+                     cells.transpose(1, 2), overlap(-(-nr // tj), tj, nfr, fi),
+                     nr)
+    return torch.cat([rows, cols], dim=1).permute(2, 0, 1)
+
+
 def backward_launch(name: str, label: str, entry: str, tiles: str, geom,
                     a: Tensor, b: Tensor, wg: Tensor, w2: Tensor,
-                    b2bias: Tensor, m: Tensor, dm: Tensor,
+                    b2bias: Tensor, m: Tensor, dm: Tensor, worked: Tensor,
                     compute_dtype: str, elementwise_dtype: str = "float32"):
-    """A pair-pool backward kernel (K2 or K6) -> (d_a, d_b, dWg, dW2,
-    db2) float32; inputs already checked.
+    """K2 -> ((d_a, d_b, dWg, dW2, db2) float32, blocks launched); inputs
+    already checked.
 
-    Every gradient is summed from partial sums in a fixed order (no float
-    atomics), in the kernel or here, so two launches on the same inputs
-    give identical bits. The kernel takes the number of splits S
-    (:func:`col_splits`) and two scratch tensors [S, B, NR, P] and
-    [S, B, NC, P], one slice per split, which it adds in order into d_a
-    and d_b itself; its weight gradients leave per block (of
-    :data:`BLOCK_ROWS` rows) and split and are summed here.
+    The kernel takes the number of splits S (:func:`col_splits`). Each of
+    its blocks sums into scratch of its own, one slice of [S, B, NR, P] or
+    [S, B, NC, P] and, per row block of :data:`BLOCK_ROWS` and split, one
+    row of weight partials; a block the flags give no step
+    (:func:`work_blocks`) leaves at once and writes nothing but its entry
+    of ``work``. The kernel's last launch then sums every gradient over
+    the blocks that had a step, in a fixed order (no float atomics), so two
+    launches on the same inputs give identical bits; nothing is summed
+    here. ``worked`` (int64 [1] on the device) counts the blocks with a
+    step.
     """
     bsz, nr, p = a.shape
     nc, k, ni = b.shape[1], wg.shape[0], -(-nr // BLOCK_ROWS)
+    ntiles = ni + -(-nc // BLOCK_ROWS)
     f32 = dict(dtype=torch.float32, device=a.device)
     s = _splits(geom, a.device, whole_matrix=True)
     da = torch.empty((bsz, nr, p), **f32)
     db = torch.empty((bsz, nc, p), **f32)
-    # scratch: one slice per split, added in order by the kernel's last
-    # step (not touched when there is one split)
-    scratch = (torch.empty((s if s > 1 else 0, bsz, nr, p), **f32),
-               torch.empty((s if s > 1 else 0, bsz, nc, p), **f32))
-    dwg_part = torch.empty((s * bsz * ni, k, p), **f32)
-    dw2_part = torch.empty((s * bsz * ni, p, p), **f32)
-    db2_part = torch.empty((s * bsz * ni, p), **f32)
+    wsum = torch.empty(k * p + p * p + p, **f32)
+    scratch = (torch.empty((s, bsz, nr, p), **f32),
+               torch.empty((s, bsz, nc, p), **f32),
+               torch.empty((s * bsz * ni, wsum.numel()), **f32))
+    work = torch.empty((s, bsz, ntiles), dtype=torch.int32, device=a.device)
     _launch(name, label, entry, tiles, geom,
             (geom.row, geom.col, a, b, wg, w2, b2bias, geom.flags, m, dm, da,
-             db, *scratch, dwg_part, dw2_part, db2_part), p, k, s,
+             db, *scratch, wsum, work, worked), p, k, s,
             kernel_mode(compute_dtype, elementwise_dtype))
-    return (da, db, dwg_part.sum(dim=0), dw2_part.sum(dim=0),
-            db2_part.sum(dim=0))
+    dwg, dw2, db2 = wsum.split((k * p, p * p, p))
+    return (da, db, dwg.view(k, p), dw2.view(p, p), db2), s * bsz * ntiles
 
 
 def check_packable(label: str, geom) -> None:

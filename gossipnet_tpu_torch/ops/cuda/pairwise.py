@@ -52,17 +52,17 @@ import torch
 from torch import Tensor
 
 from gossipnet_tpu_torch.ops import pair_features as pf
-from gossipnet_tpu_torch.ops.cuda import pairwise2
+from gossipnet_tpu_torch.ops.cuda import launch, pairwise2
 from gossipnet_tpu_torch.ops.cuda.launch import (
     DEFAULT_TILE,
     TILE_I,  # noqa: F401 -- the default tile, named here as pairwise2 does
     TILE_J,  # noqa: F401
-    backward_launch,
     check_dtype,
     check_inputs,
     check_packable,
     check_tile,
     forward_launch,
+    kernel_mode,
 )
 from gossipnet_tpu_torch.ops.cuda.pairwise2 import _fma, _rounder
 
@@ -259,11 +259,37 @@ def launch_backward_kernel(cols: PairColumns, a: Tensor, b: Tensor,
     check_inputs("K6", cols, a, b, wg, w2, b2bias, compute_dtype, _LAYOUTS,
                   m=m, dm=dm)
     check_packable("K6", cols)
-    grads = backward_launch("pairwise_bwd", "K6", "gnet_pair_pool_bwd",
-                             "gnet_pair_pool_bwd_tiles", cols, a, b, wg, w2,
-                             b2bias, m, dm, compute_dtype)
+    grads = backward_launch(cols, a, b, wg, w2, b2bias, m, dm,
+                            compute_dtype)
     pair_pool_backward.launches += 1
     return grads
+
+
+def backward_launch(cols: PairColumns, a: Tensor, b: Tensor, wg: Tensor,
+                    w2: Tensor, b2bias: Tensor, m: Tensor, dm: Tensor,
+                    compute_dtype: str):
+    """K6 -> (d_a, d_b, dWg, dW2, db2) float32; inputs already checked.
+    The kernel takes the splits S (``launch.col_splits``) and two scratch
+    tensors [S, B, NR, P] and [S, B, NC, P], one slice per split, which it
+    adds in order into d_a and d_b itself (none for one split); its weight
+    partials leave per block of 32 rows and split and are summed here."""
+    bsz, nr, p = a.shape
+    nc, g, ni = b.shape[1], wg.shape[0], -(-nr // launch.BLOCK_ROWS)
+    f32 = dict(dtype=torch.float32, device=a.device)
+    s = launch._splits(cols, a.device, whole_matrix=True)
+    da = torch.empty((bsz, nr, p), **f32)
+    db = torch.empty((bsz, nc, p), **f32)
+    scratch = (torch.empty((s if s > 1 else 0, bsz, nr, p), **f32),
+               torch.empty((s if s > 1 else 0, bsz, nc, p), **f32))
+    parts = (torch.empty((s * bsz * ni, g, p), **f32),
+             torch.empty((s * bsz * ni, p, p), **f32),
+             torch.empty((s * bsz * ni, p), **f32))
+    launch._launch("pairwise_bwd", "K6", "gnet_pair_pool_bwd",
+                   "gnet_pair_pool_bwd_tiles", cols,
+                   (cols.row, cols.col, a, b, wg, w2, b2bias, cols.flags, m,
+                    dm, da, db, *scratch, *parts), p, g, s,
+                   kernel_mode(compute_dtype))
+    return (da, db, *(t.sum(dim=0) for t in parts))
 
 
 def pair_pool_backward(cols: PairColumns, a: Tensor, b: Tensor, wg: Tensor,

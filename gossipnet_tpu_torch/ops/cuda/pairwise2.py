@@ -393,16 +393,22 @@ def launch_backward_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor,
                            wg_k: Tensor, w2: Tensor, b2bias: Tensor,
                            m: Tensor, dm: Tensor, compute_dtype: str,
                            elementwise_dtype: str = "float32"):
-    """One K2 launch on the current stream -> (d_a', d_b', dWg_k, dW2, db2)
-    float32, as :func:`pair_pool_backward_reference` returns them."""
+    """One K2 call on the current stream (its grid or grids, then its sum)
+    -> (d_a', d_b', dWg_k, dW2, db2) float32, as
+    :func:`pair_pool_backward_reference` returns them."""
     check_inputs("K2", geom, a2, b2, wg_k, w2, b2bias, compute_dtype,
                   _LAYOUTS, m=m, dm=dm, elementwise_dtype=elementwise_dtype)
     check_packable("K2", geom)
-    grads = backward_launch("pairwise2_bwd", "K2", "gnet_pair_pool2_bwd",
-                             "gnet_pair_pool2_bwd_tiles", geom, a2, b2, wg_k,
-                             w2, b2bias, m, dm, compute_dtype,
-                             elementwise_dtype)
+    worked = _WORKED.get(a2.device.index)
+    if worked is None:
+        worked = _WORKED[a2.device.index] = torch.zeros(
+            1, dtype=torch.int64, device=a2.device)
+    grads, blocks = backward_launch(
+        "pairwise2_bwd", "K2", "gnet_pair_pool2_bwd",
+        "gnet_pair_pool2_bwd_tiles", geom, a2, b2, wg_k, w2, b2bias, m, dm,
+        worked, compute_dtype, elementwise_dtype)
     pair_pool_backward.launches += 1
+    pair_pool_backward.blocks_launched += blocks
     if elementwise_dtype == "bfloat16":
         pair_pool_backward.launches_ew += 1
     return grads
@@ -423,10 +429,25 @@ def pair_pool_backward(geom: PairGeometry, a2: Tensor, b2: Tensor,
                                   elementwise_dtype=elementwise_dtype)
 
 
-# K2 launches, and those of the bf16-stream instantiation among them; only
-# launch_backward_kernel adds
+# K2's blocks with a step, counted on each device by the kernel itself
+# (device index -> int64 [1])
+_WORKED: dict = {}
+
+
+def blocks_with_work() -> int:
+    """K2's blocks that had a step, over every launch so far on every
+    device (graph replays included). Reads the devices' counters, so it
+    synchronises them: for tests and chip_smoke.py, never inside a step."""
+    return sum(int(t.item()) for t in _WORKED.values())
+
+
+# K2 launches, and those of the bf16-stream instantiation among them, and
+# the blocks of their grids (a launch's splits x images x row and column
+# tiles); only launch_backward_kernel adds
 pair_pool_backward.launches = 0
 pair_pool_backward.launches_ew = 0
+pair_pool_backward.blocks_launched = 0
+pair_pool_backward.blocks_with_work = blocks_with_work
 
 
 class PairPool2(torch.autograd.Function):

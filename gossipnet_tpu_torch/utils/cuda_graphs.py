@@ -51,11 +51,12 @@ from gossipnet_tpu_torch.utils.profiling import span
 COUNTED = (pairwise2.pair_pool, pairwise2.pair_pool_backward,
            pairwise.pair_pool, pairwise.pair_pool_backward,
            matching_scan.greedy_scan_batched, matching_scan.greedy_scan)
-# Every counter a graph keeps: each wrapper's ``launches``, and K1's and
-# K2's bf16-stream launches, which are also counted apart.
+# Every counter a graph keeps: each wrapper's ``launches``, K1's and K2's
+# bf16-stream launches, which are also counted apart, and K2's blocks.
 _COUNTERS = tuple((fn, "launches") for fn in COUNTED) + (
     (pairwise2.pair_pool, "launches_ew"),
-    (pairwise2.pair_pool_backward, "launches_ew"))
+    (pairwise2.pair_pool_backward, "launches_ew"),
+    (pairwise2.pair_pool_backward, "blocks_launched"))
 
 
 def _counts() -> list[int]:

@@ -684,6 +684,102 @@ def test_column_permutation_probe_on_card(p, k, dtype):
     _assert_grads(got_p, (got[0], got[1][:, perm], *got[2:]), dtype)
 
 
+# K2 at the fills of the training cells: blocks with no step leave at once
+FILL_CASES = {   # valid detections an image, first (invalid ones sort last)
+    "sparse_fill": dict(b=8, n=256, n_valid=(1, 7, 13, 22, 22, 29, 35, 40)),
+    "all_padding_image": dict(b=2, n=256, n_valid=(0, 30)),
+    "one_live_tile": dict(b=1, n=256, n_valid=(20,)),
+    "dense_1024": dict(b=2, n=1024, n_valid=(710, 1024)),
+    "row_shard": dict(b=2, n=256, n_valid=(200, 90), rows=slice(128, 256)),
+}
+FILL_MODES = {"f32": ("float32", "float32"), "bf16": ("bfloat16", "float32"),
+              "ew": ("bfloat16", "bfloat16")}
+
+
+def _fill_args(rng, dev, k, b, n, n_valid, rows=slice(None), p=32):
+    """K1/K2 launch arguments (K = 3 or 4 in-kernel features) of images
+    whose first ``n_valid[i]`` detections are valid, rows a slice of the
+    columns, and a cotangent."""
+    boxes, scores, valid, classes = _clustered(rng, b, n, num_classes=4)
+    for i, nv in enumerate(n_valid):
+        valid[i, nv:] = False
+    cs = pf.stack_columns(pf.det_columns(
+        torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev),
+        torch.from_numpy(valid).to(dev)))
+    cls = torch.from_numpy(classes).to(dev) if k == 4 else None
+
+    def t(*shape, scale=0.5):
+        return torch.from_numpy(
+            rng.normal(0, scale, shape).astype(np.float32)).to(dev)
+
+    nr = cs[:, :, rows].shape[2]
+    geom = k1.pair_geometry(cs[:, :, rows].contiguous(), cs, THR,
+                            None if cls is None else cls[:, rows].contiguous(),
+                            cls)
+    return (geom, t(b, nr, p, scale=1.0), t(b, n, p, scale=1.0), t(k, p),
+            t(p, p), t(p)), t(b, nr, p, scale=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(FILL_MODES))
+@pytest.mark.parametrize("k", [3, 4])
+@pytest.mark.parametrize("name", sorted(FILL_CASES))
+def test_k2_skips_the_blocks_without_a_step_on_card(name, k, mode):
+    """K2 where most of the padded grid has no work (the sparse cell's
+    fill, an all-padding image, one live tile, a row shard) and where most
+    has (N=1024 dense): against the plain backward at the usual
+    tolerances, two launches bit-identical, and the blocks the kernel
+    counts as having a step those of the plain skip rule
+    (``launch.work_blocks``)."""
+    from gossipnet_tpu_torch.ops.cuda import launch
+
+    dev = _card()
+    dts = FILL_MODES[mode]
+    args, dm = _fill_args(np.random.default_rng(k), dev, k,
+                          **FILL_CASES[name])
+    m = k1.launch_kernel(*args, *dts)
+    m_plain = k1._reference_core(*args, *dts)
+    if mode == "ew":
+        dm = _untied(args, dm)
+    bwd = k1.pair_pool_backward
+    before = (bwd.blocks_launched, bwd.blocks_with_work())
+    got = k1.launch_backward_kernel(*args, m, dm, *dts)
+    after = (bwd.blocks_launched, bwd.blocks_with_work())
+    again = k1.launch_backward_kernel(*args, m, dm, *dts)
+    want = k1.pair_pool_backward_reference(*args, m_plain, dm, *dts)
+    torch.cuda.synchronize()
+    assert (m > 0).any()
+    _assert_grads(got, want, dts[0])
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    geom = args[0]
+    work = launch.work_blocks(
+        geom.flags, geom.row.shape[2], geom.col.shape[2],
+        launch._splits(geom, dev, whole_matrix=True), geom.tile)
+    assert after[0] - before[0] == work.numel()
+    assert after[1] - before[1] == int(work.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(FILL_MODES))
+def test_k2_row_shards_at_the_sparse_fill_join_bit_equal_on_card(mode):
+    """Row shards of a sparse fill (N=256, halves of 128 rows, most blocks
+    without a step): joined, their d_a' equals the square launch's bit for
+    bit."""
+    dev = _card()
+    dts = FILL_MODES[mode]
+    args, dm = _fill_args(np.random.default_rng(5), dev, 3, 4, 256,
+                          (200, 90, 13, 0))
+    m = k1.launch_kernel(*args, *dts)
+    square = k1.launch_backward_kernel(*args, m, dm, *dts)
+    parts = []
+    for sl in (slice(0, 128), slice(128, 256)):
+        shard = _row_shard(k1, args, sl)
+        parts.append(k1.launch_backward_kernel(
+            *shard, m[:, sl].contiguous(), dm[:, sl].contiguous(), *dts)[0])
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(parts, 1), square[0])
+
+
 @pytest.mark.cuda
 def test_k1_k2_refuse_more_detections_than_an_entry_packs_on_card():
     from gossipnet_tpu_torch.ops.cuda.launch import MAX_DETS
@@ -1262,6 +1358,19 @@ def _bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+def _untied(args, dm):
+    """dm zero where the best two candidates of the bf16 stream lie within
+    one bf16 ulp (exact ties included): there one ulp of a differently
+    ordered sum can crown another set."""
+    ties = []
+    for _, nb, _, _, pre2 in k1._pair_chunks(*args, *STREAM):
+        v = torch.where(nb[..., None], pre2, torch.full_like(pre2, -1e30))
+        top = v.topk(2, dim=2).values
+        best, second = top[:, :, 0], top[:, :, 1]
+        ties.append((best > 0) & (best - second <= _bf16_ulp(best)))
+    return torch.where(torch.cat(ties, dim=1), torch.zeros_like(dm), dm)
+
+
 @pytest.mark.cuda
 def test_bf16_stream_k1_within_one_ulp_on_card(stream_args):
     """K1's bf16 stream against its plain version: every entry a bf16
@@ -1291,13 +1400,7 @@ def test_bf16_stream_k2_matches_plain_backward_on_card(stream_args):
     _, args, dm = stream_args
     m = k1.launch_kernel(*args, *STREAM)
     m_plain = k1._reference_core(*args, *STREAM)
-    ties = []
-    for _, nb, _, _, pre2 in k1._pair_chunks(*args, *STREAM):
-        v = torch.where(nb[..., None], pre2, torch.full_like(pre2, -1e30))
-        top = v.topk(2, dim=2).values
-        best, second = top[:, :, 0], top[:, :, 1]
-        ties.append((best > 0) & (best - second <= _bf16_ulp(best)))
-    dm = torch.where(torch.cat(ties, dim=1), torch.zeros_like(dm), dm)
+    dm = _untied(args, dm)
     got = k1.launch_backward_kernel(*args, m, dm, *STREAM)
     again = k1.launch_backward_kernel(*args, m, dm, *STREAM)
     want = k1.pair_pool_backward_reference(*args, m_plain, dm, *STREAM)

@@ -432,18 +432,22 @@ def _fake_geom(nr, nc):
 @pytest.mark.parametrize("splits", [1, 3])
 def test_backward_launch_scratch_and_sums(rng, monkeypatch, splits):
     """What the wrapper hands K2 and what it makes of its outputs, with the
-    launch replaced: d_a and d_b come back as the kernel wrote them (the
-    kernel adds its slices itself), the scratch has one slice per split
-    and none for one split, and the weight partials, one per block and
-    split, are summed. No [B, NI, NC, P] tensor is made."""
+    launch replaced: every gradient comes back as the kernel wrote it (the
+    kernel sums its slices and its weight partials itself; nothing is
+    summed here), the scratch has one slice per split, one row of weight
+    partials per block and split and one ``work`` entry per block of the
+    grid, and the count of blocks launched is the grid's. No [B, NI, NC,
+    P] tensor is made."""
     from gossipnet_tpu_torch.ops.cuda import launch
 
     b, nr, nc, p, k = 2, 70, 100, 16, 3
     geom = _fake_geom(nr, nc)
     ni, nj = -(-nr // launch.TILE_I), -(-nc // launch.TILE_J)
+    nt = ni + -(-nc // launch.BLOCK_ROWS)
     geom.flags = torch.ones(b, ni, nj, dtype=torch.int32)
     geom.neighbor_iou = THR
     seen = {}
+    words = k * p + p * p + p
 
     def fake_launch(name, label, entry, tiles, geom_, tensors, p_, k_,
                     splits_, dtype):
@@ -452,38 +456,42 @@ def test_backward_launch_scratch_and_sums(rng, monkeypatch, splits):
         da, db = tensors[10], tensors[11]
         da.fill_(1.0)
         db.fill_(2.0)
-        for t in tensors[-3:]:
-            t.fill_(0.5)
+        tensors[15].copy_(torch.arange(words))
 
     monkeypatch.setattr(launch, "_launch", fake_launch)
     monkeypatch.setattr(launch, "_splits", lambda geom_, device, **kw: splits)
     t = lambda *s: torch.zeros(*s)
-    da, db, dwg, dw2, db2 = launch.backward_launch(
+    worked = torch.zeros(1, dtype=torch.int64)
+    (da, db, dwg, dw2, db2), launched = launch.backward_launch(
         "pairwise2_bwd", "K2", "e", "t", geom, t(b, nr, p), t(b, nc, p),
-        t(k, p), t(p, p), t(p), t(b, nr, p), t(b, nr, p), "float32")
+        t(k, p), t(p, p), t(p), t(b, nr, p), t(b, nr, p), worked, "float32")
     assert seen["splits"] == splits
     shapes = seen["shapes"]
     assert shapes[10] == (b, nr, p) and shapes[11] == (b, nc, p)
-    s0 = splits if splits > 1 else 0
-    assert shapes[12] == (s0, b, nr, p) and shapes[13] == (s0, b, nc, p)
-    assert shapes[14:] == [(splits * b * ni, k, p), (splits * b * ni, p, p),
-                           (splits * b * ni, p)]
+    assert shapes[12] == (splits, b, nr, p)
+    assert shapes[13] == (splits, b, nc, p)
+    assert shapes[14:] == [(splits * b * ni, words), (words,),
+                           (splits, b, nt), (1,)]
+    assert launched == splits * b * nt
     assert (b, ni, nc, p) not in shapes
     assert da.shape == (b, nr, p) and bool((da == 1.0).all())
     assert db.shape == (b, nc, p) and bool((db == 2.0).all())
-    blocks = splits * b * ni
-    for g, shape in ((dwg, (k, p)), (dw2, (p, p)), (db2, (p,))):
-        assert g.shape == shape and bool((g == 0.5 * blocks).all())
+    whole = torch.arange(words, dtype=torch.float32)
+    for g, shape, part in ((dwg, (k, p), whole[:k * p]),
+                           (dw2, (p, p), whole[k * p:k * p + p * p]),
+                           (db2, (p,), whole[k * p + p * p:])):
+        assert g.shape == shape and torch.equal(g.flatten(), part)
 
 
 @pytest.mark.parametrize("splits", [1, 4])
 def test_k6_launch_keeps_its_row_tile_partial(rng, monkeypatch, splits):
-    """K6 no longer keeps a row-tile partial: it takes K2's launch, the
-    splits and one scratch slice of d_a and d_b per split (none for one
+    """K6 no longer keeps a row-tile partial: it takes the splits and one
+    scratch slice of d_a and d_b per split (none for one
     split), with d_b [B, NC, P] written by the kernel as it is; no
     [B, NI, NC, P] tensor is made, zero-filled or summed. Its nine
     feature rows of dWg come back summed over the blocks and splits."""
     from gossipnet_tpu_torch.ops.cuda import launch
+    from gossipnet_tpu_torch.ops.cuda import pairwise as k5
 
     b, nr, nc, p, k = 1, 40, 70, 8, 9
     geom = _fake_geom(nr, nc)
@@ -502,9 +510,9 @@ def test_k6_launch_keeps_its_row_tile_partial(rng, monkeypatch, splits):
     monkeypatch.setattr(launch, "_launch", fake_launch)
     monkeypatch.setattr(launch, "_splits", lambda geom_, device, **kw: splits)
     t = lambda *s: torch.zeros(*s)
-    _, db, dwg, *_ = launch.backward_launch(
-        "pairwise_bwd", "K6", "e", "t", geom, t(b, nr, p), t(b, nc, p),
-        t(k, p), t(p, p), t(p), t(b, nr, p), t(b, nr, p), "float32")
+    _, db, dwg, *_ = k5.backward_launch(
+        geom, t(b, nr, p), t(b, nc, p), t(k, p), t(p, p), t(p),
+        t(b, nr, p), t(b, nr, p), "float32")
     assert seen["n"] == 17 and seen["splits"] == splits
     s0 = splits if splits > 1 else 0
     assert seen["shapes"][11:14] == [(b, nc, p), (s0, b, nr, p),

@@ -181,7 +181,9 @@ def test_launch_hands_the_entry_its_tile_words(monkeypatch, tile):
                          ids=["64x16", "64x128"])
 def test_backward_partials_are_per_block_of_32_rows(monkeypatch, tile):
     """K2's weight partials leave per block of 32 rows and split, whatever
-    FI the flags have (blocks own 32 rows, one per lane)."""
+    FI the flags have (blocks own 32 rows, one per lane), and every block
+    of the grid has an entry of ``work``; the kernel's own sum fills the
+    weight gradients, which are views of its one output."""
     b, nr, nc, p, k, splits = 2, 70, 100, 16, 3, 3
     cols = _square(np.random.default_rng(3), b, nc)
     geom = k1.pair_geometry(cols[:, :, :nr].contiguous(), cols, 0.2,
@@ -192,19 +194,25 @@ def test_backward_partials_are_per_block_of_32_rows(monkeypatch, tile):
     def fake_launch(name, label, entry, tiles, geom_, tensors, p_, k_,
                     splits_, dtype):
         seen["shapes"] = [tuple(t.shape) for t in tensors]
-        for t in tensors[10:]:
-            t.fill_(1.0)
+        tensors[15].copy_(torch.arange(tensors[15].numel()))
 
     monkeypatch.setattr(launch, "_launch", fake_launch)
     monkeypatch.setattr(launch, "_splits", lambda geom_, device, **kw: splits)
     t = lambda *s: torch.zeros(*s)
-    _, _, dwg, _, _ = launch.backward_launch(
+    worked = torch.zeros(1, dtype=torch.int64)
+    (_, _, dwg, dw2, db2), launched = launch.backward_launch(
         "pairwise2_bwd", "K2", "e", "t", geom, t(b, nr, p), t(b, nc, p),
-        t(k, p), t(p, p), t(p), t(b, nr, p), t(b, nr, p), "float32")
-    blocks = splits * b * -(-nr // 32)
-    assert seen["shapes"][14:] == [(blocks, k, p), (blocks, p, p),
-                                   (blocks, p)]
-    assert bool((dwg == blocks).all())
+        t(k, p), t(p, p), t(p), t(b, nr, p), t(b, nr, p), worked, "float32")
+    ni, nct = -(-nr // 32), -(-nc // 32)
+    words = k * p + p * p + p
+    assert seen["shapes"][12:] == [(splits, b, nr, p), (splits, b, nc, p),
+                                   (splits * b * ni, words), (words,),
+                                   (splits, b, ni + nct), (1,)]
+    assert launched == splits * b * (ni + nct)
+    whole = torch.arange(words, dtype=torch.float32)
+    assert torch.equal(dwg, whole[:k * p].view(k, p))
+    assert torch.equal(dw2, whole[k * p:k * p + p * p].view(p, p))
+    assert torch.equal(db2, whole[k * p + p * p:])
 
 
 def test_library_check_takes_exactly_the_set(monkeypatch):
