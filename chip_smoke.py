@@ -50,11 +50,12 @@ Phases (each raises on failure; the script then exits non-zero):
    input, the rows with a candidate, the list entries walked, the largest
    connected component of the det-GT candidate graph and the chain figure
    (its rows times one dependent shared-memory round trip);
-9b. K1 and K2 on the 16-block models' own launch arguments at the five
+9b. K1 and K2 on the 16-block models' own launch arguments at the six
    shapes of the main paths (the serving bench batch, config 2's training
    batch, config 4's B=2 N=4096 through pair_kernel 2, an evaluation batch
    B=8 N=256, the sparse training cell's fill: eight of the drill's
-   ``full`` images at B=8 N=256): against their plain versions in bf16 and
+   ``full`` images at B=8 N=256, and the crowd training cell's: two of its
+   ``dense_4k`` images at B=2 N=4096): against their plain versions in bf16 and
    f32, the fill of stage B's groups and the length of the winner queue
    beside the old lane use, ms/launch of both in bf16 and f32 beside their
    bounds, and K2's device activities a call and share of blocks with a step
@@ -2636,26 +2637,40 @@ def phase_multiclass(tmp: Path):
 # ---------------------------------------------------------------------------
 
 PAIR_SHAPES = ("bench B=8 N=1024", "config 2 B=8 N=1024", "config 4 B=2 N=4096",
-               "evaluation B=8 N=256", "sparse fill B=8 N=256")
-# the sparse training cell's pool: the scale drill's `full` persons
-# (portbench/traffic/mixes/sparse_persons_roidb.json)
+               "evaluation B=8 N=256", "sparse fill B=8 N=256",
+               "crowd fill B=2 N=4096")
+# the sparse and crowd training cells' pools: the scale drill's `full` and
+# `dense_4k` persons (portbench/traffic/mixes/sparse_persons_roidb.json,
+# crowd_4096_roidb.json)
 SPARSE_POOL_SEED = 20170721
 
 
-def sparse_fill_batch(dev):
-    """Eight images of the sparse training cell's pool (the scale drill's
-    ``full`` draw, persons, 3-60 detections an image), padded to N=256 ->
-    boxes, scores, valid on ``dev``."""
+def drill_fill_batch(dev, preset: str, b: int, n: int):
+    """The first ``b`` images of a training cell's pool (the scale drill's
+    ``preset`` draw, persons), padded to N=``n`` -> boxes, scores, valid
+    on ``dev``."""
     from portbench.traffic import drill
 
-    images = drill.draw(SPARSE_POOL_SEED, "pool.full", "full", 8, 1024)
-    boxes = np.zeros((8, 256, 4), np.float32)
-    scores = np.zeros((8, 256), np.float32)
-    valid = np.zeros((8, 256), bool)
+    images = drill.draw(SPARSE_POOL_SEED, f"pool.{preset}", preset, b, n)
+    boxes = np.zeros((b, n, 4), np.float32)
+    scores = np.zeros((b, n), np.float32)
+    valid = np.zeros((b, n), bool)
     for i, im in enumerate(images):
-        n = len(im.scores)
-        boxes[i, :n], scores[i, :n], valid[i, :n] = im.boxes, im.scores, True
+        k = len(im.scores)
+        boxes[i, :k], scores[i, :k], valid[i, :k] = im.boxes, im.scores, True
     return [torch.from_numpy(x).to(dev) for x in (boxes, scores, valid)]
+
+
+def sparse_fill_batch(dev):
+    """Eight images of the sparse training cell's pool (``full``, 3-60
+    detections an image) at N=256."""
+    return drill_fill_batch(dev, "full", 8, 256)
+
+
+def crowd_fill_batch(dev):
+    """Two images of the crowd training cell's pool (``dense_4k``, config
+    4's published batch: 1,600-2,900 detections an image) at N=4096."""
+    return drill_fill_batch(dev, "dense_4k", 2, 4096)
 
 
 def seeded_model(cfg):
@@ -2669,7 +2684,8 @@ def pair_shape_args() -> dict:
     (first block's forward, last block's backward; seeded weights; the
     model's own dtype, bf16) at the serving bench batch, config 2's training
     batch, config 4's batch through ``pair_kernel: 2`` and an evaluation
-    batch of config 2, and a batch of the sparse training cell's fill."""
+    batch of config 2, and a batch of the sparse and of the crowd training
+    cells' fills (the crowd's through config 4's model)."""
     dev = torch.device(DEV)
     out = {}
     bench = seeded_model(load_config(experiment_path("serving_bucketed")))
@@ -2692,6 +2708,8 @@ def pair_shape_args() -> dict:
           for x in (batch.boxes, batch.scores, batch.valid)]
     out[PAIR_SHAPES[3]] = capture_pair(k1, model2, *ev)
     out[PAIR_SHAPES[4]] = capture_pair(k1, model2, *sparse_fill_batch(dev))
+    out[PAIR_SHAPES[5]] = capture_pair(k1, seeded_model(cfg4),
+                                       *crowd_fill_batch(dev))
     return out
 
 
@@ -2732,7 +2750,7 @@ def k2_blocks(args, m, dm, dtype) -> str:
 
 
 def phase_pair_shapes(check: bool = True) -> tuple[dict, float, float]:
-    """K1 and K2 on the models' own launch arguments at the five shapes of
+    """K1 and K2 on the models' own launch arguments at the six shapes of
     the main paths: against their plain versions in the model's dtype and
     in f32 (``check``), the fill of stage B's groups and the length of the
     winner queue beside the old lane use, and ms/launch of both in bf16 and
@@ -2871,7 +2889,7 @@ K1_STAGES = (
 def phase_k1_stages():
     """What each stage of K1 costs: the kernel rebuilt with a stage taken
     out (the outputs are wrong and are not read) and timed on the device
-    at the five shapes, bf16 and f32. The differences are no sum of parts:
+    at the six shapes, bf16 and f32. The differences are no sum of parts:
     the stages are chains of latencies that overlap."""
     from gossipnet_tpu_torch.ops.cuda import launch
 
@@ -5502,7 +5520,7 @@ def main() -> int:
     log(f"phase 1: card {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
     if sys.argv[1:] == ["--pair-times"]:
-        # The pair kernels alone, timed: K1/K2 at the five shapes, K5/K6 at
+        # The pair kernels alone, timed: K1/K2 at the six shapes, K5/K6 at
         # two; no check, no result line. It uses only what the package has
         # had since K5/K6 exist, so a copy of this script beside an earlier
         # tree times that tree's kernels on the same card.
