@@ -58,7 +58,10 @@ Phases (each raises on failure; the script then exits non-zero):
    ``dense_4k`` images at B=2 N=4096): against their plain versions in bf16 and
    f32, the fill of stage B's groups and the length of the winner queue
    beside the old lane use, ms/launch of both in bf16 and f32 beside their
-   bounds, and K2's device activities a call and share of blocks with a step
+   bounds, and K2's device activities a call, its device time by launch
+   (row grid, column grid, sum), its share of blocks with a step, its
+   column blocks' share that summed the row pass's records and the
+   records' fill of their room
    (``python3 chip_smoke.py --pair-times`` runs only these timings, and
    K5's and K6's at the serving bench batch and config 4 through
    ``pair_kernel: 1``;
@@ -2713,10 +2716,34 @@ def pair_shape_args() -> dict:
     return out
 
 
+def k2_launches(by_name: dict) -> str:
+    """A K2 call's device time by launch, from ``profile_kernels``' names:
+    its row grid, its column grid (a tree older than the records runs both
+    passes as one grid in bf16 mode), its ordered sum and its sets."""
+    parts = {}
+    for key, ms in by_name.items():
+        if "pair_pool2_bwd_kernel_sum" in key:
+            part = "sum"
+        elif "pair_pool2_bwd_pass_kernel" in key:
+            # the last template argument is ROWSIDE
+            rowside = key[key.index("<") + 1:key.index(">")].split(",")[-1]
+            part = "row grid" if rowside.strip() == "true" else "column grid"
+        elif "pair_pool2_bwd_kernel" in key:
+            part = "one grid of both passes"
+        elif "memset" in key.lower():
+            part = "sets"
+        else:
+            part = key[:40]
+        parts[part] = parts.get(part, 0.0) + ms
+    return ", ".join(f"{part} {ms:.4f}" for part, ms in parts.items())
+
+
 def k2_blocks(args, m, dm, dtype) -> str:
-    """Device activities (kernels, sets) of one K2 call (profiler), and the
-    share of its grid's blocks that had a step (the kernel's own count; a tree
-    that has no such count says so)."""
+    """Device activities (kernels, sets) of one K2 call (profiler), its
+    device ms by launch, the share of its grids' blocks that had a step and
+    the share of its column blocks with a step that summed the row pass's
+    records (the kernel's own counts; a tree that has no such count says
+    so)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2738,15 +2765,49 @@ def k2_blocks(args, m, dm, dtype) -> str:
                   for e in prof.events()) / reps
     out = (f"{kernels:.2f} device activities a call (profiler)" if kernels
            else "launches not measured")
+    busy, by_name = profile_kernels(call, reps)
+    if busy:
+        out += f"; device ms a call by launch: {k2_launches(by_name)}"
     bwd = k1.pair_pool_backward
     if not hasattr(bwd, "blocks_with_work"):
         return out + "; no count of blocks with a step in this tree"
     launched, worked = bwd.blocks_launched, bwd.blocks_with_work()
+    columns = bwd.column_blocks() if hasattr(bwd, "column_blocks") else None
     call()
     launched, worked = (bwd.blocks_launched - launched,
                         bwd.blocks_with_work() - worked)
-    return (out + f"; blocks with a step {worked} of {launched} "
+    out += (f"; blocks with a step {worked} of {launched} "
             f"({100.0 * worked / launched:.2f}%)")
+    if columns is None:
+        return out + "; no records in this tree"
+    records, recomputed = (x - y for x, y in zip(bwd.column_blocks(),
+                                                 columns))
+    share = 100.0 * records / max(records + recomputed, 1)
+    return (out + f"; column blocks with a step that summed records "
+            f"{records} of {records + recomputed} ({share:.2f}%)")
+
+
+def record_fill(args, dm, dtype) -> str:
+    """K2's records against their room, counted with the plain version on
+    its own m: the pairs that win some q (m > 0, dm != 0) over the 32 x P
+    slots of every image's row tiles of 32, and the fullest tile's."""
+    geom, a2 = args[0], args[1]
+    bsz, nr, p = a2.shape
+    cap = 32 * p
+    m = k1._reference_core(*args, *dt_args(dtype))
+    per_tile = torch.zeros((bsz, -(-nr // 32)), dtype=torch.int64,
+                           device=a2.device)
+    for rows, nb, _, _, pre2 in k1._pair_chunks(*args, *dt_args(dtype)):
+        mr, dr = m[:, rows, None, :], dm[:, rows, None, :]
+        wins = (nb[..., None] & (pre2 == mr) & (mr > 0) & (dr != 0))
+        per_row = wins.any(dim=-1).sum(dim=-1)              # [B, rows]
+        tiles = torch.arange(rows.start, rows.stop, device=a2.device) // 32
+        per_tile.index_add_(1, tiles, per_row)
+    total = int(per_tile.sum().item())
+    return (f"records {total} of {per_tile.numel() * cap} slots "
+            f"({100.0 * total / (per_tile.numel() * cap):.2f}%), the "
+            f"fullest row tile {int(per_tile.max().item())} of {cap} "
+            f"(plain version, {dtype})")
 
 
 def phase_pair_shapes(check: bool = True) -> tuple[dict, float, float]:
@@ -2811,6 +2872,7 @@ def phase_pair_shapes(check: bool = True) -> tuple[dict, float, float]:
                 f"ms/launch (events), {d1} on the device (profiler); "
                 f"K2 {e2:.4f} ms/launch (events), {d2} on the device")
             log(f"  {label} {dt}: K2 {k2_blocks(args, m, dm, dt)}")
+        log(f"  {label}: K2 {record_fill(args, dm, dtype)}")
         log(f"  {label} bounds, {dtype}: K1 {bound1[0]:.5f} ms ({bound1[1]}); "
             f"K2 {bound2[0]:.5f} ms ({bound2[1]}: {bound2[2]})")
     return times, k1_err, k2_err

@@ -40,24 +40,38 @@
 //   finds from its flag row (row pass) or its column bits (column pass)
 //   whether the stage loop would hand it any step (block_has_step); if
 //   not, it records that in `work` and leaves before it stages, zeroes or
-//   writes anything. The working blocks count themselves in `worked`,
+//   writes anything. The working blocks count themselves in `counts`,
 //   one integer atomicAdd a block.
 // - A last small kernel (pair_pool2_bwd_kernel_sum) adds, in a fixed
 //   order and over the working blocks only, the splits' slices of d_a'
 //   and d_b' and the row blocks' partials of dWg_k, dW2 and db2; a block
 //   that did not run is an exact zero and its scratch is never read.
-// - Two passes, each owning what it sums. The row pass (a block owns 32
-//   rows and walks the columns) sums d_a', dWg_k, dW2 and db2; the column
-//   pass (a block owns 32 columns and walks the rows, the same code with
-//   the roles swapped: the IoU test and the features are commutative) sums
-//   d_b'. Every sum is local to a block, so no [B, NI, NC, P] partial of
-//   d_b' is written, zero-filled or reduced; the price is a second
-//   recompute, which the tensor cores made cheap. In bf16 mode the two
-//   passes are one grid (see launch below). The column pass reads which
-//   of its tiles of rows can hold a neighbour from bits it finds once at
-//   the start (stage_column_activity): at the skip tile FI x TJ a tile of
-//   rows and 32 columns overlap up to four flags, and reading them at
-//   every step cost K2 up to 3% and K6 up to 8% at 32 x 64.
+// - Each neighbour pair is recomputed once. The row pass (a block owns 32
+//   rows and walks the columns) sums d_a', dWg_k, dW2 and db2, and keeps
+//   for each winning pair (i, j) a record: (i, j) and its P values of
+//   dpre1_ij, rounded as the dots' operand (the term d_b'_j adds; a pair
+//   that wins no q adds nothing). A row tile's records share one region
+//   of scratch, whose slots the tile's blocks take by an integer
+//   atomicAdd a group; it holds TILE_I x P records, the most a tile can
+//   have without exact ties (one winner a row and q). The column pass
+//   then launches (a block owns 32 columns, the same blocks and skip rule
+//   as before) and sums d_b' from the records: the row tiles are dealt to
+//   the splits (records_split) and a split's tiles to its block's warps
+//   in turn; a warp reads the regions of its tiles that can neighbour the
+//   block's columns (stage_column_activity's bits), files the records of
+//   those columns by (row, column), and each lane adds one column's in
+//   ascending row order; the warps' sums meet in order. So where a record
+//   was written does not matter, every record lands in a block that the
+//   skip rule runs, and a block reads a 1/S share of the regions. Exact
+//   ties can overflow a region (duplicate detections; the bf16 stream
+//   ties often): a region that would overflow writes no record past its
+//   end and marks its image incomplete, and the column blocks of that
+//   image recompute their pairs as the row pass does, with the roles
+//   swapped (the IoU test and the features are commutative; at the skip
+//   tile FI x TJ a tile of rows and 32 columns overlap up to four flags,
+//   found once at the start). Each column block counts which way it took,
+//   one integer atomicAdd a block. The three grids (row, column, sum)
+//   follow a set of the record counts.
 // Deterministic, with no float atomics: a warp adds its winners in queue
 // order, which depends only on the inputs; the four warps' sums meet in
 // order; the last kernel sums the blocks' partials in an order fixed by
@@ -103,6 +117,13 @@ __host__ __device__ inline int weight_words(int K, int P) {
   return K * P + P * P + P;
 }
 
+// Records a row tile's region holds: one winning pair a row and q, the
+// most a tile has without exact ties.
+template <int P>
+__host__ __device__ constexpr int rec_cap() {
+  return TILE_I * P;
+}
+
 struct Args {
   const float *row_cols, *col_cols, *a, *b, *wg, *w2, *b2;
   const int* flags;
@@ -110,16 +131,148 @@ struct Args {
   float *da_part, *db_part, *wpart;  // [S, B, NR, P], [S, B, NC, P],
                                      // [S * B * NI, weight_words]
   int* work;                    // [S, B, NI + NCT]: the block had a step
-  unsigned long long* worked;   // blocks with a step, over all launches
+  // over all launches: blocks with a step; column blocks with a step that
+  // summed records; those that recomputed
+  unsigned long long* counts;
+  float* rec_vr;  // [B, NI, rec_cap, P]: a record's dpre1 terms
+  int* rec_ij;    // [B, NI, rec_cap]: its (row << 16) | column
+  int* rec_fill;  // [B, NI + 1]: records a row tile took (may pass the
+                  // cap), then the image's word "a region overflowed"
   int B, NR, NC, K, splits;
   float thr;
   Tile tile;  // the flags' skip tile
 };
 
+// The split whose column blocks sum the records of row i: one whose share
+// of stage_loop's items holds an item of i's tile of TJ rows (the k-th 32
+// rows of a tile take its k-th item; at TJ = 16 a tile takes its first),
+// so the skip rule gives that split's block a step wherever the tile can
+// hold a neighbour of its columns. Rows of one row tile share a split
+// when TJ >= 32, and each half of it at TJ = 16.
+__device__ __forceinline__ int records_split(int i, int tj_shift,
+                                             int splits) {
+  return (((i >> tj_shift) << (tj_shift - 3)) +
+          ((i & ((1 << tj_shift) - 1)) >> 5)) % splits;
+}
+
+// The column pass from the row pass's records: d_b' of the block's 32
+// columns [c0, c0 + 32), written to its slice of db_part in full. The
+// split's row tiles are dealt to the warps in turn, by their order among
+// the split's tiles (the rows alone fix it). A warp takes its tiles in
+// ascending order and, of each that can neighbour the columns, files the
+// region's records of the columns by (row, column) in its own shared
+// memory `wq`; then lane l adds column l's records in ascending row
+// order, a record's P floats at once. The warps' sums meet in order in
+// `acc` ([NWARPS][TILE_I][P], shared).
+template <int P, class Active>
+__device__ __forceinline__ void sum_records(const Args& x, int c0, int img,
+                                            int split, const int* fill,
+                                            Active& active, float* wq,
+                                            float* acc, int lane, int warp,
+                                            int tid) {
+  constexpr int CAP = rec_cap<P>();
+  constexpr int SCAN = 8;  // record indices a lane loads at once
+  static_assert(CAP <= 65536, "a record's slot fits 16 bits");
+  static_assert(TILE_I + TILE_I * TILE_I / 2 <= QCAP * QWORDS + WCAP * WWORDS,
+                "a warp's table fits where its queues are");
+  unsigned* rows = reinterpret_cast<unsigned*>(wq);  // [column]: bit r,
+                                                     // row r has a record
+  unsigned short* slot =  // [row][column]: the record's slot
+      reinterpret_cast<unsigned short*>(rows + TILE_I);
+  const int NI = (x.NR + TILE_I - 1) / TILE_I;
+  const int tj_shift = x.tile.tj_shift;
+  const int last_tile = (x.NR - 1) >> tj_shift;  // the bits stop there
+  const int half = min(TILE_I, 1 << tj_shift);   // rows of one split
+  float sum[P];
+#pragma unroll
+  for (int p = 0; p < P; ++p) sum[p] = 0.f;
+  rows[lane] = 0u;
+  __syncwarp();
+  int before = 0;  // the split's row tiles before this chunk of 32
+  for (int t0 = 0; t0 < NI; t0 += 32) {
+    // lane l: row tile t0 + l, its splits (two halves at TJ = 16), whether
+    // it has records and can neighbour the columns
+    const int t = t0 + lane;
+    const int split_lo = records_split(t * TILE_I, tj_shift, x.splits);
+    const int split_hi =
+        records_split(t * TILE_I + TILE_I - 1, tj_shift, x.splits);
+    const bool ours = t < NI && (split_lo == split || split_hi == split);
+    bool near = false;
+    if (ours && fill[t] > 0) {
+      const int u1 = min((t * TILE_I + TILE_I - 1) >> tj_shift, last_tile);
+      for (int u = (t * TILE_I) >> tj_shift; u <= u1; ++u)
+        near = near || active(u);
+    }
+    const unsigned mine = __ballot_sync(ALL_LANES, ours);
+    unsigned todo = __ballot_sync(ALL_LANES, near);
+    for (; todo; todo &= todo - 1u) {
+      const int l = __ffs(todo) - 1;
+      if ((before + __popc(mine & ((1u << l) - 1u))) % NWARPS != warp)
+        continue;
+      const int r0 = (t0 + l) * TILE_I;
+      const int lo = __shfl_sync(ALL_LANES, split_lo, l);
+      const int hi = __shfl_sync(ALL_LANES, split_hi, l);
+      const int n = min(fill[t0 + l], CAP);
+      const size_t region = (size_t)img * NI + t0 + l;
+      const int* ij = x.rec_ij + region * CAP;
+      for (int k0 = 0; k0 < n; k0 += 32 * SCAN) {
+        int e[SCAN];  // every load in flight before any is tested
+#pragma unroll
+        for (int v = 0; v < SCAN; ++v) {
+          const int k = k0 + v * 32 + lane;
+          e[v] = k < n ? __ldg(ij + k) : -1;
+        }
+#pragma unroll
+        for (int v = 0; v < SCAN; ++v) {
+          const int ri = (e[v] >> 16) - r0, jl = (e[v] & 0xffff) - c0;
+          if (e[v] >= 0 && jl >= 0 && jl < TILE_I &&
+              (ri < half ? lo : hi) == split) {
+            slot[ri * TILE_I + jl] = (unsigned short)(k0 + v * 32 + lane);
+            atomicOr(rows + jl, 1u << ri);  // one record a pair
+          }
+        }
+      }
+      __syncwarp();
+      const float* vr = x.rec_vr + region * CAP * P;
+      unsigned bits = rows[lane];
+      rows[lane] = 0u;
+      for (; bits; bits &= bits - 1u) {
+        const float4* v = reinterpret_cast<const float4*>(
+            vr + (size_t)slot[(__ffs(bits) - 1) * TILE_I + lane] * P);
+        float4 f[P / 4];  // the record's loads in flight at once
+#pragma unroll
+        for (int q = 0; q < P / 4; ++q) f[q] = __ldg(v + q);
+#pragma unroll
+        for (int q = 0; q < P / 4; ++q) {
+          sum[4 * q] += f[q].x;
+          sum[4 * q + 1] += f[q].y;
+          sum[4 * q + 2] += f[q].z;
+          sum[4 * q + 3] += f[q].w;
+        }
+      }
+      __syncwarp();
+    }
+    before += __popc(mine);
+  }
+  float* own = acc + (size_t)warp * TILE_I * P + lane * P;
+#pragma unroll
+  for (int p = 0; p < P; ++p) own[p] = sum[p];
+  __syncthreads();
+  float* out = x.db_part + ((size_t)split * x.B + img) * x.NC * P;
+  for (int e = tid; e < TILE_I * P; e += NTHREADS) {
+    if (c0 + e / P >= x.NC) continue;
+    float v = acc[e];
+    for (int w = 1; w < NWARPS; ++w) v += acc[w * TILE_I * P + e];
+    out[(size_t)c0 * P + e] = v;
+  }
+}
+
 // ROWSIDE: the block owns rows [own0, own0 + 32) and walks the columns;
-// writes its slice of d_a' and its partials of dWg_k, dW2, db2.
-// !ROWSIDE: the block owns 32 columns and walks the rows; writes its slice
-// of d_b'. Either writes nothing but its `work` entry if it has no step.
+// writes its slice of d_a', its partials of dWg_k, dW2, db2 and its
+// winners' records. !ROWSIDE: the block owns 32 columns; writes its slice
+// of d_b' from the records, or, where its image's records are incomplete,
+// walks the rows. Either writes nothing but its `work` entry if it has no
+// step.
 template <int P, bool BF16, bool EW, bool ROWSIDE>
 __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
                                                     int img, int split) {
@@ -183,9 +336,19 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
     const int ntiles = NI + (NC + TILE_I - 1) / TILE_I;
     x.work[((size_t)split * x.B + img) * ntiles + (ROWSIDE ? 0 : NI) + tile] =
         has_step;
-    if (has_step) atomicAdd(x.worked, 1ull);
+    if (has_step) atomicAdd(x.counts, 1ull);
   }
   if (!has_step) return;
+  int* const fill = x.rec_fill + (size_t)img * (NI + 1);
+  if constexpr (!ROWSIDE) {
+    const bool from_records = fill[NI] == 0;
+    if (tid == 0) atomicAdd(x.counts + (from_records ? 1 : 2), 1ull);
+    if (from_records) {
+      sum_records<P>(x, own0, img, split, fill, active, wq, accbase, lane,
+                     warp, tid);
+      return;
+    }
+  }
 
   if (BF16) {
     stage_w2_frags<P>(x.w2, w2p, tid, NTHREADS);
@@ -215,6 +378,11 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
   const float* b_img = x.b + (size_t)img * NC * P;
   const float* m_img = x.m + (size_t)img * NR * P;
   const float* dm_img = x.dm + (size_t)img * NR * P;
+  // ROWSIDE: this row tile's region of records
+  constexpr int CAP = rec_cap<P>();
+  const size_t region = ROWSIDE ? (size_t)img * NI + tile : 0;
+  int* rec_ij = x.rec_ij + region * CAP;
+  float* rec_vr = x.rec_vr + region * CAP * P;
 
   // The warp's sums of dWg_k[:, p] and db2[p] for this lane's p values stay
   // in registers: every winner adds to them.
@@ -227,8 +395,12 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
   }
 
   // The gradient stage: the warp's `nwin` winners in queue order, the
-  // lanes over p.
+  // lanes over p. The row pass takes nwin slots of its tile's region at
+  // once and records each winner that fits; the atomic's result is first
+  // read after the first winner's gradient, which hides its latency.
   auto gradients = [&](int nwin) {
+    int slot0 = 0;
+    if (ROWSIDE && nwin > 0 && lane == 0) slot0 = atomicAdd(fill + tile, nwin);
     for (int w = 0; w < nwin; ++w) {
       const int ij = w_ij[w];
       const int i = ij >> 16, j = ij & 0xffff;
@@ -278,6 +450,14 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
           per_bit(32 + __ffs(bits) - 1);
       }
       const int ol = (ROWSIDE ? i : j) - own0;
+      int slot = CAP;  // ROWSIDE: the winner's record, where it fits
+      if (ROWSIDE) {
+        slot = __shfl_sync(ALL_LANES, slot0, 0) + w;
+        if (lane == 0) {
+          if (slot < CAP) rec_ij[slot] = ij;
+          else fill[NI] = 1;  // the image's records are incomplete
+        }
+      }
 #pragma unroll
       for (int r = 0; r < PP; ++r) {
         const int p = lane + 32 * r;
@@ -289,6 +469,7 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
 #pragma unroll
             for (int k = 0; k < KMAX; ++k)  // g[k] is 0 beyond K
               dwg_r[k][r] = fmaf(vr, g[k], dwg_r[k][r]);
+            if (slot < CAP) rec_vr[(size_t)slot * P + p] = vr;
           } else {
             own_acc[ol * P + p] += vr;
           }
@@ -443,26 +624,12 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
   }
 }
 
-// Both passes in one grid, so that the column pass fills the
-// multiprocessors the row pass's last blocks leave idle: blockIdx.x counts
-// the row tiles, then the column tiles of 32.
-template <int P, bool BF16, bool EW>
-__global__ void __launch_bounds__(NTHREADS) pair_pool2_bwd_kernel(Args x) {
-  const int NI = (x.NR + TILE_I - 1) / TILE_I;
-  if ((int)blockIdx.x < NI)
-    pair_pool2_bwd_pass<P, BF16, EW, true>(x, blockIdx.x, blockIdx.y,
-                                           blockIdx.z);
-  else
-    pair_pool2_bwd_pass<P, BF16, EW, false>(x, blockIdx.x - NI, blockIdx.y,
-                                            blockIdx.z);
-}
-
-// One pass in a grid of its own.
-template <int P, bool BF16, bool ROWSIDE>
+// One pass a grid: the column pass reads the row pass's records.
+template <int P, bool BF16, bool EW, bool ROWSIDE>
 __global__ void __launch_bounds__(NTHREADS)
 pair_pool2_bwd_pass_kernel(Args x) {
-  pair_pool2_bwd_pass<P, BF16, false, ROWSIDE>(x, blockIdx.x, blockIdx.y,
-                                               blockIdx.z);
+  pair_pool2_bwd_pass<P, BF16, EW, ROWSIDE>(x, blockIdx.x, blockIdx.y,
+                                            blockIdx.z);
 }
 
 // The last step: every output summed over the blocks that had a step, in
@@ -585,27 +752,16 @@ int launch_grid(Kernel kernel, const Args& x, int tiles, size_t smem_words,
   return (int)cudaGetLastError();
 }
 
-// bf16 mode runs the two passes as one grid (measured 9-13% faster than
-// two launches). f32 mode keeps a pair's whole pre2 in registers, and the
-// one grid's register count, the larger of the two passes', costs it more
-// occupancy than the shared tail wins (measured 26-40% slower), so it
-// launches the passes one after the other.
+// The row pass, then the column pass, which reads its records.
 template <int P, bool BF16, bool EW>
 int launch(const Args& x, cudaStream_t stream) {
-  constexpr size_t row_words = smem_words<P, BF16, true>();
-  constexpr size_t col_words = smem_words<P, BF16, false>();
-  const int ni = (x.NR + TILE_I - 1) / TILE_I;
-  const int nc_tiles = (x.NC + TILE_I - 1) / TILE_I;
-  if constexpr (BF16) {  // only the grids a mode launches are compiled
-    return launch_grid(pair_pool2_bwd_kernel<P, BF16, EW>, x, ni + nc_tiles,
-                       row_words > col_words ? row_words : col_words, stream);
-  } else {
-    const int e = launch_grid(pair_pool2_bwd_pass_kernel<P, BF16, true>, x, ni,
-                              row_words, stream);
-    return e != 0 ? e
-                  : launch_grid(pair_pool2_bwd_pass_kernel<P, BF16, false>, x,
-                                nc_tiles, col_words, stream);
-  }
+  const int e = launch_grid(pair_pool2_bwd_pass_kernel<P, BF16, EW, true>, x,
+                            (x.NR + TILE_I - 1) / TILE_I,
+                            smem_words<P, BF16, true>(), stream);
+  return e != 0 ? e
+                : launch_grid(pair_pool2_bwd_pass_kernel<P, BF16, EW, false>,
+                              x, (x.NC + TILE_I - 1) / TILE_I,
+                              smem_words<P, BF16, false>(), stream);
 }
 
 template <bool BF16, bool EW>
@@ -629,16 +785,19 @@ int gnet_pair_pool2_bwd_tiles(int fi, int tj) {
   return make_tile(fi, tj, t) ? 1 : 0;
 }
 
-// Launches K2 (its row pass and its column pass, then the sum) on
-// `stream`; returns cudaGetLastError() (0 = launched). `splits` blocks
-// share the work on a tile of own detections, each summing into its own
-// slice of the scratch da_part [S, B, NR, P] and db_part [S, B, NC, P];
+// Launches K2 (a set of rec_fill, its row pass, its column pass, then the
+// sum) on `stream`; returns cudaGetLastError() (0 = launched). `splits`
+// blocks share the work on a tile of own detections, each summing into its
+// own slice of the scratch da_part [S, B, NR, P] and db_part [S, B, NC, P];
 // each row block of 32 (NI of them) writes its weight partials into a row
 // of wpart [S*B*NI, K*P + P*P + P], and every block its entry of work
 // [S, B, NI + ceil(NC / 32)]. A block with no step writes only that entry.
-// The sum writes every output in full: da [B, NR, P], db [B, NC, P] and
-// wsum [K*P + P*P + P] (dWg_k [K, P], dW2 [P, P], db2 [P]). `worked`: one
-// unsigned 64-bit integer, to which each block with a step adds 1.
+// The row tiles' records: rec_vr [B, NI, 32 P, P] float, rec_ij [B, NI,
+// 32 P] and rec_fill [B, NI + 1] int (set to zero here). The sum writes
+// every output in full: da [B, NR, P], db [B, NC, P] and wsum [K*P + P*P +
+// P] (dWg_k [K, P], dW2 [P, P], db2 [P]). `counts`: three unsigned 64-bit
+// integers, to which each block with a step adds 1, and each column block
+// with a step 1 to the second where it summed records, else to the third.
 // `mode`: 0 f32, 1 bf16 operands, 2 bf16 operands and the bf16 stream.
 // `flags` [B, ceil(NR / fi), ceil(NC / tj)] at the skip tile fi x tj.
 int gnet_pair_pool2_bwd(const float* row_cols, const float* col_cols,
@@ -647,7 +806,8 @@ int gnet_pair_pool2_bwd(const float* row_cols, const float* col_cols,
                         const float* m, const float* dm, float* da,
                         float* db, float* da_part, float* db_part,
                         float* wpart, float* wsum, int* work,
-                        unsigned long long* worked, int B, int NR, int NC,
+                        unsigned long long* counts, float* rec_vr,
+                        int* rec_ij, int* rec_fill, int B, int NR, int NC,
                         int P, int K, int splits, float thr, int mode, int fi,
                         int tj, void* stream) {
   Tile tile;
@@ -656,14 +816,17 @@ int gnet_pair_pool2_bwd(const float* row_cols, const float* col_cols,
       NC > MAX_DETS || splits < 1 || splits > 65535 || mode < 0 || mode > 2)
     return (int)cudaErrorInvalidValue;
   const Args x{row_cols, col_cols, a, b, wg, w2, b2, flags, m, dm,
-               da_part, db_part, wpart, work, worked, B, NR, NC, K, splits,
-               thr, tile};
+               da_part, db_part, wpart, work, counts, rec_vr, rec_ij,
+               rec_fill, B, NR, NC, K, splits, thr, tile};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ni = (NR + TILE_I - 1) / TILE_I;
+  const cudaError_t set = cudaMemsetAsync(
+      rec_fill, 0, (size_t)B * (ni + 1) * sizeof(int), s);
+  if (set != cudaSuccess) return (int)set;
   const int e = mode == 2 ? dispatch_p<true, true>(P, x, s)
                 : mode    ? dispatch_p<true, false>(P, x, s)
                           : dispatch_p<false, false>(P, x, s);
   if (e != 0) return e;
-  const int ni = (NR + TILE_I - 1) / TILE_I;
   const int W = weight_words(K, P);
   const SumArgs y{work, da_part, db_part, wpart, da, db, wsum, B, NR, NC, P,
                   splits, ni, ni + (NC + TILE_I - 1) / TILE_I, W,

@@ -273,42 +273,69 @@ def work_blocks(flags: Tensor, nr: int, nc: int, splits: int,
     return torch.cat([rows, cols], dim=1).permute(2, 0, 1)
 
 
+def backward_scratch(s: int, b: int, nr: int, nc: int, p: int,
+                     k: int) -> dict:
+    """K2's scratch for S splits, B images, NR rows, NC columns, P and K
+    -> {name: (shape, dtype)}, in the order the kernel takes them.
+
+    Each split's slice of d_a' and d_b'; a row of weight partials per
+    block of :data:`BLOCK_ROWS` rows and split; a ``work`` entry per block
+    of both grids. The row pass's records of its winning pairs (which the
+    column pass sums into d_b'): one region per image and row tile, shared
+    by the tile's splits, of BLOCK_ROWS x P records (one winning pair a row
+    and q, the most a tile has without exact ties), each P floats
+    (``rec_vr``) and its packed (row, column) (``rec_ij``); ``rec_fill``
+    holds a count per region, then a word per image that a region
+    overflowed (its column blocks then recompute their pairs)."""
+    ni, nct = -(-nr // BLOCK_ROWS), -(-nc // BLOCK_ROWS)
+    cap = BLOCK_ROWS * p
+    f32, i32 = torch.float32, torch.int32
+    return {"da_part": ((s, b, nr, p), f32),
+            "db_part": ((s, b, nc, p), f32),
+            "wpart": ((s * b * ni, k * p + p * p + p), f32),
+            "work": ((s, b, ni + nct), i32),
+            "rec_vr": ((b, ni, cap, p), f32),
+            "rec_ij": ((b, ni, cap), i32),
+            "rec_fill": ((b, ni + 1), i32)}
+
+
 def backward_launch(name: str, label: str, entry: str, tiles: str, geom,
                     a: Tensor, b: Tensor, wg: Tensor, w2: Tensor,
-                    b2bias: Tensor, m: Tensor, dm: Tensor, worked: Tensor,
+                    b2bias: Tensor, m: Tensor, dm: Tensor, counts: Tensor,
                     compute_dtype: str, elementwise_dtype: str = "float32"):
     """K2 -> ((d_a, d_b, dWg, dW2, db2) float32, blocks launched); inputs
     already checked.
 
-    The kernel takes the number of splits S (:func:`col_splits`). Each of
-    its blocks sums into scratch of its own, one slice of [S, B, NR, P] or
-    [S, B, NC, P] and, per row block of :data:`BLOCK_ROWS` and split, one
-    row of weight partials; a block the flags give no step
+    The kernel takes the number of splits S (:func:`col_splits`) and the
+    scratch of :func:`backward_scratch`. Each of its blocks sums into
+    scratch of its own; a block the flags give no step
     (:func:`work_blocks`) leaves at once and writes nothing but its entry
-    of ``work``. The kernel's last launch then sums every gradient over
-    the blocks that had a step, in a fixed order (no float atomics), so two
-    launches on the same inputs give identical bits; nothing is summed
-    here. ``worked`` (int64 [1] on the device) counts the blocks with a
-    step.
+    of ``work``. The row pass records its winning pairs, and the column
+    pass sums d_b' from them. The kernel's last launch then sums every
+    gradient over the blocks that had a step, in a fixed order (no float
+    atomics), so two launches on the same inputs give identical bits;
+    nothing is summed here. ``counts`` (int64 [3] on the device): the
+    blocks with a step, and the column blocks with a step that summed
+    records and that recomputed their pairs.
     """
     bsz, nr, p = a.shape
-    nc, k, ni = b.shape[1], wg.shape[0], -(-nr // BLOCK_ROWS)
-    ntiles = ni + -(-nc // BLOCK_ROWS)
-    f32 = dict(dtype=torch.float32, device=a.device)
+    nc, k = b.shape[1], wg.shape[0]
     s = _splits(geom, a.device, whole_matrix=True)
+    scratch = {n: torch.empty(shape, dtype=dt, device=a.device) for n, (
+        shape, dt) in backward_scratch(s, bsz, nr, nc, p, k).items()}
+    f32 = dict(dtype=torch.float32, device=a.device)
     da = torch.empty((bsz, nr, p), **f32)
     db = torch.empty((bsz, nc, p), **f32)
     wsum = torch.empty(k * p + p * p + p, **f32)
-    scratch = (torch.empty((s, bsz, nr, p), **f32),
-               torch.empty((s, bsz, nc, p), **f32),
-               torch.empty((s * bsz * ni, wsum.numel()), **f32))
-    work = torch.empty((s, bsz, ntiles), dtype=torch.int32, device=a.device)
     _launch(name, label, entry, tiles, geom,
             (geom.row, geom.col, a, b, wg, w2, b2bias, geom.flags, m, dm, da,
-             db, *scratch, wsum, work, worked), p, k, s,
+             db, scratch["da_part"], scratch["db_part"], scratch["wpart"],
+             wsum, scratch["work"], counts, scratch["rec_vr"],
+             scratch["rec_ij"], scratch["rec_fill"]), p, k, s,
             kernel_mode(compute_dtype, elementwise_dtype))
     dwg, dw2, db2 = wsum.split((k * p, p * p, p))
-    return (da, db, dwg.view(k, p), dw2.view(p, p), db2), s * bsz * ntiles
+    return (da, db, dwg.view(k, p), dw2.view(p, p), db2), \
+        scratch["work"].numel()
 
 
 def check_packable(label: str, geom) -> None:

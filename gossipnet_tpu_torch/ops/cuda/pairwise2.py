@@ -20,11 +20,11 @@ TPU's layout (sublane packing, kron weights, quadrant splits) carries
 over.
 
 K2 is its backward (``csrc/pairwise2_bwd.cu``): it recomputes every
-neighbour pair from the saved output m through the same queue and product
-and routes dm to the max winners, each exact tie getting the full
+neighbour pair once from the saved output m through the same queue and
+product and routes dm to the max winners, each exact tie getting the full
 gradient as the TPU kernel's VJP does; a pass over the rows sums d_a' and
-the weight gradients, a pass over the columns d_b', each in a fixed
-order. :class:`PairPool2` joins the two as one
+the weight gradients and records its winners' terms, a pass over the
+columns sums d_b' from those records, each in a fixed order. :class:`PairPool2` joins the two as one
 ``torch.autograd.Function``.
 
 :func:`pair_pool` routes by device: CPU tensors run the plain forward and
@@ -399,14 +399,14 @@ def launch_backward_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor,
     check_inputs("K2", geom, a2, b2, wg_k, w2, b2bias, compute_dtype,
                   _LAYOUTS, m=m, dm=dm, elementwise_dtype=elementwise_dtype)
     check_packable("K2", geom)
-    worked = _WORKED.get(a2.device.index)
-    if worked is None:
-        worked = _WORKED[a2.device.index] = torch.zeros(
-            1, dtype=torch.int64, device=a2.device)
+    counts = _COUNTS.get(a2.device.index)
+    if counts is None:
+        counts = _COUNTS[a2.device.index] = torch.zeros(
+            3, dtype=torch.int64, device=a2.device)
     grads, blocks = backward_launch(
         "pairwise2_bwd", "K2", "gnet_pair_pool2_bwd",
         "gnet_pair_pool2_bwd_tiles", geom, a2, b2, wg_k, w2, b2bias, m, dm,
-        worked, compute_dtype, elementwise_dtype)
+        counts, compute_dtype, elementwise_dtype)
     pair_pool_backward.launches += 1
     pair_pool_backward.blocks_launched += blocks
     if elementwise_dtype == "bfloat16":
@@ -429,16 +429,35 @@ def pair_pool_backward(geom: PairGeometry, a2: Tensor, b2: Tensor,
                                   elementwise_dtype=elementwise_dtype)
 
 
-# K2's blocks with a step, counted on each device by the kernel itself
-# (device index -> int64 [1])
-_WORKED: dict = {}
+# K2's own counts on each device (device index -> int64 [3]): its blocks
+# with a step, and its column blocks with a step that summed the row
+# pass's records and that recomputed their pairs
+_COUNTS: dict = {}
+
+
+def _device_counts() -> list[int]:
+    """The three counts summed over the devices. Reads the devices'
+    counters, so it synchronises them."""
+    totals = [0, 0, 0]
+    for t in _COUNTS.values():
+        totals = [x + y for x, y in zip(totals, t.tolist())]
+    return totals
 
 
 def blocks_with_work() -> int:
     """K2's blocks that had a step, over every launch so far on every
     device (graph replays included). Reads the devices' counters, so it
     synchronises them: for tests and chip_smoke.py, never inside a step."""
-    return sum(int(t.item()) for t in _WORKED.values())
+    return _device_counts()[0]
+
+
+def column_blocks() -> tuple[int, int]:
+    """K2's column blocks with a step -> (those that summed the row pass's
+    records, those that recomputed their pairs because a region of their
+    image's records overflowed), over every launch so far on every device
+    (graph replays included). Synchronises, as :func:`blocks_with_work`."""
+    _, records, recomputed = _device_counts()
+    return records, recomputed
 
 
 # K2 launches, and those of the bf16-stream instantiation among them, and
@@ -448,6 +467,7 @@ pair_pool_backward.launches = 0
 pair_pool_backward.launches_ew = 0
 pair_pool_backward.blocks_launched = 0
 pair_pool_backward.blocks_with_work = blocks_with_work
+pair_pool_backward.column_blocks = column_blocks
 
 
 class PairPool2(torch.autograd.Function):

@@ -180,6 +180,20 @@ def test_blocks_worked_none_without_launches(monkeypatch):
     assert worked.read(Bench(CELL, 1, 1.0, True)) is None
 
 
+@pytest.mark.parametrize("name", ["pair_bwd_from_records.train_crowd",
+                                  "pair_bwd_from_records.train"])
+def test_from_records_reads_the_column_counts(monkeypatch, name):
+    records = run.reader(name)
+    bwd = pairwise2.pair_pool_backward
+    monkeypatch.setattr(bwd, "column_blocks", lambda: (990, 10))
+    assert records.read(Bench(CELL, 1, 1.0, True)) == pytest.approx(99.0)
+    # no column block with a step, or a program without the count
+    monkeypatch.setattr(bwd, "column_blocks", lambda: (0, 0))
+    assert records.read(Bench(CELL, 1, 1.0, True)) is None
+    monkeypatch.delattr(bwd, "column_blocks")
+    assert records.read(Bench(CELL, 1, 1.0, True)) is None
+
+
 @pytest.mark.parametrize("metric", CROWD_METRICS, ids=lambda m: m["name"])
 def test_crowd_metric_readers(metric):
     """Each of the cell's metrics has its reader, which says what the
@@ -221,7 +235,7 @@ def test_crowd_cell_entries():
     assert CELL in rate["train_dets_per_s"]["workloads"]
     assert {m["name"] for m in run.cell_metrics(BENCHMARK, CELL, False)} == {
         "train_dets_per_s", "setup_s"}
-    assert len(CROWD_METRICS) == 6
+    assert len(CROWD_METRICS) == 7
     assert set(bench.workload_file(CELL)["limits"]) == {
         "loss_gap", "loss_gap_step1", "grad_gap", "update_gap"}
 

@@ -2,7 +2,9 @@
 (pair-pool forward), K2 (its backward: f32, bf16, the tie rule, two
 launches bit-identical), K3/K4 (the matching scan, exactly: overflow rows,
 G = 1024, 400 and 13, N = 4096 and N not a multiple of 32, T = 32, all-zero
-IoU, two launches bit-identical, every output written), K5/K6 (the
+IoU, two launches bit-identical, every output written), K2's column
+pass from the row pass's records (the crowd's shape) and its recompute
+where exact ties overflow them, K5/K6 (the
 unfolded pair pool and its backward, the same checks), K7 (the per-tile
 ablation: six modes, three column tiles; bit-equal where FC2's order
 cannot matter: W2 a permutation, or no FC2), one training step
@@ -778,6 +780,82 @@ def test_k2_row_shards_at_the_sparse_fill_join_bit_equal_on_card(mode):
             *shard, m[:, sl].contiguous(), dm[:, sl].contiguous(), *dts)[0])
     torch.cuda.synchronize()
     assert torch.equal(torch.cat(parts, 1), square[0])
+
+
+def _column_blocks_of(call):
+    """(column blocks that summed records, that recomputed) of ``call``,
+    from K2's own counts."""
+    before = k1.pair_pool_backward.column_blocks()
+    out = call()
+    after = k1.pair_pool_backward.column_blocks()
+    return out, (after[0] - before[0], after[1] - before[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2_recomputes_where_ties_overflow_the_records_on_card(dtype):
+    """Image 0 is 40 overlapping detections each repeated 8 times, so each
+    of its rows ties 8 ways at every maximum and a row tile's winning pairs
+    pass the 32 x P records a tile holds: its column blocks recompute their
+    pairs, while image 1's (no duplicates) sum records. Against the plain
+    backward at the usual tolerances, two launches bit-identical, and a
+    column and its copies get the same bits."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    b, n, rep, p = 2, 320, 8, 32
+    boxes, scores, valid, _ = _clustered(rng, b, n)
+    xy = 150.0 + rng.normal(0, 3.0, (n // rep, 2))
+    one = np.concatenate([xy, xy + 40.0 + rng.normal(0, 3.0, (n // rep, 2))],
+                         -1)
+    boxes[0] = np.repeat(one, rep, axis=0).astype(np.float32)
+    scores[0] = np.repeat(scores[0, :n // rep], rep)
+    cs = pf.stack_columns(pf.det_columns(
+        torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev),
+        torch.from_numpy(valid).to(dev)))
+
+    def t(*shape, scale=0.5):
+        x = rng.normal(0, scale, shape).astype(np.float32)
+        if len(shape) == 3:   # per detection: image 0's copies alike
+            x[0] = np.repeat(x[0, :n // rep], rep, axis=0)
+        return torch.from_numpy(x).to(dev)
+
+    args = (k1.pair_geometry(cs, cs, THR), t(b, n, p, scale=1.0),
+            t(b, n, p, scale=1.0), t(3, p), t(p, p), t(p))
+    dm = t(b, n, p, scale=1.0)
+    m = k1.launch_kernel(*args, dtype)
+    m_plain = k1._reference_core(*args, dtype)
+    got, (records, recomputed) = _column_blocks_of(
+        lambda: k1.launch_backward_kernel(*args, m, dm, dtype))
+    again = k1.launch_backward_kernel(*args, m, dm, dtype)
+    want = k1.pair_pool_backward_reference(*args, m_plain, dm, dtype)
+    torch.cuda.synchronize()
+    assert recomputed > 0 and records > 0
+    _assert_grads(got, want, dtype)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    copies = got[1][0].view(n // rep, rep, p)
+    assert torch.equal(copies, copies[:, :1].expand_as(copies))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2_sums_records_at_the_crowd_shape_on_card(dtype):
+    """B=2 N=4096 with 2,250 valid detections an image, as the crowd
+    cell's images: every column block with a step sums the row pass's
+    records; against the plain backward, two launches bit-identical."""
+    dev = _card()
+    args, dm = _fill_args(np.random.default_rng(4096), dev, 3, 2, 4096,
+                          (2250, 2250))
+    m = k1.launch_kernel(*args, dtype)
+    m_plain = k1._reference_core(*args, dtype)
+    got, (records, recomputed) = _column_blocks_of(
+        lambda: k1.launch_backward_kernel(*args, m, dm, dtype))
+    again = k1.launch_backward_kernel(*args, m, dm, dtype)
+    want = k1.pair_pool_backward_reference(*args, m_plain, dm, dtype)
+    torch.cuda.synchronize()
+    assert (m > 0).any()
+    assert records > 0 and recomputed == 0
+    _assert_grads(got, want, dtype)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 @pytest.mark.cuda

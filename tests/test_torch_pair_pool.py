@@ -435,9 +435,10 @@ def test_backward_launch_scratch_and_sums(rng, monkeypatch, splits):
     launch replaced: every gradient comes back as the kernel wrote it (the
     kernel sums its slices and its weight partials itself; nothing is
     summed here), the scratch has one slice per split, one row of weight
-    partials per block and split and one ``work`` entry per block of the
-    grid, and the count of blocks launched is the grid's. No [B, NI, NC,
-    P] tensor is made."""
+    partials per block and split, one ``work`` entry per block of the
+    grids and one region of 32 x P records per image and row tile, and the
+    count of blocks launched is the grids'. No [B, NI, NC, P] tensor is
+    made."""
     from gossipnet_tpu_torch.ops.cuda import launch
 
     b, nr, nc, p, k = 2, 70, 100, 16, 3
@@ -461,17 +462,18 @@ def test_backward_launch_scratch_and_sums(rng, monkeypatch, splits):
     monkeypatch.setattr(launch, "_launch", fake_launch)
     monkeypatch.setattr(launch, "_splits", lambda geom_, device, **kw: splits)
     t = lambda *s: torch.zeros(*s)
-    worked = torch.zeros(1, dtype=torch.int64)
+    counts = torch.zeros(3, dtype=torch.int64)
     (da, db, dwg, dw2, db2), launched = launch.backward_launch(
         "pairwise2_bwd", "K2", "e", "t", geom, t(b, nr, p), t(b, nc, p),
-        t(k, p), t(p, p), t(p), t(b, nr, p), t(b, nr, p), worked, "float32")
+        t(k, p), t(p, p), t(p), t(b, nr, p), t(b, nr, p), counts, "float32")
     assert seen["splits"] == splits
     shapes = seen["shapes"]
     assert shapes[10] == (b, nr, p) and shapes[11] == (b, nc, p)
     assert shapes[12] == (splits, b, nr, p)
     assert shapes[13] == (splits, b, nc, p)
     assert shapes[14:] == [(splits * b * ni, words), (words,),
-                           (splits, b, nt), (1,)]
+                           (splits, b, nt), (3,), (b, ni, 32 * p, p),
+                           (b, ni, 32 * p), (b, ni + 1)]
     assert launched == splits * b * nt
     assert (b, ni, nc, p) not in shapes
     assert da.shape == (b, nr, p) and bool((da == 1.0).all())

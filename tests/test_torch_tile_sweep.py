@@ -181,9 +181,10 @@ def test_launch_hands_the_entry_its_tile_words(monkeypatch, tile):
                          ids=["64x16", "64x128"])
 def test_backward_partials_are_per_block_of_32_rows(monkeypatch, tile):
     """K2's weight partials leave per block of 32 rows and split, whatever
-    FI the flags have (blocks own 32 rows, one per lane), and every block
-    of the grid has an entry of ``work``; the kernel's own sum fills the
-    weight gradients, which are views of its one output."""
+    FI the flags have (blocks own 32 rows, one per lane), as do its regions
+    of records, and every block of the grids has an entry of ``work``; the
+    kernel's own sum fills the weight gradients, which are views of its
+    one output."""
     b, nr, nc, p, k, splits = 2, 70, 100, 16, 3, 3
     cols = _square(np.random.default_rng(3), b, nc)
     geom = k1.pair_geometry(cols[:, :, :nr].contiguous(), cols, 0.2,
@@ -199,15 +200,17 @@ def test_backward_partials_are_per_block_of_32_rows(monkeypatch, tile):
     monkeypatch.setattr(launch, "_launch", fake_launch)
     monkeypatch.setattr(launch, "_splits", lambda geom_, device, **kw: splits)
     t = lambda *s: torch.zeros(*s)
-    worked = torch.zeros(1, dtype=torch.int64)
+    counts = torch.zeros(3, dtype=torch.int64)
     (_, _, dwg, dw2, db2), launched = launch.backward_launch(
         "pairwise2_bwd", "K2", "e", "t", geom, t(b, nr, p), t(b, nc, p),
-        t(k, p), t(p, p), t(p), t(b, nr, p), t(b, nr, p), worked, "float32")
+        t(k, p), t(p, p), t(p), t(b, nr, p), t(b, nr, p), counts, "float32")
     ni, nct = -(-nr // 32), -(-nc // 32)
     words = k * p + p * p + p
     assert seen["shapes"][12:] == [(splits, b, nr, p), (splits, b, nc, p),
                                    (splits * b * ni, words), (words,),
-                                   (splits, b, ni + nct), (1,)]
+                                   (splits, b, ni + nct), (3,),
+                                   (b, ni, 32 * p, p), (b, ni, 32 * p),
+                                   (b, ni + 1)]
     assert launched == splits * b * (ni + nct)
     whole = torch.arange(words, dtype=torch.float32)
     assert torch.equal(dwg, whole[:k * p].view(k, p))
