@@ -11,6 +11,7 @@ it with ``pl.pallas_call(..., interpret=True)`` under the script's grid and
 block shapes.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import ast
 from pathlib import Path
 

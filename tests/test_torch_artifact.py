@@ -10,6 +10,7 @@ COCO stats to 1e-6. Unknown shapes, a future format, a JAX artifact and a
 reload are refused, as the reference refuses them.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import functools
 import io
 import json

@@ -18,6 +18,7 @@ with its subprocess client.
   frames, and every client exits.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import json
 import math
 import struct

@@ -13,6 +13,7 @@
 The file imports no JAX.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import json
 
 import numpy as np

@@ -9,6 +9,7 @@ All of it is numpy code that the port copies unchanged, so every
 comparison is exact.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

@@ -9,6 +9,7 @@ Both models run the dense pair path in IEEE f32 from the same parameters
 code and must agree exactly.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import json
 import zipfile
 

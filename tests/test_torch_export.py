@@ -10,6 +10,7 @@ Rescorer built from the saved parameters bit for bit (same arithmetic on
 the same weights).
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import functools
 
 import jax

@@ -2,6 +2,7 @@
 operations in the same order, so IoU and IoF agree bit for bit, degenerate
 and padded (all-zero) boxes included."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import numpy as np
 import jax.numpy as jnp
 import pytest

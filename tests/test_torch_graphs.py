@@ -16,6 +16,7 @@ step function: bit for bit (the same operations; the optimizer's scalars
 reach it as 0-d float32 tensors instead of Python numbers).
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import json
 
 import jax

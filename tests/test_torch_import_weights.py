@@ -14,6 +14,7 @@ atol = 1e-5 (the same f32 model on both sides, as
 ``tests/test_torch_serving.py`` holds them).
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import json
 import os
 import pathlib

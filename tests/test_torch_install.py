@@ -12,6 +12,7 @@ JAX. The wheel test builds offline (``--no-build-isolation --no-deps``)
 and is marked ``slow``, as the reference's is.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import os
 import pathlib
 import subprocess

@@ -2,6 +2,7 @@
 and its entry points neither hide a missing card nor fall back to the CPU.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import json
 import os
 import subprocess

@@ -10,6 +10,7 @@ items ``split, split + S, ...``; it has a step where one of them falls in
 a tile its flags mark active.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import pytest
 import torch
 

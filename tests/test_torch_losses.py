@@ -2,6 +2,7 @@
 every mode and the weighted logistic loss per image and per batch, on the
 same labels, to 1e-6."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -3,6 +3,7 @@ version on the CPU) against the JAX scan and the JAX Pallas scan kernels in
 interpret mode. Everything compares exactly: labels, ignore, matched_gt,
 and the kernels' matched/best."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import numpy as np
 import jax.numpy as jnp
 import pytest

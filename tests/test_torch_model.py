@@ -8,6 +8,7 @@ float32); they differ in summation order and in the separable fold of
 the kernel path.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import dataclasses
 from pathlib import Path
 

@@ -11,6 +11,7 @@ tests/test_torch_train.py holds them (both sides IEEE f32, summation order
 differs); served probabilities at atol = 1e-5.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import io
 import json
 

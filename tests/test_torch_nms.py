@@ -5,6 +5,7 @@ clustered, tied, duplicated, empty and single-box inputs. Keep sets are
 compared exactly.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,7 @@ Inputs are made with numpy from a seed and handed to both sides; JAX runs
 on the CPU as conftest.py sets it up.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import numpy as np
 import jax.numpy as jnp
 import pytest

@@ -18,6 +18,7 @@ h1 times a weight. So 99% of the outputs must agree to 1e-4 and all to
 rtol = atol = 2e-2 (measured: 1 of 4096 outputs off, by 2.3e-3).
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import numpy as np
 import jax
 import jax.numpy as jnp

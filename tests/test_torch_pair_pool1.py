@@ -21,6 +21,7 @@ gradients sum over every pair in another order: 1e-4 of their largest
 entry in f32, 2e-2 of it in bf16.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import numpy as np
 import jax
 import jax.numpy as jnp

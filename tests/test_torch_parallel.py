@@ -21,6 +21,7 @@ step; the mesh evaluation's stats against the single-device stats, rtol
 1e-5 and atol 1e-6 (the JAX test's). The row gather is bit-exact.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import time
 
 import jax

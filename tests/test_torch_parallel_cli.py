@@ -16,6 +16,7 @@ of ``train()`` against the port's single-device run, rtol 1e-5 and atol
 5e-4); a resume on the mesh bit for bit.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch

@@ -1,5 +1,6 @@
 """The weights bridge: JAX parameter trees <-> the port's state_dict."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import numpy as np
 import jax
 import pytest

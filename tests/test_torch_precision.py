@@ -26,6 +26,7 @@ same inputs, so the test fails if the port ignores the knob.
   measured 8.1e-4; gap 8e-2).
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import numpy as np

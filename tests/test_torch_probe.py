@@ -4,6 +4,7 @@ equal the JAX probe's (``scripts/probe.py::mode_activity``) exactly on the
 same layouts, and ``--ew-dtype bfloat16`` raises as the model does.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import argparse
 import importlib.util
 import pathlib

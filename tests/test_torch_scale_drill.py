@@ -6,6 +6,7 @@ both packages and runs the port's CLIs with ``--device``, ``eval5k`` and
 ``convert`` give the reference's results, and the ``run`` arm runs end to
 end on the CPU at a tiny size."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import argparse
 import dataclasses
 import hashlib

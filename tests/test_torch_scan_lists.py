@@ -4,6 +4,7 @@ torch, ``matching_scan.scan_lists_reference``, against the JAX Pallas scan
 kernels in interpret mode (batched and per image) and the port's plain
 scan, ``scan_loop``. Everything compares exactly: matched and best."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

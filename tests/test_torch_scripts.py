@@ -4,6 +4,7 @@ sweep) and ``demo_config1`` (config 1's inference workflow). The configs
 and cells are held equal to the JAX scripts' own; two of the tools run end
 to end on the CPU on tiny synthetic data."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import dataclasses
 import importlib.util
 import json

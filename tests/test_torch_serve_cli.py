@@ -10,6 +10,7 @@ from a checkpoint, the scores equal those of the in-memory parameters
 exactly. Every subprocess and socket has a timeout.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import json
 import os
 import signal

@@ -7,6 +7,7 @@ their scores are compared at atol = 2e-6; ids, keep lists and error
 replies must be equal.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import io
 import json
 import threading

@@ -14,6 +14,7 @@ Every client socket has a timeout, every server stops in a ``finally``
 and every thread is joined with a timeout, so no test can hang.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import contextlib
 import json
 import socket

@@ -16,6 +16,7 @@ Tolerance against the JAX forward: rtol = atol = 1e-4, as
 ``tests/test_torch_model.py`` states it.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 from types import SimpleNamespace
 
 import numpy as np
@@ -279,18 +280,7 @@ def test_model_at_another_tile_matches_default_and_jax(rng, monkeypatch):
     np.testing.assert_allclose(out[(64, 16)], want, **TOL)
 
 
-@pytest.fixture
-def one_thread():
-    """The sweep runs hundreds of tiny CPU ops: on one thread, so that
-    test workers sharing the host's cores do not wait on each other's
-    thread pools (a whole test run took it from 2 s to 760 s)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
-
-
-def test_tile_sweep_prints_every_case_on_cpu(capsys, one_thread):
+def test_tile_sweep_prints_every_case_on_cpu(capsys):
     results = tile_sweep.main(["--device", "cpu", "--batch", "1", "-n",
                                "32", "--blocks", "1", "--lengths", "1", "2"])
     lines = capsys.readouterr().out.strip().splitlines()
@@ -314,8 +304,7 @@ def test_tile_sweep_prints_every_case_on_cpu(capsys, one_thread):
 
 
 def test_tile_sweep_reports_a_failed_case_and_exits_nonzero(monkeypatch,
-                                                            capsys,
-                                                            one_thread):
+                                                            capsys):
     real = tile_sweep.run_case
 
     def failing(model_cfg, tile, *a):

@@ -12,6 +12,7 @@ The file imports no JAX, so its card test runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_tracing.py
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile

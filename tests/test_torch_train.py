@@ -12,6 +12,7 @@ Tolerance 1e-5 (rtol and atol) on the parameters and the metrics: both
 sides compute in IEEE f32 and differ in summation order.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import numpy as np
@@ -291,18 +292,17 @@ def test_remat_blocks_give_the_same_gradients():
         torch.testing.assert_close(grads[1][k], grads[0][k], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("override,match", [
-    ({"parallel": {"enable": "on"}}, "item 14"),
-    ({"data": {"dataset": "coco"}}, "item 10"),
-])
-def test_unported_training_options_raise(tmp_path, override, match):
-    """``dataset: coco`` (roadmap item 10), ``--profile`` (item 13) and
-    ``parallel.enable: "on"`` (item 14), since ported (the test keeps its
-    name and ids), no longer raise NotImplementedError: the COCO loaders
-    fail only on the annotation file that is not there, a profiled run
-    trains, and ``on`` with the default axes trains on a 1 x 1 mesh (a
-    world of one in this process, taken down after) to the parameters of
-    the run off the mesh (1e-6)."""
+@pytest.mark.parametrize("override", [
+    {"parallel": {"enable": "on"}},
+    {"data": {"dataset": "coco"}},
+], ids=["mesh_on", "coco"])
+def test_coco_data_profiling_and_a_one_device_mesh_train(tmp_path,
+                                                         override):
+    """``dataset: coco``, a profiled run and ``parallel.enable: "on"``
+    train: the COCO loaders fail only on the annotation file that is not
+    there, a profiled run trains, and ``on`` with the default axes trains
+    on a 1 x 1 mesh (a world of one in this process, taken down after) to
+    the parameters of the run off the mesh (1e-6)."""
     if "data" in override:
         override = {"data": {"dataset": "coco",
                              "ann_file": str(tmp_path / "missing.json"),
@@ -332,11 +332,10 @@ def test_unported_training_options_raise(tmp_path, override, match):
         torch.testing.assert_close(v, want[k], rtol=1e-6, atol=1e-6)
 
 
-def test_default_eval_with_a_validation_set_raises(tmp_path):
-    """``eval_every`` with a validation set and no ``eval_fn`` raised
-    until the evaluation path was ported (the test keeps its name from
-    then); now it must not: it logs the COCO stats of the rescored detections and keeps the
-    best checkpoint on ``val_AP``."""
+def test_default_eval_logs_val_ap_and_keeps_the_best_checkpoint(tmp_path):
+    """``eval_every`` with a validation set and no ``eval_fn`` logs the
+    COCO stats of the rescored detections and keeps the best checkpoint on
+    ``val_AP``."""
     import json
 
     roidb = synthetic_roidb(**DATA)
