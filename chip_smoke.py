@@ -56,7 +56,8 @@ keep the numbers earlier records cite:
    both in bf16 and f32 beside their bounds, and K2's device activities a
    call, its device time by launch (row grid, column grid, sum), its share
    of blocks with a step, its column blocks' share that summed the row
-   pass's records and the records' fill of their room
+   pass's records and the records' fill of their room; K1's list kernel's
+   device time, entries, dense row tiles and bytes
    (``python3 chip_smoke.py --pair-times`` runs only these timings, and
    K5's and K6's at the serving bench batch and config 4 through
    ``pair_kernel: 1``;
@@ -290,6 +291,7 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 IOU_OPS = 13            # min/max/sub/max x2, mul, add, sub, max, div, cmp
+LIST_ENTRY_BYTES = 20   # a list entry: (row << 16) | column, four features
 FEATURE_OPS = 10        # K5's per-pair features: 5 sub, 2 div, class cmp...
 KERNELS = ("pairwise2_fwd", "pairwise2_bwd", "matching_scan",
            "pairwise_fwd", "pairwise_bwd", "pair_ablate")
@@ -321,6 +323,9 @@ KERNEL_ROWS = {
                                    "gossipnet_tpu/ops/pallas/pairwise2.py:529"),
     "pair_pool2_bwd_bf16_stream": ("pairwise2_bwd.cu",
                                    "gossipnet_tpu/ops/pallas/pairwise2.py:657"),
+    # K1's list kernel: K1's and K2's stage A, once a forward
+    "pair_pool2_fwd_list": ("pairwise2_fwd.cu",
+                            "gossipnet_tpu/ops/pallas/pairwise2.py:529"),
 }
 # the pair kernels' labels in the log: (forward, backward)
 LABELS = {k1: ("K1", "K2"), k5: ("K5", "K6")}
@@ -492,6 +497,27 @@ def check_launch_args(kern, fwd, args, dm, dtype):
     torch.cuda.synchronize()
     assert_grads(got, want, dtype)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def check_list(geom):
+    """K1's list kernel on ``geom`` against its plain twin
+    (``pairwise2.pair_list_reference``): every part's count, and the
+    entries a part holds and their features bit for bit in the same order;
+    the list the geometry was built with is the same list."""
+    lst = k1.pair_list(geom)
+    twin = k1.pair_list_reference(geom)
+    torch.cuda.synchronize()
+    cap = lst.ij.shape[-1]
+    fits = torch.arange(cap, device=lst.ij.device) \
+        < lst.count.clamp(max=cap)[..., None]
+    for name, x, y in (("count", lst.count, twin.count),
+                       ("entries", lst.ij[fits], twin.ij[fits]),
+                       ("features", lst.g[fits], twin.g[fits]),
+                       ("the geometry's count", geom.pairs.count, lst.count),
+                       ("the geometry's entries", geom.pairs.ij[fits],
+                        lst.ij[fits])):
+        if not torch.equal(x, y):
+            raise AssertionError(f"K1's list kernel: {name} differ")
 
 
 def check_stream_k1(fwd, args):
@@ -802,7 +828,8 @@ def train_config(tmp: Path, name: str, **train_kw):
 
 # kernel -> (module, counted wrapper, counter); K1's and K2's bf16-stream
 # instantiation (phase 17) is counted apart too, and its launches are also
-# in K1's and K2's own counts
+# in K1's and K2's own counts; K1's list kernel runs once a forward of a
+# pair_kernel 2 model
 COUNTERS = {"pair_pool2_fwd": (k1, "pair_pool", "launches"),
             "pair_pool2_bwd": (k1, "pair_pool_backward", "launches"),
             "greedy_scan_batched": (k3, "greedy_scan_batched", "launches"),
@@ -812,7 +839,8 @@ COUNTERS = {"pair_pool2_fwd": (k1, "pair_pool", "launches"),
             "pair_ablate": (k7, "pair_ablate", "launches"),
             "pair_pool2_fwd_bf16_stream": (k1, "pair_pool", "launches_ew"),
             "pair_pool2_bwd_bf16_stream": (k1, "pair_pool_backward",
-                                           "launches_ew")}
+                                           "launches_ew"),
+            "pair_pool2_fwd_list": (k1, "pair_list", "launches")}
 
 
 def reset_counts():
@@ -864,11 +892,12 @@ def phase_training(tmp: Path):
     # step.
     want = want_counts(pair_pool2_fwd=blocks * runs,
                        pair_pool2_bwd=blocks * runs,
-                       greedy_scan_batched=runs)
+                       greedy_scan_batched=runs, pair_pool2_fwd_list=runs)
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} (16 K1 + 16 K2 "
-                             f"+ 1 K3 per step)")
-    log(f"  = {blocks} K1 + {blocks} K2 + 1 K3 per step over {steps} "
+                             f"+ 1 K3 + 1 list per step)")
+    log(f"  = {blocks} K1 + {blocks} K2 + 1 K3 + 1 list kernel per step "
+        f"over {steps} "
         f"replayed steps and {state.graphs.captures} eager step(s) before "
         f"a capture")
 
@@ -970,7 +999,8 @@ def k1_geometry(geom):
         n = pf.NUM_COLUMNS
         return k1.pair_geometry(geom.row[:, :n], geom.col[:, :n],
                                 geom.neighbor_iou)._replace(
-                                    flags=geom.flags, tile=geom.tile)
+                                    flags=geom.flags, tile=geom.tile,
+                                    pairs=None)
     return geom
 
 
@@ -1097,12 +1127,16 @@ def k2_bound(args, m, dm, dtype, kern=k1) -> tuple[float, str, str]:
     recompute of every neighbour pair (the forward's count), the per-pair
     backward (dpre1 mask, d_a, d_b, dWg) and, per winning (pair, q), a
     column of W2 dpre2, of dW2 and db2; the IoU tests of the active tiles
-    (and K6's per-pair features); each input read and each output written
+    (and K6's per-pair features), or, where K2 reads the geometry's
+    neighbour list, its entries read once instead (the tests are the list
+    kernel's, :func:`list_bound`); each input read and each output written
     once: d_b' counts as its [B, NC, P] floats, which is what K2's column
     pass writes (K6 still sums a per-row-tile partial on top)."""
     geom, a2, b2, wg_k, w2, b2bias = args
     p, k = a2.shape[-1], wg_k.shape[0]
     nb, tested = pair_counts(geom)
+    listed = getattr(geom, "pairs", None) is not None
+    tested = 0 if listed else tested
     winners = kern.launch_backward_kernel(*args, m, torch.ones_like(dm),
                                           *dt_args(dtype))[4].sum().item()
     fc1 = (k + 6) * p if kern is k1 else 2 * k * p + 4 * p
@@ -1114,7 +1148,8 @@ def k2_bound(args, m, dm, dtype, kern=k1) -> tuple[float, str, str]:
     nbytes = sum(t.numel() * t.element_size() for t in
                  (geom.row, geom.col, a2, b2, wg_k, w2, b2bias, geom.flags,
                   m, dm)) + 4 * (a2.numel() + b2.numel() + wg_k.numel()
-                                 + w2.numel() + b2bias.numel())
+                                 + w2.numel() + b2bias.numel()) \
+        + (list_entries(geom.pairs) * LIST_ENTRY_BYTES if listed else 0)
     bytes_s = nbytes / PEAK_BYTES
     how = (f"{nb} neighbour pairs, {int(winners)} winning (pair, q), "
            f"{tested} IoU tests, {nbytes / 1e6:.2f} MB")
@@ -1234,13 +1269,21 @@ def phase_train_times(state, tmp: Path) -> dict:
                             iters=2, warmup=1)
     k3_bound_ms, k3_by = scan_bound(iou, len(thr))
     k4_bound_ms, k4_by = scan_bound(one, len(thr))
+    geom = args[0]
+    list_ms = cuda_time(lambda: k1.pair_list(geom), iters=50)
+    list_dev = device_ms(lambda: k1.pair_list(geom))
+    list_plain_ms = cuda_time(lambda: k1.pair_list_reference(geom), iters=2,
+                              warmup=1)
+    list_bound_ms, list_by, list_how = list_bound(geom)
     # each kernel against its plain version on the trained step's arguments
     for dt in (dtype, "float32"):
         check_launch_args(k1, args, args, dm, dt)
+    check_list(geom)
     check_scan(iou, thr)
-    log(f"  K1/K2 ({dtype} and float32) on the trained step's last block and"
-        f" K3/K4 on its scan input T={len(thr)} (K4 on each of its "
-        f"{iou.shape[0]} images): as their plain versions")
+    log(f"  K1/K2 ({dtype} and float32) on the trained step's last block, "
+        f"K1's list kernel on its geometry, and K3/K4 on its scan input "
+        f"T={len(thr)} (K4 on each of its {iou.shape[0]} images): as their "
+        f"plain versions")
 
     # the step as train() runs it: a replay of phase 6's captured graphs
     def steps(n):
@@ -1272,6 +1315,10 @@ def phase_train_times(state, tmp: Path) -> dict:
     log_kernels(by_name, busy_ms, "step")
     log(f"  K2 {dtype}: {k2_ms:.4f} ms/launch; plain {k2_plain_ms:.3f} ms; "
         f"bound {k2_bound_ms:.5f} ms ({k2_by}: {k2_how})")
+    took = f"{list_dev:.4f} ms on the device" if list_dev else "not measured"
+    log(f"  K1's list kernel: {list_ms:.4f} ms/launch (events), {took}; "
+        f"plain {list_plain_ms:.3f} ms; bound {list_bound_ms:.5f} ms "
+        f"({list_by}: {list_how})")
     _, best = k3.launch_kernel(iou, thr)
     log_scan_stats(f"K3's input T={len(thr)}", iou, thr.tolist(), best)
     log(f"  K3 T={len(thr)}: {k3_ms:.4f} ms/launch; plain {k3_plain_ms:.3f} "
@@ -1286,6 +1333,9 @@ def phase_train_times(state, tmp: Path) -> dict:
                                     bound_ms=k3_bound_ms, bound_by=k3_by),
         "greedy_scan": dict(ms=k4_ms, plain_ms=k4_plain_ms,
                             bound_ms=k4_bound_ms, bound_by=k4_by),
+        "pair_pool2_fwd_list": dict(ms=list_ms, plain_ms=list_plain_ms,
+                                    bound_ms=list_bound_ms,
+                                    bound_by=list_by),
     }
 
 
@@ -1424,13 +1474,15 @@ def phase_evaluate(tmp: Path) -> dict:
     # every batch replays its shape's graph; each shape's capture followed
     # one eager forward
     shapes = len({(b.batch_size, b.padded_n) for b in batches})
-    want = want_counts(pair_pool2_fwd=blocks * (len(batches) + shapes))
+    want = want_counts(pair_pool2_fwd=blocks * (len(batches) + shapes),
+                       pair_pool2_fwd_list=len(batches) + shapes)
     log(f"  evaluate.main: {wall:.2f} s wall (model build and captures "
         f"included); launches {launches}: {blocks} K1 x ({len(batches)} "
         f"replayed batches + {shapes} eager forward before a capture)")
     if launches != want:
         raise AssertionError(f"evaluation launches {launches} != {want} "
-                             f"({blocks} K1 per batch, nothing else)")
+                             f"({blocks} K1 and 1 list per batch, nothing "
+                             f"else)")
     for name in ("gossipnet", "raw_scores", "greedy_nms"):
         stats = out[name]        # printed above by evaluate.main itself
         if not all(math.isfinite(v) for v in stats.values()) \
@@ -1498,7 +1550,8 @@ def phase_evaluate(tmp: Path) -> dict:
     eval_shapes = len(forward_graphs(tstate.model).shapes())
     want = want_counts(
         pair_pool2_fwd=blocks * (runs + evals * val_batches + eval_shapes),
-        pair_pool2_bwd=blocks * runs, greedy_scan_batched=runs)
+        pair_pool2_bwd=blocks * runs, greedy_scan_batched=runs,
+        pair_pool2_fwd_list=runs + evals * val_batches + eval_shapes)
     recs = [json.loads(x) for x in metrics.read_text().splitlines()]
     aps = {r["step"]: r["val_AP"] for r in recs if "val_AP" in r}
     log(f"  train() with a validation set of {len(val_db)} images at "
@@ -1741,8 +1794,11 @@ def phase_crowd_times(state, cfg, batch) -> dict:
     fwd2, bwd2 = capture_pair(k1, other, *det)
     k1_ms = cuda_time(lambda: k1.launch_kernel(*fwd2), iters=20)
     k2_ms = cuda_time(lambda: k1.launch_backward_kernel(*bwd2), iters=10)
+    list_ms = cuda_time(lambda: k1.pair_list(bwd2[0]), iters=20)
+    check_list(bwd2[0])
     log(f"  config 4 B=2 N=4096, same batch and weights: K1 {fwd2[-1]} "
-        f"{k1_ms:.4f} ms/launch, K2 {k2_ms:.4f} ms/launch (K5 "
+        f"{k1_ms:.4f} ms/launch, K2 {k2_ms:.4f} ms/launch, K1's list "
+        f"kernel {list_ms:.4f} ms a forward, as its plain twin (K5 "
         f"{times['pair_pool_fwd']['ms']:.4f}, K6 "
         f"{times['pair_pool_bwd']['ms']:.4f})")
     # K3 on the scan input of config 4's training step
@@ -1831,7 +1887,8 @@ def phase_multiclass(tmp: Path):
         blocks = cfg.model.num_blocks
         runs = steps + state.graphs.captures
         want = want_counts(**{fwd: blocks * runs, bwd: blocks * runs,
-                              "greedy_scan_batched": runs})
+                              "greedy_scan_batched": runs,
+                              "pair_pool2_fwd_list": runs if pk == 2 else 0})
         losses = [json.loads(x)["loss"] for x in
                   metrics_path.read_text().splitlines()]
         ok = launches == want and state.step == steps \
@@ -2021,6 +2078,48 @@ def record_fill(args, dm, dtype) -> str:
             f"(plain version, {dtype})")
 
 
+def list_entries(lst) -> int:
+    """The entries a neighbour list holds (a part's first ``cap``)."""
+    return int(lst.count.clamp(max=lst.ij.shape[-1]).sum())
+
+
+def list_bound(geom) -> tuple[float, str, str]:
+    """The least time for the list kernel's work on ``geom``: the IoU tests
+    of the active tiles' valid pairs; the fields and flags read once, and
+    each entry (20 bytes: its pair and four features) and the counts
+    written once."""
+    lst = geom.pairs
+    _, tested = pair_counts(geom)
+    entries = list_entries(lst)
+    ops_s = tested * IOU_OPS / PEAK_F32
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (geom.row, geom.col, geom.flags, lst.count)) \
+        + entries * LIST_ENTRY_BYTES
+    bytes_s = nbytes / PEAK_BYTES
+    how = f"{tested} IoU tests, {entries} entries, {nbytes / 1e6:.2f} MB"
+    return max(ops_s, bytes_s) * 1e3, \
+        "operations" if ops_s >= bytes_s else "bytes", how
+
+
+def list_line(geom) -> str:
+    """K1's list kernel on this geometry: its device ms and bound, the
+    entries it writes, the row tiles whose list overflowed among those
+    with a neighbour, and the list's bytes (a tree without the kernel says
+    so)."""
+    if not hasattr(k1, "pair_list"):
+        return "no list kernel in this tree"
+    ms = device_ms(lambda: k1.pair_list(geom))
+    lst = geom.pairs
+    working = int((lst.count.sum(-1) > 0).sum())
+    dense = int((k1.list_groups(lst, 16) < 0).sum())
+    mb = sum(t.numel() * t.element_size() for t in lst) / 1e6
+    bound = list_bound(geom)
+    took = f"{ms:.4f} ms on the device (profiler)" if ms else "not measured"
+    return (f"list kernel {took}, bound {bound[0]:.5f} ms ({bound[1]}: "
+            f"{bound[2]}); {list_entries(lst)} entries, dense row tiles "
+            f"{dense} of {working} with a neighbour, {mb:.1f} MB")
+
+
 def phase_pair_shapes(queues: bool = True) -> dict:
     """K1 and K2 on the models' own launch arguments at the six shapes of
     the main paths: with ``queues`` the fill of stage B's groups and the
@@ -2066,6 +2165,7 @@ def phase_pair_shapes(queues: bool = True) -> dict:
                 f"K2 {e2:.4f} ms/launch (events), {d2} on the device")
             log(f"  {label} {dt}: K2 {k2_blocks(args, m, dm, dt)}")
         log(f"  {label}: K2 {record_fill(args, dm, dtype)}")
+        log(f"  {label}: {list_line(fwd[0])}")
         log(f"  {label} bounds, {dtype}: K1 {bound1[0]:.5f} ms ({bound1[1]}); "
             f"K2 {bound2[0]:.5f} ms ({bound2[1]}: {bound2[2]})")
     return times
@@ -2257,17 +2357,21 @@ def device_ms(fn, reps: int = 10) -> float:
 
 def k1_bound(args, dtype) -> tuple[float, str]:
     """The least time for K1's work on these inputs: the neighbour pairs
-    through the MLP, the IoU tests of the active tiles' valid pairs, each
-    input read and the output written once."""
+    through the MLP, each input read and the output written once. K1 reads
+    its pairs from the geometry's neighbour list (its entries read once;
+    the list kernel's IoU tests are that kernel's, :func:`list_bound`); a
+    tree without the list tests the active tiles' valid pairs itself."""
     geom, a2, b2, wg_k, w2, b2bias = args
     p, k = a2.shape[-1], wg_k.shape[0]
     nb_pairs, tested = pair_counts(geom)
+    listed = getattr(geom, "pairs", None) is not None
     ops_s = nb_pairs * (2 * p * p + (k + 6) * p) / (
         PEAK_F32 if dtype == "float32" else PEAK_BF16) \
-        + tested * IOU_OPS / PEAK_F32
+        + (0 if listed else tested * IOU_OPS / PEAK_F32)
     nbytes = sum(t.numel() * t.element_size() for t in
                  (geom.row, geom.col, a2, b2, wg_k, w2, b2bias, geom.flags)) \
-        + a2.numel() * 4
+        + a2.numel() * 4 \
+        + (list_entries(geom.pairs) * LIST_ENTRY_BYTES if listed else 0)
     bytes_s = nbytes / PEAK_BYTES
     return max(ops_s, bytes_s) * 1e3, \
         "operations" if ops_s >= bytes_s else "bytes"
@@ -2461,7 +2565,8 @@ def serve_and_check(rescorer, images, n_json, buckets) -> int:
             or stats["errors"] != 1 or len(want) != stats["images"]:
         raise AssertionError("the TCP server's replies are wrong")
     if launches != want_counts(
-            pair_pool2_fwd=blocks * server.stats["batches"]):
+            pair_pool2_fwd=blocks * server.stats["batches"],
+            pair_pool2_fwd_list=server.stats["batches"]):
         raise AssertionError("the TCP server did not run every block on K1")
     return launches["pair_pool2_fwd"]
 
@@ -2623,7 +2728,8 @@ def phase_serve_trained(tmp: Path) -> int:
     # file mode's Rescorer is new: each batch's shape is captured after
     # one eager forward, then replayed
     if file_err > 1e-6 or launches != want_counts(
-            pair_pool2_fwd=blocks * 2 * len(buckets)):
+            pair_pool2_fwd=blocks * 2 * len(buckets),
+            pair_pool2_fwd_list=2 * len(buckets)):
         raise AssertionError("file mode differs")
     file_launches = launches["pair_pool2_fwd"]
 
@@ -3058,11 +3164,11 @@ def knob_config(name: str, knob: dict, tmp: Path):
 
 def step_launches(cfg) -> dict:
     """What one step of ``cfg`` launches: a K1 and a K2 per block (16), one
-    K3, and the bf16 stream's K1 and K2 apart."""
+    K3, one list kernel, and the bf16 stream's K1 and K2 apart."""
     blocks = cfg.model.num_blocks
     stream = blocks if cfg.model.pair_elementwise_dtype == "bfloat16" else 0
     return want_counts(pair_pool2_fwd=blocks, pair_pool2_bwd=blocks,
-                       greedy_scan_batched=1,
+                       greedy_scan_batched=1, pair_pool2_fwd_list=1,
                        pair_pool2_fwd_bf16_stream=stream,
                        pair_pool2_bwd_bf16_stream=stream)
 
@@ -3198,13 +3304,14 @@ def shard_args(args, rows: slice, kern):
     """Launch arguments of rows ``rows`` of a square launch against all of
     its columns, as the det-sharded forward builds them: the rows' fields
     and a, the tile flags of those rows at the launch's skip tile, every
-    column."""
+    column; K1's geometry with the list of its own rows."""
     geom = args[0]
     row = geom.row[:, :, rows].contiguous()
     if kern is k1:
         flags = k1.tile_activity(row, geom.col, *geom.tile)
         geom = geom._replace(row=row, flags=flags.contiguous(),
                              i_feats=geom.i_feats[:, rows].contiguous())
+        geom = geom._replace(pairs=k1.pair_list(geom))
     else:
         flags = k1.tile_activity(row, geom.col, *geom.tile,
                                  valid_field=k5._VALID)
@@ -3327,7 +3434,7 @@ def rank_launches(world, legs_: tuple) -> dict:
     """The launches of ``legs_`` summed over the ranks, by record name."""
     names = {"K1": "pair_pool2_fwd", "K2": "pair_pool2_bwd",
              "K3": "greedy_scan_batched", "K5": "pair_pool_fwd",
-             "K6": "pair_pool_bwd"}
+             "K6": "pair_pool_bwd", "K1 list": "pair_pool2_fwd_list"}
     out = {n: 0 for n in names.values()}
     for rank in world:
         for leg in legs_:
@@ -3500,7 +3607,8 @@ def phase_mesh_worlds(tmp: Path) -> dict:
                 err = max(float(np.abs(g - w).max())
                           for g, w in zip(got, want))
                 check_rank_launches(worlds[size], leg,
-                                    {"K1": cfg.model.num_blocks})
+                                    {"K1": cfg.model.num_blocks,
+                                     "K1 list": 1})
                 log(f"  (b) Rescorer on ({d}x{t}), {dt}, bench batch: max "
                     f"|diff| against one device {err:.2e} (tol "
                     f"{MESH_TOL[dt]}); {cfg.model.num_blocks} K1 launches "
@@ -3514,8 +3622,9 @@ def phase_mesh_worlds(tmp: Path) -> dict:
             (4, "train2_2x2", cfg2_f32, batch2, ("K1", "K2"), 2),
             (2, "train4_1x2", cfg4_f32, batch4, ("K5", "K6"), 1)):
         blocks = cfg.model.num_blocks
-        check_rank_launches(worlds[size], leg, {fb[0]: 3 * blocks,
-                                                fb[1]: 3 * blocks, "K3": 3})
+        check_rank_launches(worlds[size], leg, {
+            fb[0]: 3 * blocks, fb[1]: 3 * blocks, "K3": 3,
+            **({"K1 list": 3} if fb[0] == "K1" else {})})
         check_replicated(leg, worlds[size], leg)
         losses = worlds[size][0][leg]["result"][2]
         if len(losses) != 3 or not np.isfinite(losses).all():
@@ -3634,7 +3743,8 @@ def drill_train(label: str, path: str, steps: int, tmp: Path):
     blocks = cfg.model.num_blocks
     runs = state.step + state.graphs.captures
     want = want_counts(pair_pool2_fwd=blocks * runs,
-                       pair_pool2_bwd=blocks * runs, greedy_scan_batched=runs)
+                       pair_pool2_bwd=blocks * runs, greedy_scan_batched=runs,
+                       pair_pool2_fwd_list=runs)
     losses = [json.loads(x)["loss"] for x in metrics.read_text().splitlines()]
     log(f"  {label}: {state.step} steps in {run_s:.1f} s "
         f"({state.graphs.captures} captured shapes); launches {launches} "
@@ -3699,7 +3809,8 @@ def phase_drill(card: str, run_images: int) -> dict:
         eval_s = time.perf_counter() - t0
         ev_launches = counts()
         want = want_counts(pair_pool2_fwd=cfg2.model.num_blocks
-                           * (len(batches) + shapes))
+                           * (len(batches) + shapes),
+                           pair_pool2_fwd_list=len(batches) + shapes)
         log(f"  evaluate.main on config 2's checkpoint (step "
             f"{state2.step}) over {len(roidb2)} images: {eval_s:.1f} s "
             f"(COCO matching: "
@@ -3772,12 +3883,15 @@ TILE_SHAPES = ("bench B=8 N=1024", "config 4 B=2 N=4096")   # timed there
 def at_tile(args, tile):
     """Launch arguments ``args`` with the geometry's flags rebuilt at skip
     tile ``tile``, by the model's rule (``tile_activity`` at that shape),
-    and the tile the launches then take."""
+    and the tile the launches then take; K1's geometry with the list built
+    at it."""
     geom = args[0]
     valid = k5._VALID if isinstance(geom, k5.PairColumns) else k1._VALID
     flags = k1.tile_activity(geom.row, geom.col, *tile, valid_field=valid)
-    return (geom._replace(flags=flags.contiguous(), tile=tuple(tile)),
-            *args[1:])
+    geom = geom._replace(flags=flags.contiguous(), tile=tuple(tile))
+    if isinstance(geom, k1.PairGeometry):
+        geom = geom._replace(pairs=k1.pair_list(geom))
+    return (geom, *args[1:])
 
 
 def tile_shape_args(kern) -> dict:
@@ -3802,8 +3916,9 @@ def tile_shape_args(kern) -> dict:
 def tile_times(kern, label: str, args, dm, dtype: str) -> dict:
     """ms per launch of the forward and backward kernel at every skip tile
     (CUDA events around a chain, and the device time of one launch from
-    the profiler) beside the stage-A tests and the bounds -> {tile:
-    (fwd events, bwd events, fwd device, bwd device)}."""
+    the profiler) beside the stage-A tests and the bounds, and K1's list
+    kernel, which runs those tests once a forward, on a row of its own ->
+    {tile: (fwd events, bwd events, fwd device, bwd device)}."""
     fname, bname = LABELS[kern]
     out = {}
     for tile in launch.TILES:
@@ -3828,6 +3943,8 @@ def tile_times(kern, label: str, args, dm, dtype: str) -> dict:
             f"(events), {d1} on the device, bound {fb[0]:.5f} ({fb[1]}); "
             f"{bname} {row[1]:.4f} (events), {d2} on the device, bound "
             f"{bb[0]:.5f} ({bb[1]})")
+        if kern is k1:
+            log(f"  {label} tile {tile[0]}x{tile[1]}: {list_line(ta[0])}")
     return out
 
 

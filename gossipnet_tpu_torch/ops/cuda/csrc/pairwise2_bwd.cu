@@ -20,9 +20,13 @@
 // how sparse work is laid on warps: the recompute is K1's, and the
 // gradient work is sparser still (about one winning q per neighbour pair).
 // What the design does about it:
-// - The recompute is K1's stage A / stage B: dense test, compacted queue,
-//   FC2 of a group on the tensor cores in bf16 mode (f32 mode: CUDA cores,
-//   IEEE f32, K1's fmaf order).
+// - The recompute is K1's stage B on the forward's neighbour list (the
+//   list kernel of pairwise2_fwd.cu ran stage A once a forward): the row
+//   pass takes its row tile's list in groups, dealt round robin to its
+//   splits' warps as K1 deals them, so no launch tests a pair; FC2 of a
+//   group on the tensor cores in bf16 mode (f32 mode: CUDA cores, IEEE f32,
+//   K1's fmaf order). A row tile whose list overflowed, and the column
+//   pass's recompute, run stage A (dense test, compacted queue) as before.
 // - A winner queue. A group's pre2 is compared with m per (pair, q); a pair
 //   that wins some q goes, with its q mask, into a second per-warp queue,
 //   drained after every group, so it needs no capacity beyond a group and
@@ -31,16 +35,16 @@
 //   bits only, then plain += into the warp's own accumulators in shared
 //   memory: no shuffles, no scan over lanes, no work for pairs that lose.
 // - The blocks that share a tile of own detections take its work round
-//   robin at the grain of two tests (run_stages), so a crowded tile does
-//   not leave one warp with a long serial chain; each sums into its own
-//   slice [splits, ...].
+//   robin at the grain of a group of the list (or of two tests, where they
+//   test), so a crowded tile does not leave one warp with a long serial
+//   chain; each sums into its own slice [splits, ...].
 // - The split count is sized for a padded grid in which every tile has
 //   work; where detections are few most blocks have none (invalid
 //   detections sort last, so their tiles' flags are clear). A block first
-//   finds from its flag row (row pass) or its column bits (column pass)
-//   whether the stage loop would hand it any step (block_has_step); if
-//   not, it records that in `work` and leaves before it stages, zeroes or
-//   writes anything. The working blocks count themselves in `counts`,
+//   finds from its list's groups (row pass), or from its flag row or its
+//   column bits where it tests, whether any step falls to it
+//   (block_has_step); if not, it records that in `work` and leaves before
+//   it stages, zeroes or writes anything. The working blocks count themselves in `counts`,
 //   one integer atomicAdd a block.
 // - A last small kernel (pair_pool2_bwd_kernel_sum) adds, in a fixed
 //   order and over the working blocks only, the splits' slices of d_a'
@@ -72,8 +76,9 @@
 //   found once at the start). Each column block counts which way it took,
 //   one integer atomicAdd a block. The three grids (row, column, sum)
 //   follow a set of the record counts.
-// Deterministic, with no float atomics: a warp adds its winners in queue
-// order, which depends only on the inputs; the four warps' sums meet in
+// Deterministic, with no float atomics: a warp adds its winners in the
+// order of its groups (the list's, or its queue's), which depends only on
+// the inputs; the four warps' sums meet in
 // order; the last kernel sums the blocks' partials in an order fixed by
 // the shape and the flags. Two launches
 // give bit-identical gradients. d_b'_j adds its rows in an order fixed by
@@ -108,7 +113,8 @@ constexpr size_t smem_words() {
          + KMAX * P + P                                   // wgs, b2s
          + NWARPS * (QCAP * QWORDS + WCAP * WWORDS)       // queues
          + NWARPS * warp_acc_words<P, ROWSIDE>()
-         + (ROWSIDE ? 0 : ACT_WORDS);  // the column pass's tile bits
+         // the row pass's list ends and dense word, the column pass's bits
+         + (ROWSIDE ? LIST_PARTS + 1 : ACT_WORDS);
 }
 
 // A row block's weight partials, one row of wpart: dWg_k [K][P], dW2
@@ -132,12 +138,16 @@ struct Args {
                                      // [S * B * NI, weight_words]
   int* work;                    // [S, B, NI + NCT]: the block had a step
   // over all launches: blocks with a step; column blocks with a step that
-  // summed records; those that recomputed
+  // summed records; those that recomputed; row blocks with a step that
+  // took their pairs from the list; those that tested them
   unsigned long long* counts;
   float* rec_vr;  // [B, NI, rec_cap, P]: a record's dpre1 terms
   int* rec_ij;    // [B, NI, rec_cap]: its (row << 16) | column
   int* rec_fill;  // [B, NI + 1]: records a row tile took (may pass the
                   // cap), then the image's word "a region overflowed"
+  const int* lst_ij;  // the forward's neighbour list (K1's list kernel)
+  const float4* lst_g;
+  const int* lst_count;
   int B, NR, NC, K, splits;
   float thr;
   Tile tile;  // the flags' skip tile
@@ -290,6 +300,8 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
   float* accbase = qbase + NWARPS * (QCAP * QWORDS + WCAP * WWORDS);
   unsigned* act_bits =  // [ACT_WORDS], the column pass's (!ROWSIDE)
       reinterpret_cast<unsigned*>(accbase + NWARPS * ACC);
+  int* ends = reinterpret_cast<int*>(act_bits);  // the row pass's: [PARTS]
+  int* dense_word = ends + LIST_PARTS;
 
   const int K = x.K;
   const int C = K == 4 ? 9 : 8;
@@ -330,13 +342,25 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
     return ROWSIDE ? own_flags[t] != 0
                    : ((act_bits[t >> 5] >> (t & 31)) & 1u) != 0u;
   };
+  // The row pass takes its row tile's list where no part overflowed: its
+  // groups dealt round robin to the (split, warp)s, as K1's are.
+  const int cap = list_cap(NC);
+  const size_t tile_part0 = ((size_t)img * NI + tile) * LIST_PARTS;
+  int total = 0;
+  const bool dense =
+      !ROWSIDE || read_list_counts(x.lst_count + tile_part0, cap, ends,
+                                   dense_word, lane, warp, total);
+  const int groups = (total + GROUP - 1) / GROUP;
   const bool has_step =
-      block_has_step(NOTH, split, x.splits, x.tile.tj_shift, active, tid);
+      dense ? block_has_step(NOTH, split, x.splits, x.tile.tj_shift, active,
+                             tid)
+            : groups > split * NWARPS;
   if (tid == 0) {
     const int ntiles = NI + (NC + TILE_I - 1) / TILE_I;
     x.work[((size_t)split * x.B + img) * ntiles + (ROWSIDE ? 0 : NI) + tile] =
         has_step;
     if (has_step) atomicAdd(x.counts, 1ull);
+    if (has_step && ROWSIDE) atomicAdd(x.counts + (dense ? 4 : 3), 1ull);
   }
   if (!has_step) return;
   int* const fill = x.rec_fill + (size_t)img * (NI + 1);
@@ -363,16 +387,6 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
   stage_small_weights<P, BF16>(x.wg, x.b2, K, wgs, b2s, tid);
   for (int e = tid; e < (int)(NWARPS * ACC); e += NTHREADS) accbase[e] = 0.f;
   __syncthreads();
-
-  const float* own_fields =
-      (ROWSIDE ? x.row_cols + (size_t)img * C * NR
-               : x.col_cols + (size_t)img * C * NC);
-  const float* oth_fields =
-      (ROWSIDE ? x.col_cols + (size_t)img * C * NC
-               : x.row_cols + (size_t)img * C * NR);
-  float ri[CMAX];
-  const int own = own0 + lane;
-  const bool live = load_det(own_fields, C, NOWN, own, ri);
 
   const float* a_img = x.a + (size_t)img * NR * P;
   const float* b_img = x.b + (size_t)img * NC * P;
@@ -479,18 +493,18 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
     __syncwarp();
   };
 
-  // Stage B: recompute one group of `n` queued pairs from ring slot
-  // `head`, collect its winners, run their gradients.
-  auto consume = [&](int head, int n) {
+  // Stage B: recompute one group of `n` pairs (`group`: the ring or the
+  // list), collect its winners, run their gradients.
+  auto consume_group = [&](const auto& group, int n) {
     int nwin = 0;
-    auto push_winner = [&](bool want, int ij, int qi, unsigned lo,
-                           unsigned hi) {
+    auto push_winner = [&](bool want, int ij, const float (&g)[QFEAT],
+                           unsigned lo, unsigned hi) {
       const unsigned mask = __ballot_sync(ALL_LANES, want);
       if (want) {
         const int pos = nwin + __popc(mask & ((1u << lane) - 1u));
         w_ij[pos] = ij;
 #pragma unroll
-        for (int k = 0; k < QFEAT; ++k) w_g[k * WCAP + pos] = q_g[k * QCAP + qi];
+        for (int k = 0; k < QFEAT; ++k) w_g[k * WCAP + pos] = g[k];
         w_lo[pos] = lo;
         w_hi[pos] = hi;
       }
@@ -499,8 +513,9 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
     if constexpr (BF16) {
       uint32_t afr[Frag<P>::KB][4];
       int ij2[2];
-      group_h1_frags<P, KMAX, true, EW>(a_img, b_img, wgs, q_ij, q_g, head,
-                                        n, lane, afr, ij2);
+      float g2[2][KMAX];
+      group_h1_frags<P, KMAX, true, EW>(a_img, b_img, wgs, group, n, lane,
+                                        afr, ij2, g2);
       float acc[Frag<P>::NB][4];
       fc2_mma<P, EW>(afr, w2p, b2s, acc, lane);
       const int gid = lane >> 2, tig = lane & 3;
@@ -538,10 +553,10 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
 #pragma unroll
       for (int h = 0; h < 2; ++h)  // slots 0..7, then 8..15: queue order
         push_winner(tig == 0 && gid + 8 * h < n && (lo[h] | hi[h]) != 0u,
-                    ij2[h], (head + gid + 8 * h) & (QCAP - 1), lo[h], hi[h]);
+                    ij2[h], g2[h], lo[h], hi[h]);
     } else {
       float g[KMAX];
-      const int ij = lane_pair(q_ij, q_g, head, n, lane, g);
+      const int ij = lane_pair<KMAX>(group, n, lane, g);
       float pre[P];
       const size_t off = (size_t)(ij >> 16) * P;
       pair_pre2<P>(a_img + off, b_img + (size_t)(ij & 0xffff) * P, wgs,
@@ -566,16 +581,38 @@ __device__ __forceinline__ void pair_pool2_bwd_pass(const Args& x, int tile,
           }
         }
       }
-      push_winner((lo | hi) != 0u, ij, (head + lane) & (QCAP - 1), lo, hi);
+      push_winner((lo | hi) != 0u, ij, g, lo, hi);
     }
     __syncwarp();
     gradients(nwin);
   };
 
-  run_stages<BF16, GROUP>(ri, live, oth_fields, C, NOTH, split, x.splits,
-                          x.tile.tj_shift, active, K, x.thr,
-                          ROWSIDE ? own << 16 : own, ROWSIDE ? 0 : 16, q_ij,
-                          q_g, lane, warp, consume);
+  if (dense) {
+    const float* own_fields =
+        (ROWSIDE ? x.row_cols + (size_t)img * C * NR
+                 : x.col_cols + (size_t)img * C * NC);
+    const float* oth_fields =
+        (ROWSIDE ? x.col_cols + (size_t)img * C * NC
+                 : x.row_cols + (size_t)img * C * NR);
+    float ri[CMAX];
+    const int own = own0 + lane;
+    const bool live = load_det(own_fields, C, NOWN, own, ri);
+    auto consume = [&](int head, int n) {
+      consume_group(RingGroup<KMAX>{q_ij, q_g, head}, n);
+    };
+    run_stages<BF16, GROUP>(ri, live, oth_fields, C, NOTH, split, x.splits,
+                            x.tile.tj_shift, active, K, x.thr,
+                            ROWSIDE ? own << 16 : own, ROWSIDE ? 0 : 16, q_ij,
+                            q_g, lane, warp, consume);
+  } else {
+    const int* t_ij = x.lst_ij + tile_part0 * cap;
+    const float4* t_g = x.lst_g + tile_part0 * cap;
+    for (int grp = split * NWARPS + warp; grp < groups;
+         grp += x.splits * NWARPS) {
+      const int e0 = grp * GROUP, n = min(GROUP, total - e0);
+      consume_group(ListGroup<BF16>{t_ij, t_g, ends, cap, e0, n}, n);
+    }
+  }
 
   // The warps' sums meet in a fixed order.
   if (ROWSIDE) {
@@ -795,9 +832,12 @@ int gnet_pair_pool2_bwd_tiles(int fi, int tj) {
 // The row tiles' records: rec_vr [B, NI, 32 P, P] float, rec_ij [B, NI,
 // 32 P] and rec_fill [B, NI + 1] int (set to zero here). The sum writes
 // every output in full: da [B, NR, P], db [B, NC, P] and wsum [K*P + P*P +
-// P] (dWg_k [K, P], dW2 [P, P], db2 [P]). `counts`: three unsigned 64-bit
-// integers, to which each block with a step adds 1, and each column block
-// with a step 1 to the second where it summed records, else to the third.
+// P] (dWg_k [K, P], dW2 [P, P], db2 [P]). `counts`: five unsigned 64-bit
+// integers, to which each block with a step adds 1, each column block with
+// a step 1 to the second where it summed records, else to the third, and
+// each row block with a step 1 to the fourth where it took its pairs from
+// the list (lst_ij, lst_g, lst_count: gnet_pair_pool2_list's on the same
+// geometry), else to the fifth.
 // `mode`: 0 f32, 1 bf16 operands, 2 bf16 operands and the bf16 stream.
 // `flags` [B, ceil(NR / fi), ceil(NC / tj)] at the skip tile fi x tj.
 int gnet_pair_pool2_bwd(const float* row_cols, const float* col_cols,
@@ -807,7 +847,9 @@ int gnet_pair_pool2_bwd(const float* row_cols, const float* col_cols,
                         float* db, float* da_part, float* db_part,
                         float* wpart, float* wsum, int* work,
                         unsigned long long* counts, float* rec_vr,
-                        int* rec_ij, int* rec_fill, int B, int NR, int NC,
+                        int* rec_ij, int* rec_fill, const int* lst_ij,
+                        const float* lst_g, const int* lst_count, int B,
+                        int NR, int NC,
                         int P, int K, int splits, float thr, int mode, int fi,
                         int tj, void* stream) {
   Tile tile;
@@ -817,7 +859,8 @@ int gnet_pair_pool2_bwd(const float* row_cols, const float* col_cols,
     return (int)cudaErrorInvalidValue;
   const Args x{row_cols, col_cols, a, b, wg, w2, b2, flags, m, dm,
                da_part, db_part, wpart, work, counts, rec_vr, rec_ij,
-               rec_fill, B, NR, NC, K, splits, thr, tile};
+               rec_fill, lst_ij, reinterpret_cast<const float4*>(lst_g),
+               lst_count, B, NR, NC, K, splits, thr, tile};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ni = (NR + TILE_I - 1) / TILE_I;
   const cudaError_t set = cudaMemsetAsync(

@@ -1,8 +1,10 @@
 // Per-pair arithmetic of the GossipNet pair stage, shared by K1
 // (pairwise2_fwd.cu) and K2 (pairwise2_bwd.cu): the IoU test and the pair
-// features (stage A of both kernels), FC1 in the layouts stage B wants, and
-// FC2 of f32 mode. The queue between the stages and FC2 of bf16 mode (the
-// tensor-core product of a group) live in pair_group.cuh. The stage loop,
+// features (stage A: K1's list kernel, and where a row tile's list
+// overflowed K1 and K2 themselves), the forward's neighbour list, FC1 in
+// the layouts stage B wants, and FC2 of f32 mode. The queue between the
+// stages and FC2 of bf16 mode (the tensor-core product of a group) live
+// in pair_group.cuh. The stage loop,
 // FC1 and FC2 take the number of features per pair as a template argument,
 // so K5 and K6 (pairwise_fwd.cu, pairwise_bwd.cu) run on them too with
 // their own fields, test and nine features (pairwise_pair.cuh).
@@ -105,6 +107,97 @@ __device__ __forceinline__ void stage_column_activity(
 // Pairs stage B takes at once: the 16 rows of an mma tile, or one per lane.
 template <bool BF16>
 __host__ __device__ constexpr int group_size() { return BF16 ? 16 : 32; }
+
+// The forward's neighbour list (pair_pool2_fwd_kernel_list in
+// pairwise2_fwd.cu; ops/cuda/pairwise2.py PairList). The list kernel runs
+// stage A over a row tile of 32 rows in LIST_SPLITS blocks of NWARPS
+// warps; each warp (a part, split-major) writes the neighbours it finds,
+// in its loop order, into a part of its own of list_cap(NC) entries: the
+// packed (row << 16) | column and four f32 features (pair_features
+// unrounded; a BF16 reader rounds them as stage A would). A part counts
+// every neighbour it finds, also those past its end; a row tile with a
+// part whose count passes the cap is "dense": its readers test its pairs
+// as stage A does. A row tile's list is its parts' entries one after the
+// other, part 0 first: an order the inputs alone fix.
+constexpr int LIST_SPLITS = 8;
+constexpr int LIST_PARTS = LIST_SPLITS * NWARPS;  // parts of a row tile
+constexpr int LIST_ROW_BUDGET = 512;  // entries a row tile holds per row
+static_assert(LIST_PARTS == TILE_I, "a part holds a row's budget");
+
+__host__ __device__ inline int list_cap(int NC) {  // entries of one part
+  return NC < LIST_ROW_BUDGET ? NC : LIST_ROW_BUDGET;
+}
+
+// Stage B's view of a group of pairs: group(s, g) -> the packed (row,
+// column) of slot s and its features into g. RingGroup: the warp's ring
+// from slot `head` (stage A's queue; a slot past the group reads what the
+// ring holds there, and the caller ignores it). ListGroup: entries e0 ..
+// e0 + n - 1 of a row tile's list (a slot past n reads zeros).
+template <int NF>
+struct RingGroup {
+  const int* q_ij;
+  const float* q_g;
+  int head;
+  __device__ __forceinline__ int operator()(int s, float (&g)[NF]) const {
+    const int qi = (head + s) & (QCAP - 1);
+#pragma unroll
+    for (int k = 0; k < NF; ++k) g[k] = q_g[k * QCAP + qi];
+    return q_ij[qi];
+  }
+};
+
+// `ends` (shared memory, LIST_PARTS ints): the running sum of the parts'
+// counts, so entry e lies in the first part r with ends[r] > e.
+template <bool BF16>
+struct ListGroup {
+  const int* ij;     // the row tile's parts, [LIST_PARTS][cap]
+  const float4* g;   // their features, the same layout
+  const int* ends;
+  int cap, e0, n;
+  __device__ __forceinline__ int operator()(int s, float (&f)[QFEAT]) const {
+    if (s >= n) {
+#pragma unroll
+      for (int k = 0; k < QFEAT; ++k) f[k] = 0.f;
+      return 0;
+    }
+    const int e = e0 + s;
+    int r = 0;
+#pragma unroll
+    for (int w = LIST_PARTS / 2; w > 0; w >>= 1)
+      if (ends[r + w - 1] <= e) r += w;
+    const int at = r * cap + e - (r > 0 ? ends[r - 1] : 0);
+    const float4 v = __ldg(g + at);
+    f[0] = BF16 ? round_bf16(v.x) : v.x;  // as pair_features<BF16> rounds
+    f[1] = BF16 ? round_bf16(v.y) : v.y;
+    f[2] = BF16 ? round_bf16(v.z) : v.z;
+    f[3] = v.w;
+    return __ldg(ij + at);
+  }
+};
+
+// A row tile's list as its readers (K1, K2's row pass) take it: warp 0
+// reads the parts' counts into `ends` (shared) -> whether the tile is
+// dense, and the entries it holds. The whole block calls it (a barrier).
+__device__ __forceinline__ bool read_list_counts(const int* __restrict__ count,
+                                                 int cap, int* ends,
+                                                 int* flag, int lane,
+                                                 int warp, int& total) {
+  if (warp == 0) {
+    const int c = __ldg(count + lane);
+    int run = min(c, cap);
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(ALL_LANES, run, d);
+      if (lane >= d) run += up;
+    }
+    ends[lane] = run;
+    const bool over = __any_sync(ALL_LANES, c > cap);
+    if (lane == 0) *flag = over ? 1 : 0;
+  }
+  __syncthreads();
+  total = ends[LIST_PARTS - 1];
+  return *flag != 0;
+}
 
 // Row fields: x1 y1 x2 y2 area inv_w inv_h valid [cls]
 // Col fields: x1 y1 x2 y2 area cx   cy    valid [cls]
@@ -306,28 +399,28 @@ __device__ __forceinline__ float h1_value(float a_p, float b_p,
   return h;
 }
 
-// FC1 of a group of up to 16 queued pairs (ring slots head ..), straight
+// FC1 of a group of up to 16 pairs (`group`: the ring, or a list), straight
 // into the A fragments of fc2_mma. Slots beyond nvalid compute on
 // detection 0 and are ignored by the caller. ij2 receives the packed
-// (row, column) of the lane's two slots, gid and gid + 8. NF features per
-// entry; ROUND_B: b_p goes into the bf16 dot rounded (K1's b'), or stays
-// f32 (K5's b); EW: K1/K2's bf16 stream (h1_value).
-template <int P, int NF = KMAX, bool ROUND_B = true, bool EW = false>
+// (row, column) of the lane's two slots, gid and gid + 8, and g2 their
+// features. NF features per entry; ROUND_B: b_p goes into the bf16 dot
+// rounded (K1's b'), or stays f32 (K5's b); EW: K1/K2's bf16 stream
+// (h1_value).
+template <int P, int NF = KMAX, bool ROUND_B = true, bool EW = false,
+          class Group>
 __device__ __forceinline__ void group_h1_frags(
     const float* __restrict__ a_img, const float* __restrict__ b_img,
-    const float* wgs, const int* q_ij, const float* q_g, int head, int nvalid,
-    int lane, uint32_t (&afr)[Frag<P>::KB][4], int (&ij2)[2]) {
+    const float* wgs, const Group& group, int nvalid, int lane,
+    uint32_t (&afr)[Frag<P>::KB][4], int (&ij2)[2], float (&g2)[2][NF]) {
   using F = Frag<P>;
   const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int slot = gid + 8 * h;
-    const int qi = (head + slot) & (QCAP - 1);
-    const int ij = slot < nvalid ? q_ij[qi] : 0;
+    float(&g)[NF] = g2[h];
+    int ij = group(slot, g);
+    if (slot >= nvalid) ij = 0;
     ij2[h] = ij;
-    float g[NF];
-#pragma unroll
-    for (int k = 0; k < NF; ++k) g[k] = q_g[k * QCAP + qi];
 #ifdef GNET_ABLATE_LOADS  // a timing switch of pairwise2_fwd.cu
     const float* ar = a_img + (size_t)(ij >> 30) * P;
     const float* br = b_img + (size_t)(ij >> 30) * P;
@@ -355,6 +448,18 @@ __device__ __forceinline__ void group_h1_frags(
       }
     }
   }
+}
+
+// The same from the warp's ring, slots head ..
+template <int P, int NF = KMAX, bool ROUND_B = true, bool EW = false>
+__device__ __forceinline__ void group_h1_frags(
+    const float* __restrict__ a_img, const float* __restrict__ b_img,
+    const float* wgs, const int* q_ij, const float* q_g, int head, int nvalid,
+    int lane, uint32_t (&afr)[Frag<P>::KB][4], int (&ij2)[2]) {
+  float g2[2][NF];
+  group_h1_frags<P, NF, ROUND_B, EW>(a_img, b_img, wgs,
+                                     RingGroup<NF>{q_ij, q_g, head}, nvalid,
+                                     lane, afr, ij2, g2);
 }
 
 // pre2 += h1_p * W2[p, :] (w2s is [P][P], (in, out), 16-byte aligned).
@@ -400,16 +505,21 @@ __device__ __forceinline__ void pair_pre2(const float* __restrict__ ar,
   }
 }
 
-// This lane's queued pair (ring slot head + lane) for the CUDA-core path:
-// its packed (row, column), 0 beyond nvalid, and its features.
+// This lane's pair of a group (slot `lane`) for the CUDA-core path: its
+// packed (row, column), 0 beyond nvalid, and its features.
+template <int NF, class Group>
+__device__ __forceinline__ int lane_pair(const Group& group, int nvalid,
+                                         int lane, float (&g)[NF]) {
+  const int ij = group(lane, g);
+  return lane < nvalid ? ij : 0;
+}
+
+// The same from the warp's ring (slot head + lane).
 template <int NF>
 __device__ __forceinline__ int lane_pair(const int* q_ij, const float* q_g,
                                          int head, int nvalid, int lane,
                                          float (&g)[NF]) {
-  const int qi = (head + lane) & (QCAP - 1);
-#pragma unroll
-  for (int k = 0; k < NF; ++k) g[k] = q_g[k * QCAP + qi];
-  return lane < nvalid ? q_ij[qi] : 0;
+  return lane_pair<NF>(RingGroup<NF>{q_ij, q_g, head}, nvalid, lane, g);
 }
 
 // out[i] = part[0][i] + part[1][i] + ... in that order, for d_a (the

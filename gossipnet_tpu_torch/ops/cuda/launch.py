@@ -215,34 +215,41 @@ def _splits(geom, device, whole_matrix: bool = False) -> int:
 def forward_launch(name: str, label: str, entry: str, tiles: str, geom,
                    a: Tensor, b: Tensor, wg: Tensor, w2: Tensor,
                    b2bias: Tensor, compute_dtype: str,
-                   elementwise_dtype: str = "float32") -> Tensor:
+                   elementwise_dtype: str = "float32",
+                   extra: tuple = ()) -> Tensor:
     """A pair-pool forward kernel (K1 or K5) -> m [B, NR, P] float32;
     inputs already checked. Where the kernel splits a row tile over
     several blocks (:func:`col_splits`), its entry zero-fills the output
-    the splits merge into."""
+    the splits merge into. ``extra``: further tensors the entry takes
+    after the output (K1's neighbour list and counts)."""
     p = a.shape[-1]
     out = torch.empty((a.shape[0], a.shape[1], p), dtype=torch.float32,
                       device=a.device)
     _launch(name, label, entry, tiles, geom,
-            (geom.row, geom.col, a, b, wg, w2, b2bias, geom.flags, out),
+            (geom.row, geom.col, a, b, wg, w2, b2bias, geom.flags, out,
+             *extra),
             p, wg.shape[0], _splits(geom, a.device),
             kernel_mode(compute_dtype, elementwise_dtype))
     return out
 
 
 def work_blocks(flags: Tensor, nr: int, nc: int, splits: int,
-                tile=None) -> Tensor:
+                tile=None, groups: Tensor | None = None) -> Tensor:
     """Which of K2's blocks have a step -> bool [S, B, NI + NCT], in the
     order the kernel numbers them (split, image, then the NI row tiles and
     the NCT column tiles of :data:`BLOCK_ROWS`): the kernel's skip rule
     (``csrc/pairwise2_pair.cuh::block_has_step``) in torch.
 
-    A block walks items ``split, split + S, ...`` of its other side, TJ / 8
-    items a tile of TJ, and has a step where one of them falls in an
-    active tile: for a row block, a set flag in its own flag row; for a
-    column block, a set flag in a cell that overlaps the tile's rows and
-    the block's 32 columns (``stage_column_activity``). ``flags`` [B, NFR,
-    NFC] at ``tile`` (FI, TJ)."""
+    A block that tests its pairs walks items ``split, split + S, ...`` of
+    its other side, TJ / 8 items a tile of TJ, and has a step where one of
+    them falls in an active tile: for a row block, a set flag in its own
+    flag row; for a column block, a set flag in a cell that overlaps the
+    tile's rows and the block's 32 columns (``stage_column_activity``).
+    ``flags`` [B, NFR, NFC] at ``tile`` (FI, TJ). ``groups`` [B, NI]
+    (``pairwise2.list_groups``): a row tile's groups in the forward's
+    neighbour list, -1 where it tests its pairs; a row block of a tile
+    with a list has a step where a group falls to one of its four warps,
+    group g to split g // 4 mod S."""
     fi, tj = check_tile(tile)
     _, nfr, nfc = flags.shape
     cells = (flags.cpu() != 0).float()
@@ -267,6 +274,10 @@ def work_blocks(flags: Tensor, nr: int, nc: int, splits: int,
     ni, nct = -(-nr // BLOCK_ROWS), -(-nc // BLOCK_ROWS)
     rows = with_step(overlap(ni, BLOCK_ROWS, nfr, fi), cells,
                      torch.eye(nfc), nc)
+    if groups is not None:
+        groups = groups.cpu()[:, :, None]
+        listed = groups > 4 * torch.arange(splits)
+        rows = torch.where(groups >= 0, listed, rows)
     cols = with_step(overlap(nct, BLOCK_ROWS, nfc, tj),
                      cells.transpose(1, 2), overlap(-(-nr // tj), tj, nfr, fi),
                      nr)
@@ -302,7 +313,8 @@ def backward_scratch(s: int, b: int, nr: int, nc: int, p: int,
 def backward_launch(name: str, label: str, entry: str, tiles: str, geom,
                     a: Tensor, b: Tensor, wg: Tensor, w2: Tensor,
                     b2bias: Tensor, m: Tensor, dm: Tensor, counts: Tensor,
-                    compute_dtype: str, elementwise_dtype: str = "float32"):
+                    compute_dtype: str, elementwise_dtype: str = "float32",
+                    extra: tuple = ()):
     """K2 -> ((d_a, d_b, dWg, dW2, db2) float32, blocks launched); inputs
     already checked.
 
@@ -314,9 +326,12 @@ def backward_launch(name: str, label: str, entry: str, tiles: str, geom,
     pass sums d_b' from them. The kernel's last launch then sums every
     gradient over the blocks that had a step, in a fixed order (no float
     atomics), so two launches on the same inputs give identical bits;
-    nothing is summed here. ``counts`` (int64 [3] on the device): the
-    blocks with a step, and the column blocks with a step that summed
-    records and that recomputed their pairs.
+    nothing is summed here. ``counts`` (int64 on the device): the
+    blocks with a step, the column blocks with a step that summed
+    records and that recomputed their pairs, and the row blocks with a
+    step that took their pairs from the forward's neighbour list and that
+    tested them. ``extra``: further tensors the entry takes last (the
+    list).
     """
     bsz, nr, p = a.shape
     nc, k = b.shape[1], wg.shape[0]
@@ -331,7 +346,7 @@ def backward_launch(name: str, label: str, entry: str, tiles: str, geom,
             (geom.row, geom.col, a, b, wg, w2, b2bias, geom.flags, m, dm, da,
              db, scratch["da_part"], scratch["db_part"], scratch["wpart"],
              wsum, scratch["work"], counts, scratch["rec_vr"],
-             scratch["rec_ij"], scratch["rec_fill"]), p, k, s,
+             scratch["rec_ij"], scratch["rec_fill"], *extra), p, k, s,
             kernel_mode(compute_dtype, elementwise_dtype))
     dwg, dw2, db2 = wsum.split((k * p, p * p, p))
     return (da, db, dwg.view(k, p), dw2.view(p, p), db2), \

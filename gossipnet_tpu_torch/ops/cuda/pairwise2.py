@@ -19,6 +19,14 @@ an order-free integer merge, so several blocks share a row tile
 TPU's layout (sublane packing, kron weights, quadrant splits) carries
 over.
 
+The neighbour pairs and their features depend on the detections alone, so
+the test runs once a forward: :func:`pair_geometry` launches K1's list
+kernel on CUDA tensors (:func:`pair_list`; its plain twin
+:func:`pair_list_reference`), which writes each row tile's neighbours into
+a :class:`PairList`, and K1 and K2's row pass of every block read it
+instead of testing. A row tile whose neighbours pass the list's room
+(:func:`list_capacity`) tests its pairs as before.
+
 K2 is its backward (``csrc/pairwise2_bwd.cu``): it recomputes every
 neighbour pair once from the saved output m through the same queue and
 product and routes dm to the max winners, each exact tie getting the full
@@ -39,6 +47,7 @@ to the stated tolerance and each side finds the winners of its own m.
 
 from __future__ import annotations
 
+import ctypes
 from types import SimpleNamespace
 from typing import NamedTuple
 
@@ -48,7 +57,9 @@ from torch import Tensor
 
 from gossipnet_tpu_torch.ops import pair_features as pf
 from gossipnet_tpu_torch.ops.cuda.launch import (
+    BLOCK_ROWS,
     DEFAULT_TILE,
+    MAX_DETS,
     TILE_I,
     TILE_J,
     backward_launch,
@@ -73,6 +84,28 @@ _VALID = 7
 
 _CHUNK_ELEMENTS = 1 << 25   # pair activations per row chunk of the plain version
 
+# The forward's neighbour list (csrc/pairwise2_pair.cuh): the list kernel
+# takes a row tile of BLOCK_ROWS rows in LIST_SPLITS blocks of four warps,
+# and each warp writes the neighbours it finds into a part of its own
+LIST_SPLITS = 8
+LIST_PARTS = LIST_SPLITS * 4
+LIST_ROW_BUDGET = 512       # list entries a row tile holds per row
+
+
+class PairList(NamedTuple):
+    """K1's neighbour list of one geometry (:func:`pair_list`). A row tile
+    of :data:`BLOCK_ROWS` rows has :data:`LIST_PARTS` parts of ``cap``
+    entries (:func:`list_capacity`), part (split, warp) of the list
+    kernel; a part holds the neighbours its warp found, in its loop order:
+    its columns ascending, each column's rows ascending. The tile's list is
+    its parts one after the other. A part counts every neighbour it finds;
+    where a count passes ``cap`` the part holds its first ``cap`` and the
+    row tile is dense: its readers test its pairs instead."""
+
+    ij: Tensor      # [B, NI, PARTS, cap] int32 (row << 16) | column
+    g: Tensor       # [B, NI, PARTS, cap, 4] float32 features, unrounded
+    count: Tensor   # [B, NI, PARTS] int32 neighbours each part found
+
 
 class PairGeometry(NamedTuple):
     """What K1 reads that depends only on the detections: built once per
@@ -85,6 +118,7 @@ class PairGeometry(NamedTuple):
     flags: Tensor     # [B, NR/FI, NC/TJ] int32 tile activity at `tile`
     neighbor_iou: float
     tile: tuple = DEFAULT_TILE   # (FI, TJ), one of launch.TILES
+    pairs: PairList | None = None   # the neighbour list (CUDA tensors)
 
     @property
     def multiclass(self) -> bool:
@@ -159,14 +193,117 @@ def pair_geometry(row_cols: Tensor, col_cols: Tensor, neighbor_iou: float,
                           dim=-1)
     j_feats = torch.stack([cj.log_w, cj.log_h, cj.log_aspect, cj.score],
                           dim=-1)
+    b, nr, nc = row_t.shape[0], row_t.shape[2], col_t.shape[2]
     if block_sparse and neighbor_iou > 0.0:
         flags = tile_activity(row_t, col_t, fi, tj)
     else:
-        b, nr, nc = row_t.shape[0], row_t.shape[2], col_t.shape[2]
         flags = torch.ones((b, -(-nr // fi), -(-nc // tj)),
                            dtype=torch.int32, device=row_t.device)
-    return PairGeometry(row_t, col_t, i_feats, j_feats, flags.contiguous(),
+    geom = PairGeometry(row_t, col_t, i_feats, j_feats, flags.contiguous(),
                         float(neighbor_iou), (fi, tj))
+    if row_t.is_cuda and max(nr, nc) <= MAX_DETS:
+        geom = geom._replace(pairs=pair_list(geom))
+    return geom
+
+
+def list_capacity(nc: int) -> int:
+    """Entries a part of a row tile's list holds, from the launch's shape:
+    :data:`LIST_ROW_BUDGET` neighbours a row (the tile's 32 rows over its
+    32 parts), never more than a row's NC pairs."""
+    return min(nc, LIST_ROW_BUDGET)
+
+
+def _list_shape(geom: PairGeometry) -> tuple[int, int, int]:
+    bsz, _, nr = geom.row.shape
+    return bsz, -(-nr // BLOCK_ROWS), list_capacity(geom.col.shape[2])
+
+
+def _pairs_of(label: str, geom: PairGeometry) -> PairList:
+    """The geometry's neighbour list; raises where it has none or one of
+    another shape. A geometry rebuilt with ``_replace`` (its rows, flags
+    or tile) attaches its own: ``geom._replace(pairs=pair_list(geom))``."""
+    lst = geom.pairs
+    if lst is None:
+        raise ValueError(f"{label} reads the geometry's neighbour list, and "
+                         f"this geometry has none (pair_geometry attaches "
+                         f"it on CUDA tensors)")
+    bsz, ni, cap = _list_shape(geom)
+    if (lst.ij.shape != (bsz, ni, LIST_PARTS, cap)
+            or lst.count.shape != (bsz, ni, LIST_PARTS)):
+        raise ValueError(f"{label}: the neighbour list {tuple(lst.ij.shape)} "
+                         f"is not this geometry's {(bsz, ni, LIST_PARTS, cap)}")
+    return lst
+
+
+def pair_list_reference(geom: PairGeometry,
+                        capacity: int | None = None) -> PairList:
+    """The list kernel's plain twin -> the :class:`PairList` of ``geom``
+    on its device, entries in the kernel's order and of its bits; slots
+    past a part's entries are zero. ``capacity``: entries a part holds
+    (:func:`list_capacity` unless given).
+
+    A column belongs to the part of the warp and split whose stage A tests
+    it: warp ``(c % TJ) // (TJ / 4)`` and split ``item % LIST_SPLITS`` of
+    its item ``(c // TJ) (TJ / 8) + (c % (TJ / 4)) // 2`` (two columns a
+    step); a part tests its columns in ascending order, each against the
+    tile's rows in ascending order, and only in cells the flags keep."""
+    fi, tj = geom.tile
+    row, col = geom.row, geom.col
+    dev = row.device
+    bsz, ni, cap = _list_shape(geom)
+    cap = cap if capacity is None else capacity
+    nr, nc = row.shape[2], col.shape[2]
+    c = torch.arange(nc, device=dev)
+    item = (c // tj) * (tj // 8) + (c % (tj // 4)) // 2
+    part = (item % LIST_SPLITS) * 4 + (c % tj) // (tj // 4)
+    perm = torch.argsort(part * nc + c)                  # part, then column
+    bounds = torch.cumsum(torch.bincount(part, minlength=LIST_PARTS),
+                          0) * BLOCK_ROWS                # a part's end
+    thr = torch.tensor(geom.neighbor_iou, dtype=torch.float32, device=dev)
+    ij = torch.zeros((bsz, ni, LIST_PARTS, cap), dtype=torch.int32,
+                     device=dev)
+    g = torch.zeros((bsz, ni, LIST_PARTS, cap, 4), dtype=torch.float32,
+                    device=dev)
+    count = torch.zeros((bsz, ni, LIST_PARTS), dtype=torch.int32,
+                        device=dev)
+    for b in range(bsz):
+        ri, cj = row[b:b + 1, :, :, None], col[b:b + 1, :, None, :]
+        nb = ((fields_iou(ri, cj) >= thr) & (ri[:, _VALID] > 0.0)
+              & (cj[:, _VALID] > 0.0))[0]                # [NR, NC]
+        kept = geom.flags[b].repeat_interleave(fi, 0).repeat_interleave(
+            tj, 1)[:nr, :nc] != 0
+        nb = F.pad(nb & kept, (0, 0, 0, ni * BLOCK_ROWS - nr))
+        # [NI, NC * 32] in each tile's order: columns by part, rows ascending
+        seq = nb.view(ni, BLOCK_ROWS, nc)[:, :, perm].transpose(1, 2)
+        seq = seq.reshape(ni, -1)
+        run = torch.cumsum(seq.int(), dim=1)
+        ends = F.pad(run, (1, 0))[:, bounds]             # [NI, PARTS]
+        before = F.pad(ends, (1, 0))[:, :-1]
+        count[b] = ends - before
+        t, e = seq.nonzero(as_tuple=True)
+        p_of = torch.bucketize(e, bounds, right=True)
+        slot = run[t, e] - 1 - before[t, p_of]
+        fit = slot < cap
+        t, e, p_of, slot = t[fit], e[fit], p_of[fit], slot[fit]
+        i = t * BLOCK_ROWS + e % BLOCK_ROWS
+        j = perm[e // BLOCK_ROWS]
+        ij[b, t, p_of, slot] = ((i << 16) | j).int()
+        rf, cf = row[b][:, i], col[b][:, j]              # [C, E]
+        iou = fields_iou(rf[None], cf[None])[0]
+        feats = [iou, cf[5] * rf[5], cf[6] * rf[6],
+                 (rf[8] == cf[8]).float() if geom.multiclass
+                 else torch.zeros_like(iou)]
+        g[b, t, p_of, slot] = torch.stack(feats, dim=-1)
+    return PairList(ij, g, count)
+
+
+def list_groups(pairs: PairList, group: int) -> Tensor:
+    """The groups of ``group`` pairs each row tile's list holds -> int64
+    [B, NI], -1 where a part overflowed and the tile tests its pairs."""
+    cap = pairs.ij.shape[-1]
+    count = pairs.count.long()
+    groups = -(-count.clamp(max=cap).sum(-1) // group)
+    return torch.where((count > cap).any(-1), -1, groups)
 
 
 def _take_rows(x: Tensor, rows: tuple) -> Tensor:
@@ -367,22 +504,71 @@ def pair_pool_reference(row_cols: Tensor, col_cols: Tensor, a: Tensor,
 _LAYOUTS = ((3, len(_CI_FIELDS)), (4, len(_CI_FIELDS) + 1))
 
 
+def pair_list(geom: PairGeometry) -> PairList:
+    """One launch of K1's list kernel on the current stream -> the
+    :class:`PairList` of ``geom`` (CUDA tensors; raises if the launch is
+    refused). :func:`pair_geometry` calls it once a forward."""
+    bsz, ni, cap = _list_shape(geom)
+    dev = geom.row.device
+    lst = PairList(
+        torch.empty((bsz, ni, LIST_PARTS, cap), dtype=torch.int32,
+                    device=dev),
+        torch.empty((bsz, ni, LIST_PARTS, cap, 4), dtype=torch.float32,
+                    device=dev),
+        torch.empty((bsz, ni, LIST_PARTS), dtype=torch.int32, device=dev))
+    from gossipnet_tpu_torch.ops.cuda import build
+
+    fn = build.load("pairwise2_fwd").gnet_pair_pool2_list
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                       + [ctypes.c_float] + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    fi, tj = check_tile(geom.tile)
+
+    def call():
+        return fn(*(t.data_ptr() for t in (geom.row, geom.col, geom.flags,
+                                           *lst)),
+                  bsz, geom.row.shape[2], geom.col.shape[2],
+                  len(_KERNEL_ROWS_MC if geom.multiclass else _KERNEL_ROWS),
+                  geom.neighbor_iou, fi, tj,
+                  torch.cuda.current_stream().cuda_stream)
+
+    if torch.cuda.current_device() == dev.index:
+        err = call()
+    else:
+        with torch.cuda.device(dev):
+            err = call()
+    if err != 0:
+        raise RuntimeError(f"K1's list kernel (pairwise2_fwd.cu) launch "
+                           f"failed: CUDA error {err}")
+    pair_list.launches += 1
+    return lst
+
+
+# list kernel launches; only pair_list adds to them
+pair_list.launches = 0
+
+
 def launch_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor, wg_k: Tensor,
                   w2: Tensor, b2bias: Tensor, compute_dtype: str,
                   elementwise_dtype: str = "float32") -> Tensor:
     """One K1 launch on the current stream -> m [B, NR, P] float32.
 
     Checks device, dtype, shape and contiguity and raises on anything the
-    kernel does not take; raises if the launch is refused. A bf16 stream
-    (``elementwise_dtype="bfloat16"``) is its own instantiation, counted
-    apart in ``pair_pool.launches_ew``.
+    kernel does not take; raises if the launch is refused. Reads the
+    geometry's neighbour list, and raises where it has none. A bf16 stream (``elementwise_dtype="bfloat16"``) is its own
+    instantiation, counted apart in ``pair_pool.launches_ew``.
     """
     check_inputs("K1", geom, a2, b2, wg_k, w2, b2bias, compute_dtype,
                   _LAYOUTS, elementwise_dtype=elementwise_dtype)
     check_packable("K1", geom)
+    lst = _pairs_of("K1", geom)
+    counts = _device_count_tensor(a2.device)
     out = forward_launch("pairwise2_fwd", "K1", "gnet_pair_pool2_fwd",
                           "gnet_pair_pool2_tiles", geom, a2, b2, wg_k, w2,
-                          b2bias, compute_dtype, elementwise_dtype)
+                          b2bias, compute_dtype, elementwise_dtype,
+                          extra=(*lst, counts[3:]))
     pair_pool.launches += 1
     if elementwise_dtype == "bfloat16":
         pair_pool.launches_ew += 1
@@ -399,14 +585,11 @@ def launch_backward_kernel(geom: PairGeometry, a2: Tensor, b2: Tensor,
     check_inputs("K2", geom, a2, b2, wg_k, w2, b2bias, compute_dtype,
                   _LAYOUTS, m=m, dm=dm, elementwise_dtype=elementwise_dtype)
     check_packable("K2", geom)
-    counts = _COUNTS.get(a2.device.index)
-    if counts is None:
-        counts = _COUNTS[a2.device.index] = torch.zeros(
-            3, dtype=torch.int64, device=a2.device)
     grads, blocks = backward_launch(
         "pairwise2_bwd", "K2", "gnet_pair_pool2_bwd",
         "gnet_pair_pool2_bwd_tiles", geom, a2, b2, wg_k, w2, b2bias, m, dm,
-        counts, compute_dtype, elementwise_dtype)
+        _device_count_tensor(a2.device), compute_dtype, elementwise_dtype,
+        extra=tuple(_pairs_of("K2", geom)))
     pair_pool_backward.launches += 1
     pair_pool_backward.blocks_launched += blocks
     if elementwise_dtype == "bfloat16":
@@ -429,16 +612,25 @@ def pair_pool_backward(geom: PairGeometry, a2: Tensor, b2: Tensor,
                                   elementwise_dtype=elementwise_dtype)
 
 
-# K2's own counts on each device (device index -> int64 [3]): its blocks
-# with a step, and its column blocks with a step that summed the row
-# pass's records and that recomputed their pairs
+# The kernels' own counts on each device (device index -> int64 [5]): K2's
+# blocks with a step, its column blocks with a step that summed the row
+# pass's records and that recomputed their pairs; K1's and K2's row blocks
+# with a step that took their pairs from the list and that tested them
 _COUNTS: dict = {}
 
 
+def _device_count_tensor(device) -> Tensor:
+    counts = _COUNTS.get(device.index)
+    if counts is None:
+        counts = _COUNTS[device.index] = torch.zeros(
+            5, dtype=torch.int64, device=device)
+    return counts
+
+
 def _device_counts() -> list[int]:
-    """The three counts summed over the devices. Reads the devices'
+    """The five counts summed over the devices. Reads the devices'
     counters, so it synchronises them."""
-    totals = [0, 0, 0]
+    totals = [0] * 5
     for t in _COUNTS.values():
         totals = [x + y for x, y in zip(totals, t.tolist())]
     return totals
@@ -456,8 +648,17 @@ def column_blocks() -> tuple[int, int]:
     records, those that recomputed their pairs because a region of their
     image's records overflowed), over every launch so far on every device
     (graph replays included). Synchronises, as :func:`blocks_with_work`."""
-    _, records, recomputed = _device_counts()
+    _, records, recomputed, _, _ = _device_counts()
     return records, recomputed
+
+
+def list_tiles() -> tuple[int, int]:
+    """K1's and K2's row blocks with a step -> (those that took their pairs
+    from the forward's neighbour list, those that tested them because a
+    part of their row tile's list overflowed), over every launch so far on
+    every device (graph replays included). Synchronises, as
+    :func:`blocks_with_work`."""
+    return tuple(_device_counts()[3:])
 
 
 # K2 launches, and those of the bf16-stream instantiation among them, and
@@ -544,3 +745,4 @@ def pair_pool(row_cols: Tensor, col_cols: Tensor, a: Tensor, b: Tensor,
 # launch_kernel adds to them
 pair_pool.launches = 0
 pair_pool.launches_ew = 0
+pair_pool.list_tiles = list_tiles

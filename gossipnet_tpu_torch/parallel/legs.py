@@ -40,12 +40,14 @@ from gossipnet_tpu_torch.parallel.world import (
     make_mesh,
 )
 
-# kernel -> (wrapper, counter): the launches a leg made on its rank
+# kernel -> (wrapper, counter): the launches a leg made on its rank; "K1
+# list" is K1's list kernel, once a forward
 COUNTERS = {"K1": (k1.pair_pool, "launches"),
             "K2": (k1.pair_pool_backward, "launches"),
             "K3": (k3.greedy_scan_batched, "launches"),
             "K5": (k5.pair_pool, "launches"),
-            "K6": (k5.pair_pool_backward, "launches")}
+            "K6": (k5.pair_pool_backward, "launches"),
+            "K1 list": (k1.pair_list, "launches")}
 
 
 def launch_counts() -> dict:

@@ -50,7 +50,8 @@ from gossipnet_tpu_torch.utils.profiling import span
 # The counted wrappers of every kernel a forward or a training step runs.
 COUNTED = (pairwise2.pair_pool, pairwise2.pair_pool_backward,
            pairwise.pair_pool, pairwise.pair_pool_backward,
-           matching_scan.greedy_scan_batched, matching_scan.greedy_scan)
+           matching_scan.greedy_scan_batched, matching_scan.greedy_scan,
+           pairwise2.pair_list)
 # Every counter a graph keeps: each wrapper's ``launches``, K1's and K2's
 # bf16-stream launches, which are also counted apart, and K2's blocks.
 _COUNTERS = tuple((fn, "launches") for fn in COUNTED) + (

@@ -195,6 +195,20 @@ def test_from_records_reads_the_column_counts(monkeypatch, name):
     assert records.read(Bench(CELL, 1, 1.0, True)) is None
 
 
+@pytest.mark.parametrize("name", ["pair_from_list.train_crowd",
+                                  "pair_from_list.train"])
+def test_from_list_reads_the_row_counts(monkeypatch, name):
+    share = run.reader(name)
+    fwd = pairwise2.pair_pool
+    monkeypatch.setattr(fwd, "list_tiles", lambda: (995, 5))
+    assert share.read(Bench(CELL, 1, 1.0, True)) == pytest.approx(99.5)
+    # no row block with a step, or a program without the count
+    monkeypatch.setattr(fwd, "list_tiles", lambda: (0, 0))
+    assert share.read(Bench(CELL, 1, 1.0, True)) is None
+    monkeypatch.delattr(fwd, "list_tiles")
+    assert share.read(Bench(CELL, 1, 1.0, True)) is None
+
+
 @pytest.mark.parametrize("metric", CROWD_METRICS, ids=lambda m: m["name"])
 def test_crowd_metric_readers(metric):
     """Each of the cell's metrics has its reader, which says what the
@@ -236,7 +250,7 @@ def test_crowd_cell_entries():
     assert CELL in rate["train_dets_per_s"]["workloads"]
     assert {m["name"] for m in run.cell_metrics(BENCHMARK, CELL, False)} == {
         "train_dets_per_s", "setup_s"}
-    assert len(CROWD_METRICS) == 7
+    assert len(CROWD_METRICS) == 8
     assert set(bench.workload_file(CELL)["limits"]) == {
         "loss_gap", "loss_gap_step1", "grad_gap", "update_gap"}
 

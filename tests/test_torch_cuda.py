@@ -3,7 +3,9 @@ against their plain PyTorch versions, the captured paths against the
 eager ones, the kernel paths against the dense plain path.
 
 K1 (pair-pool forward), K2 (its backward: f32, bf16, the bf16 stream, the
-tie rule, the column-permutation probe, two launches bit-identical), K3/K4
+tie rule, the column-permutation probe, two launches bit-identical), K1's
+list kernel against its twin and K1/K2 through its list and with every
+row tile forced dense, K3/K4
 (the matching scan, exactly: overflow rows, G = 1024, 400 and 13, N = 4096
 and N not a multiple of 32, T = 32, all-zero IoU, the inputs the main
 paths build, two launches bit-identical, every output written), K2's
@@ -66,6 +68,7 @@ from chip_smoke import (
     assert_grads,
     check_k7,
     check_launch_args,
+    check_list,
     check_plain,
     check_scan,
     check_stream_k1,
@@ -911,7 +914,8 @@ def test_k2_skips_the_blocks_without_a_step_on_card(name, k, mode):
     has (N=1024 dense): against the plain backward at the usual
     tolerances, two launches bit-identical, and the blocks the kernel
     counts as having a step those of the plain skip rule
-    (``launch.work_blocks``)."""
+    (``launch.work_blocks``, its row blocks by their tiles' groups in the
+    forward's neighbour list)."""
     dev = _card()
     dts = FILL_MODES[mode]
     args, dm = _fill_args(np.random.default_rng(k), dev, k,
@@ -931,9 +935,11 @@ def test_k2_skips_the_blocks_without_a_step_on_card(name, k, mode):
     assert_grads(got, want, dts[0])
     assert all(torch.equal(x, y) for x, y in zip(got, again))
     geom = args[0]
+    group = 32 if dts[0] == "float32" else 16
     work = launch.work_blocks(
         geom.flags, geom.row.shape[2], geom.col.shape[2],
-        launch._splits(geom, dev, whole_matrix=True), geom.tile)
+        launch._splits(geom, dev, whole_matrix=True), geom.tile,
+        groups=k1.list_groups(geom.pairs, group))
     assert after[0] - before[0] == work.numel()
     assert after[1] - before[1] == int(work.sum())
 
@@ -1252,6 +1258,12 @@ def _stream_blocks(cfg) -> int:
     return cfg.model.num_blocks if stream else 0
 
 
+def _list_launches(cfg) -> int:
+    """The launches of K1's list kernel a forward of ``cfg`` makes: one
+    where its blocks run K1 (``pair_kernel: 2``)."""
+    return int(cfg.model.pair_kernel == 2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(GRAPH_CASES))
 def test_captured_forward_is_bit_equal_to_eager_on_card(name):
@@ -1263,7 +1275,8 @@ def test_captured_forward_is_bit_equal_to_eager_on_card(name):
     case = dict(GRAPH_CASES[name])
     shapes = case.pop("shapes", ((1, 256), (2, 512), (4, 256)))
     r = _graph_rescorer(buckets=sorted({n for _, n in shapes}), **case)
-    blocks = r.cfg.model.num_blocks + _stream_blocks(r.cfg)
+    blocks = (r.cfg.model.num_blocks + _stream_blocks(r.cfg)
+              + _list_launches(r.cfg))
     graphs = r._graphs
     for b, n in shapes:
         arrays = _packed(r, b, n, seed=b + n)
@@ -1388,7 +1401,7 @@ def test_captured_steps_are_bit_equal_to_eager_on_card(case):
         for k in want:
             assert torch.equal(got[k], want[k]), (i, k)
     blocks = cfg.model.num_blocks + _stream_blocks(cfg)
-    assert sum(eager_counts) == 2 * blocks + 1
+    assert sum(eager_counts) == 2 * blocks + 1 + _list_launches(cfg)
     for a, b in zip(stepped.model.parameters(), eager.model.parameters()):
         assert torch.equal(a, b)
     for a, b in zip(stepped.optimizer.make_slots(),
@@ -1687,6 +1700,105 @@ def test_pair_kernels_on_main_path_launch_arguments_on_card(main_args,
     check_launch_args(*main_args, dtype)
 
 
+def _forced_dense(args) -> tuple:
+    """Launch arguments whose every row tile reads as dense: each part of
+    the geometry's neighbour list counts one entry past its room, so K1
+    and K2's row pass test every pair as stage A does."""
+    geom = args[0]
+    lst = geom.pairs
+    over = torch.full_like(lst.count, lst.ij.shape[-1] + 1)
+    return (geom._replace(pairs=lst._replace(count=over)), *args[1:])
+
+
+def _duplicate_args(rng, dev, p=32):
+    """B=2 N=1024: image 0's first 640 detections are five nearby boxes,
+    128 copies each, so their rows have 640 neighbours and every part of
+    their row tiles' lists overflows (exact ties too); the rest clustered."""
+    b, n = 2, 1024
+    boxes, scores, valid, _ = _clustered(rng, b, n)
+    xy = 150.0 + rng.normal(0, 2.0, (5, 2))
+    five = np.concatenate([xy, xy + 40.0], -1).astype(np.float32)
+    boxes[0, :640] = np.repeat(five, 128, axis=0)
+    cs = pf.stack_columns(pf.det_columns(
+        torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev),
+        torch.from_numpy(valid).to(dev)))
+
+    def t(*shape, scale=0.5):
+        return torch.from_numpy(
+            rng.normal(0, scale, shape).astype(np.float32)).to(dev)
+
+    return (k1.pair_geometry(cs, cs, THR), t(b, n, p, scale=1.0),
+            t(b, n, p, scale=1.0), t(3, p), t(p, p), t(p)), \
+        t(b, n, p, scale=1.0)
+
+
+LIST_CASES = ("bench", "config2", "config4", "evaluation_0", "sparse_fill",
+              "crowd_fill", "multiclass", "row_shard", "tile_32x16",
+              "duplicates")
+
+
+def _list_args(name, dev) -> tuple:
+    """K1/K2 launch arguments and a cotangent of list case ``name``: a main
+    path's model arguments (:func:`_model_launch`), a class-aware N=1024
+    fill, a rank's rows of a four-way det-sharded launch (rectangular: its
+    geometry's list is built for its own rows), the skip tile 32 x 16, or
+    :func:`_duplicate_args`."""
+    rng = np.random.default_rng(len(name))
+    if name == "multiclass":
+        return _fill_args(rng, dev, 4, 2, 1024, (710, 1024))
+    if name == "row_shard":
+        args, dm, _ = _pair_args(rng, 4, 1024, dev)
+        return (_row_shard(k1, args, slice(256, 512)),
+                dm[:, 256:512].contiguous())
+    if name == "tile_32x16":
+        args, dm, _ = _pair_args(rng, 2, 1024, dev)
+        return _at_tile(args, (32, 16)), dm
+    if name == "duplicates":
+        return _duplicate_args(rng, dev)
+    _, _, args, dm, _ = _model_launch("K1", name, dev)
+    return args, dm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", LIST_CASES)
+def test_list_kernel_matches_its_twin_and_k1_k2_read_it_on_card(name):
+    """K1's list kernel against its plain twin
+    (``pairwise2.pair_list_reference``, :func:`chip_smoke.check_list`):
+    every part's count, and the entries a part holds and their features
+    bit for bit and in the same order; row tiles are dense only where a part overflowed (image 0's
+    copies). Then K1 and K2 through the list, and with every row tile
+    forced dense: f32 m bit-equal to the plain version's, the same
+    winners (dm = 1: db2 counts them), K2 bit-identical across two
+    launches, and the kernels' own counts say which way the row blocks
+    went."""
+    dev = _card()
+    args, dm = _list_args(name, dev)
+    geom = args[0]
+    lst = geom.pairs
+    check_list(geom)
+    dense = k1.list_groups(lst, 16) < 0
+    assert bool(dense.any()) == (name == "duplicates")
+    assert int(lst.count.sum()) > 0
+    m_plain = k1._reference_core(*args, "float32")
+    ones = torch.ones_like(dm)
+    wins = k1.pair_pool_backward_reference(*args, m_plain, ones,
+                                           "float32")[4]
+    for forced in (False, True):
+        a6 = _forced_dense(args) if forced else args
+        before = k1.list_tiles()
+        m = k1.launch_kernel(*a6, "float32")
+        got = k1.launch_backward_kernel(*a6, m, ones, "float32")
+        again = k1.launch_backward_kernel(*a6, m, ones, "float32")
+        listed, tested = (x - y for x, y in zip(k1.list_tiles(), before))
+        assert torch.equal(m, m_plain), forced
+        assert torch.equal(got[4], wins), forced
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), forced
+        if forced:
+            assert listed == 0 and tested > 0
+        else:
+            assert listed > 0 and (tested > 0) == bool(dense.any())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_captured_bench_loop_body_equals_the_host_chain_on_card(dtype):
@@ -1773,13 +1885,14 @@ def test_bf16_stream_k2_matches_plain_backward_on_card(stream_args):
 def _row_shard(kern, args, rows: slice) -> tuple:
     """A square launch's arguments cut to the rows ``rows`` against every
     column, as the det-sharded forward builds them (parallel/spmd.py), at
-    the square launch's skip tile."""
+    the square launch's skip tile; K1's with a list of its own rows."""
     geom = args[0]
     row = geom.row[:, :, rows].contiguous()
     if kern is k1:
         geom = geom._replace(
             row=row, i_feats=geom.i_feats[:, rows].contiguous(),
             flags=k1.tile_activity(row, geom.col, *geom.tile).contiguous())
+        geom = geom._replace(pairs=k1.pair_list(geom))
     else:
         geom = geom._replace(row=row, flags=k1.tile_activity(
             row, geom.col, *geom.tile,
@@ -1789,14 +1902,17 @@ def _row_shard(kern, args, rows: slice) -> tuple:
 
 def _at_tile(args, tile):
     """Launch arguments with the flags rebuilt at skip tile ``tile`` by the
-    model's rule (``tile_activity`` at that shape), and that tile."""
+    model's rule (``tile_activity`` at that shape), and that tile; K1's
+    with the list built at it."""
     from gossipnet_tpu_torch.ops.cuda import pairwise as k5
 
     geom = args[0]
     valid = k5._VALID if isinstance(geom, k5.PairColumns) else k1._VALID
     flags = k1.tile_activity(geom.row, geom.col, *tile, valid_field=valid)
-    return (geom._replace(flags=flags.contiguous(), tile=tuple(tile)),
-            *args[1:])
+    geom = geom._replace(flags=flags.contiguous(), tile=tuple(tile))
+    if isinstance(geom, k1.PairGeometry):
+        geom = geom._replace(pairs=k1.pair_list(geom))
+    return (geom, *args[1:])
 
 
 class _ModelLaunches:

@@ -148,18 +148,23 @@ def test_backward_scratch_is_sized_from_shapes(s, b, n, p):
 
 def test_k2_launcher_counts_its_blocks_and_keeps_one_counter(monkeypatch):
     """Each K2 call adds one launch and the blocks of its two grids, and
-    hands the kernel the device's one int64 [3] counter; the counts read
-    from it: blocks with a step, and column blocks that summed records and
-    that recomputed."""
+    hands the kernel the device's one int64 [5] counter and the
+    geometry's neighbour list; the counts read from it: blocks with a
+    step, column blocks that summed records and that recomputed, and row
+    blocks that took their pairs from the list and that tested them."""
     seen = []
+    lists = (torch.zeros(1), torch.zeros(2), torch.zeros(3))
 
-    def fake_launch(geom, a2, b2, wg_k, w2, b2bias, m, dm, counts, *dts):
+    def fake_launch(geom, a2, b2, wg_k, w2, b2bias, m, dm, counts, *dts,
+                    extra=()):
         seen.append(counts)
-        counts += torch.tensor([7, 3, 1])
+        assert all(x is y for x, y in zip(extra, lists, strict=True))
+        counts += torch.tensor([7, 3, 1, 5, 2])
         return (a2, b2, wg_k, w2, b2bias), 2 * 5 * (4 + 6)
 
     monkeypatch.setattr(k1, "check_inputs", lambda *a, **kw: None)
     monkeypatch.setattr(k1, "check_packable", lambda *a: None)
+    monkeypatch.setattr(k1, "_pairs_of", lambda label, geom: lists)
     monkeypatch.setattr(k1, "backward_launch",
                         lambda *a, **kw: fake_launch(*a[4:], **kw))
     monkeypatch.setattr(k1, "_COUNTS", {})
@@ -171,6 +176,24 @@ def test_k2_launcher_counts_its_blocks_and_keeps_one_counter(monkeypatch):
         k1.launch_backward_kernel(None, t, t, t, t, t, t, t, "float32")
     assert bwd.launches == 2 and bwd.blocks_launched == 200
     assert seen[0] is seen[1]
-    assert seen[0].dtype == torch.int64 and seen[0].shape == (3,)
+    assert seen[0].dtype == torch.int64 and seen[0].shape == (5,)
     assert bwd.blocks_with_work() == 14
     assert bwd.column_blocks() == (6, 2)
+    assert k1.pair_pool.list_tiles() == (10, 4)
+
+
+def test_a_row_tile_with_a_list_steps_where_its_groups_fall():
+    """A row tile that takes its pairs from the forward's list deals its
+    groups to the splits' four warps, group g to split g // 4 mod S: its
+    row block of a split has a step where a group falls to it, whatever
+    its flags; a dense tile (-1) keeps the flags' rule; the column blocks
+    keep theirs."""
+    flags = _flags(1, 8, 4, [(0, 0, 0), (0, 1, 0), (0, 2, 1)])
+    groups = torch.tensor([[9, -1, 0, 25, 0, 0, 0, 0]])
+    plain = launch.work_blocks(flags, 256, 256, 5, (32, 64))
+    work = launch.work_blocks(flags, 256, 256, 5, (32, 64), groups=groups)
+    assert work[:, 0, 0].tolist() == [True, True, True, False, False]
+    assert torch.equal(work[:, 0, 1], plain[:, 0, 1])
+    assert bool(plain[:, 0, 2].any()) and not bool(work[:, 0, 2].any())
+    assert bool(work[:, 0, 3].all()) and not bool(plain[:, 0, 3].any())
+    assert torch.equal(work[:, :, 8:], plain[:, :, 8:])

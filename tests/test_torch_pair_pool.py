@@ -555,3 +555,163 @@ def test_forward_launch_hands_the_kernel_its_splits(monkeypatch, label, k,
     assert seen == dict(n=9, p=p, k=k, splits=splits, label=label,
                         out=(b, nr, p))
     assert out.shape == (b, nr, p)
+
+
+# ---------------------------------------------------------------------------
+# the forward's neighbour list: the list kernel's plain twin
+# ---------------------------------------------------------------------------
+
+LIST_CASES = {
+    "odd_padded": dict(b=1, n=101, n_valid=67),
+    "multiclass": dict(b=2, n=48, num_classes=4),
+    "tile_32x16": dict(b=2, n=150, n_valid=140, tile=(32, 16)),
+    "tile_64x128": dict(b=1, n=300, tile=(64, 128)),
+    "row_slice": dict(b=2, n=120, rows=slice(40, 104)),
+}
+
+
+def _list_geom(rng, b, n, n_valid=None, num_classes=0, tile=None,
+               rows=slice(None)):
+    """A CPU geometry of clustered detections sorted by x (so whole tiles
+    are skipped), its rows ``rows`` of the columns."""
+    boxes, scores, valid, cls, *_ = _case(rng, b=b, n=n, n_valid=n_valid,
+                                          num_classes=num_classes, p=8)
+    boxes = np.take_along_axis(
+        boxes, np.argsort(boxes[..., 0], axis=1)[..., None], axis=1)
+    cs = _torch_cols(boxes, scores, valid)
+    tcls = None if cls is None else torch.from_numpy(cls)
+    return k1.pair_geometry(
+        cs[:, :, rows].contiguous(), cs, THR,
+        None if tcls is None else tcls[:, rows].contiguous(), tcls, tile=tile)
+
+
+def _plain_pairs(geom):
+    """The plain version's neighbour mask [B, NR, NC] and f32 features
+    [B, NR, NC, K] (``_pair_chunks``)."""
+    bsz, _, nr = geom.row.shape
+    nc, p = geom.col.shape[2], 8
+    k = 4 if geom.multiclass else 3
+    z = torch.zeros
+    nb, g = zip(*((nb_, g_) for _, nb_, g_, _, _ in k1._pair_chunks(
+        geom, z(bsz, nr, p), z(bsz, nc, p), z(k, p), z(p, p), z(p),
+        "float32")))
+    return torch.cat(nb, 1), torch.cat(g, 1)
+
+
+def _part_of(c, tj):
+    """The list kernel's part of column c: its warp's quarter of the tile of
+    TJ columns, and the split of its step of two columns."""
+    item = (c // tj) * (tj // 8) + (c % (tj // 4)) // 2
+    return (item % k1.LIST_SPLITS) * 4 + (c % tj) // (tj // 4)
+
+
+@pytest.mark.parametrize("name", sorted(LIST_CASES))
+def test_list_twin_holds_each_row_tiles_neighbours_in_kernel_order(rng,
+                                                                   name):
+    """Each row tile's list holds exactly the plain version's neighbour
+    pairs of its rows in the cells the flags keep, each once, with the
+    plain version's features bit for bit (the class match, or 0); a part
+    holds the columns of its warp and split, ascending, each column's rows
+    ascending. The list is built on CUDA tensors only."""
+    geom = _list_geom(rng, **LIST_CASES[name])
+    assert geom.pairs is None
+    lst = k1.pair_list_reference(geom)
+    bsz, _, nr = geom.row.shape
+    nc = geom.col.shape[2]
+    fi, tj = geom.tile
+    ni, cap = -(-nr // 32), min(nc, k1.LIST_ROW_BUDGET)
+    assert lst.ij.shape == (bsz, ni, k1.LIST_PARTS, cap)
+    assert lst.g.shape == (bsz, ni, k1.LIST_PARTS, cap, 4)
+    assert (lst.count <= cap).all()
+    nb, g = _plain_pairs(geom)
+    kept = geom.flags.repeat_interleave(fi, 1).repeat_interleave(
+        tj, 2)[:, :nr, :nc] != 0
+    assert bool((nb & ~kept).sum() == 0)    # the flags skip no neighbour
+    k = g.shape[-1]
+    total = 0
+    for b in range(bsz):
+        for t in range(ni):
+            want = {(i, j) for i, j in (nb[b, 32 * t:32 * t + 32]
+                                        & kept[b, 32 * t:32 * t + 32])
+                    .nonzero().tolist()}
+            got = set()
+            for part in range(k1.LIST_PARTS):
+                n = int(lst.count[b, t, part])
+                ij = lst.ij[b, t, part, :n].long()
+                i, j = ij >> 16, ij & 0xffff
+                assert bool((_part_of(j, tj) == part).all())
+                order = j * nr + i
+                assert bool((order[1:] > order[:-1]).all())
+                got |= {(int(x) - 32 * t, int(y)) for x, y in zip(i, j)}
+                feats = lst.g[b, t, part, :n]
+                assert torch.equal(feats[:, :k], g[b, i, j])
+                if k == 3:
+                    assert bool((feats[:, 3] == 0).all())
+            assert got == want, (b, t)
+            total += len(want)
+    assert total == int(lst.count.sum()) > 0
+    assert bool((lst.count == 0).any())     # some parts meet no neighbour
+
+
+@pytest.mark.parametrize("capacity", [0, 1, 3])
+def test_list_twin_marks_exactly_the_overflowing_row_tiles_dense(
+        rng, capacity):
+    """With room for ``capacity`` entries a part, a part still counts every
+    neighbour it finds and holds the first ``capacity`` of the full list's;
+    a row tile is dense (``list_groups`` -1) exactly where a part's count
+    passes its room, and otherwise holds its groups' worth of entries."""
+    geom = _list_geom(rng, b=2, n=160, n_valid=100)
+    full = k1.pair_list_reference(geom)
+    small = k1.pair_list_reference(geom, capacity=capacity)
+    assert small.ij.shape[-1] == capacity
+    assert torch.equal(small.count, full.count)
+    over = (full.count > capacity).any(-1)
+    groups = k1.list_groups(small, 16)
+    assert torch.equal(groups < 0, over)
+    assert bool(over.any()) and bool((~over).any())
+    held = full.count.clamp(max=capacity)
+    slot = torch.arange(capacity)
+    fits = slot < held[..., None]
+    assert torch.equal(small.ij[fits], full.ij[..., :capacity][fits])
+    assert torch.equal(small.g[fits], full.g[..., :capacity, :][fits])
+    whole = k1.list_groups(full, 16)
+    assert bool((whole >= 0).all())
+    assert torch.equal(groups[~over], whole[~over])
+    assert torch.equal(whole, -(-full.count.sum(-1) // 16))
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_a_launch_reads_its_geometrys_list_and_raises_without_one(
+        rng, monkeypatch, kernel):
+    """K1 and K2 hand their entries the geometry's own list, and raise
+    before any launch on a geometry without one (a CPU geometry) or with
+    one of another shape (a row shard cut by ``_replace`` that kept the
+    square launch's list)."""
+    geom = _list_geom(rng, b=1, n=64)
+    assert geom.pairs is None
+    lst = k1.pair_list_reference(geom)
+    seen = []
+
+    def fake(*a, extra=(), **kw):
+        seen.append(extra)
+        return (a[0], a[0], a[0], a[0], a[0]), 0
+
+    monkeypatch.setattr(k1, "check_inputs", lambda *a, **kw: None)
+    monkeypatch.setattr(k1, "forward_launch", fake)
+    monkeypatch.setattr(k1, "backward_launch", fake)
+    t = torch.zeros(1)
+    if kernel == "K1":
+        def go(g):
+            return k1.launch_kernel(g, t, t, t, t, t, "float32")
+    else:
+        def go(g):
+            return k1.launch_backward_kernel(g, t, t, t, t, t, t, t,
+                                             "float32")
+    # a row shard made by _replace, still holding the square launch's list
+    shard = geom._replace(row=geom.row[:, :, :32].contiguous(), pairs=lst)
+    for bad in (geom, shard):
+        with pytest.raises(ValueError, match=kernel):
+            go(bad)
+    assert seen == []
+    go(geom._replace(pairs=lst))
+    assert all(x is y for x, y in zip(seen[0], lst))

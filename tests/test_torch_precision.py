@@ -347,6 +347,8 @@ def test_bf16_stream_launches_its_own_instantiation(rng, monkeypatch):
     boxes, scores, valid, _, a, bb, _ = _case(rng, b=1, n=16, p=8)
     cs = _torch_cols(boxes, scores, valid)
     geom = k1.pair_geometry(cs, cs, THR)
+    # the neighbour list a CPU geometry lacks: the list kernel's twin
+    geom = geom._replace(pairs=k1.pair_list_reference(geom))
     t = (torch.from_numpy(a), torch.from_numpy(bb), torch.zeros(3, 8),
          torch.zeros(8, 8), torch.zeros(8))
     before = (k1.pair_pool.launches, k1.pair_pool.launches_ew,
