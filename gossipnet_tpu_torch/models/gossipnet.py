@@ -290,9 +290,14 @@ class GossipNet(nn.Module):
                        .to(dtype)[..., None])
         if classes is not None:
             # flax's Embed(dtype=...) casts the table before the lookup, so
-            # its gradient arrives as the bf16 cotangent's sum
-            phi.append(torch.nn.functional.embedding(
-                own(classes).long(), self.class_embed.weight.to(dtype)))
+            # its gradient arrives as the bf16 cotangent's sum. The lookup
+            # is a one-hot product (exact: one 1 a row) because its backward
+            # then sums each class's rows in a GEMM, in a fixed order; the
+            # CUDA embedding backward sums them with atomics, so two runs of
+            # one step would differ in the last bits
+            onehot = own(classes).long()[..., None] == torch.arange(
+                cfg.num_classes, device=classes.device)
+            phi.append(onehot.to(dtype) @ self.class_embed.weight.to(dtype))
         # init_fc and everything after it run in float32 (flax promotes a
         # bf16 input against float32 weights)
         c = self.init_fc(torch.cat(phi, dim=-1).float())

@@ -227,10 +227,14 @@ def launch_kernel(iou: Tensor, thresholds,
 
 def greedy_scan_batched(iou: Tensor, thresholds):
     """K3: batched greedy pass over pre-masked IoU [B, N, G] ->
-    (matched [B, N, T] bool, best [B, N, T] int32). Thresholds > 0."""
+    (matched [B, N, T] bool, best [B, N, T] int32). Thresholds > 0.
+    A launch adds the B x N x T rows it scans to ``rows_launched``."""
     if iou.device.type == "cpu":
         return greedy_scan_reference(iou, thresholds)
-    return launch_kernel(iou, thresholds, greedy_scan_batched)
+    matched, best = launch_kernel(iou, thresholds, greedy_scan_batched)
+    if iou.shape[2]:   # G == 0 launches nothing
+        greedy_scan_batched.rows_launched += matched.numel()
+    return matched, best
 
 
 def greedy_scan(iou: Tensor, thresholds):
@@ -245,4 +249,5 @@ def greedy_scan(iou: Tensor, thresholds):
 
 
 greedy_scan_batched.launches = 0   # K3 launches
+greedy_scan_batched.rows_launched = 0   # (image, detection, threshold) rows
 greedy_scan.launches = 0           # K4 launches

@@ -53,11 +53,13 @@ COUNTED = (pairwise2.pair_pool, pairwise2.pair_pool_backward,
            matching_scan.greedy_scan_batched, matching_scan.greedy_scan,
            pairwise2.pair_list)
 # Every counter a graph keeps: each wrapper's ``launches``, K1's and K2's
-# bf16-stream launches, which are also counted apart, and K2's blocks.
+# bf16-stream launches, which are also counted apart, K2's blocks and K3's
+# rows.
 _COUNTERS = tuple((fn, "launches") for fn in COUNTED) + (
     (pairwise2.pair_pool, "launches_ew"),
     (pairwise2.pair_pool_backward, "launches_ew"),
-    (pairwise2.pair_pool_backward, "blocks_launched"))
+    (pairwise2.pair_pool_backward, "blocks_launched"),
+    (matching_scan.greedy_scan_batched, "rows_launched"))
 
 
 def _counts() -> list[int]:

@@ -364,6 +364,7 @@ def _duplicated_gt(iou):
 COCO_T = np.round(np.arange(0.5, 0.951, 0.05), 2).astype(np.float32)
 T32 = np.round(np.linspace(0.05, 0.95, 32), 3).astype(np.float32)
 T1 = np.float32([0.5])
+MT = [round(float(t), 2) for t in COCO_T]    # COCO_T as a config states it
 SCAN_CASES = {   # name: (iou maker of (rng, device), thresholds)
     "overflow_rows": (lambda r, d: _sparse_iou(r, 2, 300, 112, 4,
                                                (3, 50, 51)), COCO_T),
@@ -1353,7 +1354,32 @@ STEP_CASES = {
     "config3_model_bf16": dict(experiment="coco_multiclass",
                                model=dict(num_blocks=16, dtype="bfloat16"),
                                data=dict(CONFIG2_DATA, num_classes=80)),
+    # config 3 as the train_dense80_mt cell runs it: the cell's images of
+    # 80 classes (N=1024 and 512), matching within classes at T=10
+    "config3_dense80_mt": dict(experiment="coco_multiclass",
+                               model=dict(num_blocks=16),
+                               matching=dict(thresholds=MT),
+                               data="dense80", steps=4),
 }
+
+
+def _dense80_roidb(count=32):
+    """The first ``count`` images of the ``train_dense80_mt`` cell's pool
+    (the drill's ``dense80`` draw, all 80 classes), as its driver builds
+    the roidb."""
+    from portbench import bench
+    from portbench.drivers.train_multiclass import _roidb
+    from portbench.traffic import drill80
+
+    mix = bench.traffic_file("dense80_roidb")
+    return _roidb(drill80.draw(mix["pool_seed"], "pool.dense80", "dense80",
+                               count, 1024))
+
+
+def _step_roidb(data):
+    from gossipnet_tpu_torch.data.synthetic import synthetic_roidb
+
+    return _dense80_roidb() if data == "dense80" else synthetic_roidb(**data)
 
 
 @pytest.mark.cuda
@@ -1366,7 +1392,6 @@ def test_captured_steps_are_bit_equal_to_eager_on_card(case):
     from gossipnet_tpu_torch import train as training
     from gossipnet_tpu_torch.config import experiment_path, load_config
     from gossipnet_tpu_torch.data.bucketing import BatchIterator
-    from gossipnet_tpu_torch.data.synthetic import synthetic_roidb
     from gossipnet_tpu_torch.utils.cuda_graphs import StepGraphs
 
     dev = _card()
@@ -1375,8 +1400,9 @@ def test_captured_steps_are_bit_equal_to_eager_on_card(case):
                                              "coco_persons_full")),
                       {"data": {"dataset": "synthetic"},
                        "model": {"num_blocks": 4, **kw.get("model", {})},
-                       "train": kw.get("train", {})})
-    it = BatchIterator(synthetic_roidb(**kw.get("data", SMALL_DATA)),
+                       "train": kw.get("train", {}),
+                       "matching": kw.get("matching", {})})
+    it = BatchIterator(_step_roidb(kw.get("data", SMALL_DATA)),
                        kw.get("batch", 8), cfg.data.bucket_sizes)
     eager, stepped = (training.create_train_state(
         cfg, training.build_model(cfg, "kernel", dev)) for _ in range(2))
@@ -1412,6 +1438,51 @@ def test_captured_steps_are_bit_equal_to_eager_on_card(case):
         ((i + 1) % accum == 0,
          tuple(v.shape for v in training.host_arrays(batch).values()))
         for i, batch in enumerate(batches)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("way", ["eager", "replay"])
+def test_k3_counts_the_rows_it_launches_on_card(way):
+    """``greedy_scan_batched.rows_launched`` rises by B x N x T a K3
+    launch, and not at all where G = 0 (nothing is launched): eagerly, and
+    under a captured class-aware step at T=10 on the dense80 cell's images,
+    where the eager run before the capture counts its rows, the capture
+    none, and each replay the rows its graph launches."""
+    from gossipnet_tpu_torch import train as training
+    from gossipnet_tpu_torch.config import experiment_path, load_config
+    from gossipnet_tpu_torch.data.bucketing import BatchIterator
+    from gossipnet_tpu_torch.ops.cuda import matching_scan as k3
+    from gossipnet_tpu_torch.utils.cuda_graphs import StepGraphs
+
+    dev = _card()
+    scan = k3.greedy_scan_batched
+    if way == "eager":
+        for g, rows in ((112, 3 * 600 * 10), (0, 0)):
+            iou = torch.rand((3, 600, g), device=dev)
+            before = scan.rows_launched, scan.launches
+            scan(iou, torch.from_numpy(COCO_T))
+            torch.cuda.synchronize()
+            assert (scan.rows_launched - before[0],
+                    scan.launches - before[1]) == (rows, int(g > 0))
+        return
+    cfg = load_config(experiment_path("coco_multiclass"),
+                      {"model": {"num_blocks": 4},
+                       "matching": {"thresholds": MT}})
+    state = training.create_train_state(
+        cfg, training.build_model(cfg, "kernel", dev))
+    steps = StepGraphs(state, cfg, training.step_body)
+    batch = next(BatchIterator(_dense80_roidb(8), 8, cfg.data.bucket_sizes))
+    arrays = training.host_arrays(batch)
+    for call in range(3):
+        before = scan.rows_launched, scan.launches
+        steps(arrays)
+        torch.cuda.synchronize()
+        # the first call runs the step eagerly, captures it and replays it
+        runs = 2 if call == 0 else 1
+        assert (scan.rows_launched - before[0],
+                scan.launches - before[1]) == (
+            runs * 8 * batch.padded_n * 10, runs)
+    assert steps.captures == 1
 
 
 @pytest.mark.cuda
